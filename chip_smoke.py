@@ -1,0 +1,359 @@
+#!/usr/bin/env python3
+"""Drive graphtpu_torch's main path once on an NVIDIA GPU and check it.
+
+    python3 chip_smoke.py [--out report.json]
+
+Phases (any failure raises and the run exits non-zero):
+  1. device: require CUDA; print the card's name and power limit.
+  2. build: compile the hand kernels from graphtpu_torch/kernels/csrc.
+  3. kernels: kernels B1 (Kahan) and B2 (fast) against their plain PyTorch
+     version and the float64 oracle on the blog-shaped stream (V = C =
+     10,496), plus seg-2, ragged, bf16 and Kahan-hub cases; CUDA-event
+     times of kernel and plain version.
+  4. main path: ``python -m graphtpu_torch simrank --engine spmm`` for
+     modes kahan, fast and fast16 on the blog-shaped graph; launch counts,
+     files read back, scores against the dense fp32 engine.
+  5. skew: the kahan run again on an R-MAT graph (V = 16,384).
+The last two lines are the kernels' JSON summary and the JSON result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+TOL_F32 = 1e-5        # f32 product vs plain version / float64 oracle, values <= 1
+TOL_SIM_F32 = 2e-5    # SimRank scores, f32 modes, vs the dense fp32 engine
+TOL_SIM_BF16 = 1e-2   # SimRank scores, fast16, vs the dense fp32 engine
+V_BLOG = 10_496
+C_RAGGED = 10_313
+HUB_DEGREE = 20_000
+ORACLE_ROWS = 384     # rows of each product held against the float64 oracle
+SOURCE = "graphtpu_torch/kernels/csrc/spmv.cu"
+REPLACES = {
+    "kahan": "graphtpu/kernels/spmm.py:391",  # _spmv_kernel (B1)
+    "fast": "graphtpu/kernels/spmm.py:542",   # _spmv_kernel_fast (B2)
+}
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, warmup=2, runs=9) -> float:
+    """Median CUDA-event time of ``fn()`` in ms, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bf16_ulp(a: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each entry's magnitude (0 for zeros)."""
+    _, e = torch.frexp(a.double().abs())
+    return torch.where(a != 0, torch.ldexp(torch.ones_like(a, dtype=torch.float64), e - 8), 0.0)
+
+
+def pinned64(x: np.ndarray, c: float) -> np.ndarray:
+    """float64 where(col == row, 1, c·x)."""
+    t = c * x.astype(np.float64)
+    n = min(t.shape)
+    t[np.arange(n), np.arange(n)] = 1.0
+    return t
+
+
+def blog_graph():
+    """bench.py's stand-in for the blog graph: 330,000 uniform random
+    edges on 10,240 nodes, padded with isolated nodes to V = 10,496."""
+    from graphtpu_torch import build_graph
+
+    rng = np.random.default_rng(0)
+    edges = rng.integers(0, 10240, size=(330_000, 2)).astype(np.int64)
+    return edges, build_graph(edges, n_nodes=V_BLOG)
+
+
+def phase_kernels(dev, report):
+    from graphtpu_torch import build_graph
+    from graphtpu_torch.core.reorder import rcm_order, relabel_graph
+    from graphtpu_torch.kernels import spmm
+
+    _, g = blog_graph()
+    g2, _ = relabel_graph(g, rcm_order(g))
+    plan = spmm.build_spmv_stream(g, device=dev)
+    seg2 = spmm.build_spmv_segments(g2, k=2, device=dev)
+    say(f"blog stream: V={g.n_nodes} slots={g.n_edges} items={plan.n_items} "
+        f"max_degree={g.max_degree}; rcm seg-2 stream: items={seg2.n_items}")
+    x_np = np.random.default_rng(1).random((V_BLOG, V_BLOG), dtype=np.float32)
+    x = torch.from_numpy(x_np).to(dev)
+    xb = x.bfloat16()
+    xb_np = xb.float().cpu().numpy()
+    x64 = {(False, "f32"): x_np, (True, "f32"): pinned64(x_np, 0.6),
+           (False, "bf16"): xb_np, (True, "bf16"): pinned64(xb_np, 0.6)}
+    rng = np.random.default_rng(2)
+    deg = g.host[3]
+    special = [int(np.argmax(deg)), int(np.argmax(g2.host[3])), V_BLOG - 1, 0]
+    rows = np.unique(np.concatenate([rng.choice(V_BLOG, ORACLE_ROWS), special]))
+
+    # Kahan hub: one row of degree 20,000 whose neighbours hold equal values
+    # in each column, so every f32 partial sum rounds the same way
+    star = np.stack([np.zeros(HUB_DEGREE, np.int64), np.arange(1, HUB_DEGREE + 1)], 1)
+    hub_g = build_graph(star, n_nodes=HUB_DEGREE + 1)
+    hub_vals = (1 + np.random.default_rng(3).random(1024)).astype(np.float32)
+    hub_np = np.broadcast_to(hub_vals, (HUB_DEGREE + 1, 1024)).copy()
+    hub_x = torch.from_numpy(hub_np).to(dev)
+    hub_plan = spmm.build_spmv_stream(hub_g, device=dev)
+
+    cases = [
+        # name, mode, plan, graph, table, table_scale
+        ("kahan_f32", "kahan", plan, g, x, None),
+        ("kahan_f32_pin", "kahan", plan, g, x, 0.6),
+        ("fast_f32", "fast", plan, g, x, None),
+        ("fast_f32_pin", "fast", plan, g, x, 0.6),
+        ("fast_bf16_pin", "fast", plan, g, xb, 0.6),
+        ("fast_bf16", "fast", plan, g, xb, None),
+        ("kahan_seg2_rcm_pin", "kahan", seg2, g2, x, 0.6),
+        ("fast_seg2_rcm_pin", "fast", seg2, g2, x, 0.6),
+        ("kahan_f32_pin_ragged", "kahan", plan, g, x[:, :C_RAGGED].contiguous(), 0.6),
+        ("fast_bf16_pin_ragged", "fast", plan, g, xb[:, :C_RAGGED].contiguous(), 0.6),
+    ]
+    results = []
+    for name, mode, p, gg, table, ts in cases:
+        bf = table.dtype == torch.bfloat16
+        out = spmm.spmv(p, table, mode, ts)
+        torch.cuda.synchronize()
+        plain = spmm.spmv_plain(p, table, mode, ts)
+        check(out.shape == (V_BLOG + 1, table.shape[1]) and out.dtype == table.dtype,
+              f"{name}: shape/dtype {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
+        err_plain = (out.float() - plain.float()).abs().max().item()
+        ref = x64[(ts is not None, "bf16" if bf else "f32")][:, : table.shape[1]]
+        oracle = spmm.spmm_oracle(gg, ref, rows=rows)
+        got_rows = out[torch.as_tensor(rows, device=dev)].float().cpu().numpy()
+        err_oracle = float(np.abs(got_rows - oracle).max())
+        if bf:
+            within_plain = bool(
+                ((out.float() - plain.float()).abs()
+                 <= bf16_ulp(torch.maximum(out.float().abs(), plain.float().abs()))).all())
+            o = torch.from_numpy(oracle)
+            within_oracle = bool(((torch.from_numpy(got_rows).double() - o).abs() <= bf16_ulp(o)).all())
+            bound = "1 bf16 ulp relative"
+        else:
+            within_plain = err_plain <= TOL_F32
+            within_oracle = err_oracle <= TOL_F32
+            bound = f"{TOL_F32:g} absolute"
+        ms = cuda_ms(lambda: spmm.spmv(p, table, mode, ts))
+        plain_ms = cuda_ms(lambda: spmm.spmv_plain(p, table, mode, ts), warmup=1, runs=5)
+        r = dict(case=name, kernel=mode, items=p.n_items, seg_k=p.seg_k,
+                 width=int(table.shape[1]), dtype=str(table.dtype).split(".")[-1],
+                 max_abs_err_plain=err_plain, max_abs_err_oracle=err_oracle,
+                 oracle_rows=int(len(rows)), bound=bound, ms=ms, plain_ms=plain_ms)
+        results.append(r)
+        say(f"{name}: err vs plain {err_plain:.3e}, vs float64 oracle "
+            f"{err_oracle:.3e} ({len(rows)} rows), bound {bound}; "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        check(within_plain, f"{name}: kernel vs plain version outside {bound}")
+        check(within_oracle, f"{name}: kernel vs float64 oracle outside {bound}")
+        del out, plain
+
+    hub_oracle = spmm.spmm_oracle(hub_g, hub_np, rows=[0])[0]
+    hub_k = spmm.spmv(hub_plan, hub_x, "kahan")[0].cpu().numpy()
+    hub_f = spmm.spmv(hub_plan, hub_x, "fast")[0].cpu().numpy()
+    hub_p = spmm.spmv_plain(hub_plan, hub_x, "kahan")[0].cpu().numpy()
+    hub = dict(case="kahan_hub", degree=HUB_DEGREE,
+               kahan_err_oracle=float(np.abs(hub_k - hub_oracle).max()),
+               fast_err_oracle=float(np.abs(hub_f - hub_oracle).max()),
+               plain_err_oracle=float(np.abs(hub_p - hub_oracle).max()))
+    say(f"kahan_hub (degree {HUB_DEGREE}): B1 err vs float64 oracle "
+        f"{hub['kahan_err_oracle']:.3e}, B2 plain f32 sum {hub['fast_err_oracle']:.3e}, "
+        f"plain version {hub['plain_err_oracle']:.3e}; bound {TOL_F32:g}")
+    check(hub["kahan_err_oracle"] <= TOL_F32, "kahan_hub: B1 outside the bound")
+    check(hub["fast_err_oracle"] > TOL_F32,
+          "kahan_hub: a plain f32 sum met the bound, so the case separates nothing")
+    report["kernel_cases"] = results
+    report["kahan_hub"] = hub
+    del x, xb, hub_x
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_main_path(dev, path, n_nodes, modes, report, tag):
+    """CLI runs over one edge file; returns each kernel's launches."""
+    from graphtpu_torch import read_edgelist_graph
+    from graphtpu_torch.cli import main as cli_main
+    from graphtpu_torch.core.config import SimRankConfig
+    from graphtpu_torch.io.simfile import read_sim_file, read_topk_ids
+    from graphtpu_torch.kernels import spmm
+    from graphtpu_torch.kernels.topk import topk_rows
+    from graphtpu_torch.simrank.exact import exact_simrank, exact_simrank_spmm
+
+    g = read_edgelist_graph(path, n_nodes=n_nodes)
+    cfg = SimRankConfig(iterations=3)
+    dense = exact_simrank(g, cfg, device=dev)
+    dense_top = topk_rows(dense, 20)[0].cpu().numpy()
+    launches = {"kahan": 0, "fast": 0}
+    ids = {}
+    top = {}
+    out_rows = []
+    for mode in modes:
+        kernel = "kahan" if mode == "kahan" else "fast"
+        out = os.path.join(os.path.dirname(path), f"{tag}_{mode}.txt")
+        argv = ["simrank", "--input", path, "--output", out, "--engine", "spmm",
+                "--mode", mode, "--iterations", "3", "--topk", "20",
+                "--n-nodes", str(n_nodes)]
+        for k in spmm.SPMV_LAUNCHES:
+            spmm.SPMV_LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        check(cli_main(argv) == 0, f"{tag} {mode}: CLI exit code")
+        cli_s = time.perf_counter() - t0
+        rise = dict(spmm.SPMV_LAUNCHES)
+        for k in launches:
+            launches[k] += rise[k]
+        want = {k: (2 * cfg.iterations if k == kernel else 0) for k in rise}
+        check(rise == want, f"{tag} {mode}: launches {rise}, expected {want}")
+
+        sims = read_sim_file(out + ".sim.txt")
+        ids[mode] = read_topk_ids(out)
+        top[mode] = np.array([sims[r][0][1] for r in range(n_nodes)])
+        check(sorted(sims) == list(range(n_nodes)), f"{tag} {mode}: rows in file")
+        scores = np.array([[s for _, s in sims[r]] for r in range(n_nodes)])
+        check(scores.shape == (n_nodes, 20) and np.isfinite(scores).all(),
+              f"{tag} {mode}: file scores shape {scores.shape}")
+        tol = TOL_SIM_BF16 if mode == "fast16" else TOL_SIM_F32
+        file_err = float(np.abs(scores - dense_top).max())
+        check(file_err <= tol + 5e-7, f"{tag} {mode}: file top-20 scores vs dense {file_err}")
+
+        stages = {}
+        dtype = torch.bfloat16 if mode == "fast16" else torch.float32
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = exact_simrank_spmm(g, cfg, spmv_mode=kernel, dtype=dtype,
+                                 device=dev, stage_times=stages)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        err = (sim.float() - dense).abs().max().item()
+        del sim
+        per_iter = {k: stages[k] / cfg.iterations
+                    for k in ("product1", "transpose", "product2")}
+        row = dict(graph=tag, mode=mode, V=n_nodes, slots=g.n_edges,
+                   max_degree=g.max_degree, launches=rise, max_abs_err_dense=err,
+                   bound=tol, file_topk_err=file_err, cli_wall_s=cli_s,
+                   spmm_call_wall_s=call_s, stage_ms_per_iter=per_iter)
+        out_rows.append(row)
+        say(f"{tag} {mode}: launches {rise}; S vs dense fp32 max err {err:.3e} "
+            f"(bound {tol:g}); file top-20 vs dense {file_err:.3e}; per iteration "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in per_iter.items())
+            + f" (CUDA events); CLI {cli_s:.2f} s, spmm call {call_s:.3f} s (host clock)")
+        check(err <= tol, f"{tag} {mode}: S vs dense {err} > {tol}")
+    if "fast16" in ids and "kahan" in ids:
+        # rows whose kahan top score is 0 (isolated nodes) are left out
+        agree = np.mean([len(set(ids["fast16"][r]) & set(ids["kahan"][r])) / 20
+                         for r in range(n_nodes) if top["kahan"][r] > 0])
+        report.setdefault("fast16_top20_agreement", {})[tag] = float(agree)
+        say(f"{tag}: fast16 top-20 agreement with kahan {agree:.4f} (reported, not gated)")
+    report.setdefault("main_path", []).extend(out_rows)
+    del dense
+    torch.cuda.empty_cache()
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="write a JSON report here")
+    args = ap.parse_args(argv)
+    report = {}
+
+    say("== phase 1: device")
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    dev = torch.device("cuda")
+    card = card_line()
+    say(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    report["card"] = card
+
+    say("== phase 2: build")
+    from graphtpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    build_s = time.perf_counter() - t0
+    regs = [ln.split(":", 1)[1].strip() for ln in _build.build_log.splitlines()
+            if "registers" in ln]
+    say(f"built {_build.library_path().name} from {_build.CSRC} in {build_s:.1f} s; "
+        f"ptxas: {regs}")
+    report["build_s"] = build_s
+
+    say("== phase 3: kernels against their plain version")
+    cases = phase_kernels(dev, report)
+
+    from graphtpu_torch.bench.generators import rmat_graph
+    from graphtpu_torch.io.edgelist import write_edgelist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        say("== phase 4: main path (blog-shaped graph)")
+        edges, _ = blog_graph()
+        path = os.path.join(tmp, "blog.txt")
+        write_edgelist(path, edges)
+        launches = run_main_path(dev, path, V_BLOG, ["kahan", "fast", "fast16"],
+                                 report, "blog")
+
+        say("== phase 5: skewed degrees (R-MAT)")
+        path = os.path.join(tmp, "rmat.txt")
+        write_edgelist(path, rmat_graph(scale=14, n_edges=330_000, seed=0))
+        more = run_main_path(dev, path, 1 << 14, ["kahan"], report, "rmat")
+    for k in launches:
+        launches[k] += more[k]
+        check(launches[k] > 0, f"kernel {k} was never launched on the main path")
+
+    summary = []
+    for kernel, label, pick in (("kahan", "spmv_kahan_f32 (B1)", "kahan_f32_pin"),
+                                ("fast", "spmv_fast (B2)", "fast_f32_pin")):
+        mine = [c for c in cases if c["kernel"] == kernel and c["dtype"] == "float32"]
+        timed = next(c for c in cases if c["case"] == pick)
+        summary.append(dict(
+            name=label, route="cuda", source=SOURCE, replaces=REPLACES[kernel],
+            launches=launches[kernel],
+            max_abs_err=max(c["max_abs_err_plain"] for c in mine),
+            ms=timed["ms"], plain_ms=timed["plain_ms"],
+        ))
+    report["kernels"] = summary
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    say(card_line())
+    print(json.dumps({"kernels": summary}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,222 @@
+"""Exact iterative SimRank (counterpart of ``graphtpu/simrank/exact.py``).
+
+The reference computes sim'(i,j) = C/(d_i d_j) Σ_{u∈N(i), v∈N(j)} sim(u,v)
+with the diagonal pinned to 1 during iteration and zeroed afterwards
+(``simrank/SimRank.java:36-77``).  With P the row-stochastic adjacency that
+is S' = C·P·S·Pᵀ, run two ways:
+
+* :func:`exact_simrank`: two dense fp32 matmuls per iteration (TF32 off),
+  the gold;
+* :func:`exact_simrank_spmm`: two streaming sparse products per iteration
+  through :func:`graphtpu_torch.kernels.spmm.spmv` and one transpose.
+
+A :class:`DiGraph` gets directed SimRank over in-neighbours (the in-CSR).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from graphtpu_torch.core.config import SimRankConfig, WeightedSimRankConfig
+from graphtpu_torch.core.graph import DiGraph, Graph, dense_adjacency, row_normalized
+from graphtpu_torch.kernels.spmm import build_spmv_segments, build_spmv_stream, spmv
+from graphtpu_torch.kernels.topk import topk_rows
+
+
+def _simrank_iterate(w: torch.Tensor, c: float, iterations: int) -> torch.Tensor:
+    """Iterate S' = C·W·S·Wᵀ from S = I with W row-stochastic; diag zeroed."""
+    v = w.shape[0]
+    eye = torch.eye(v, dtype=w.dtype, device=w.device)
+    s = eye
+    for _ in range(iterations):
+        s = c * (w @ (s @ w.T))
+        # pin the diagonal to 1 between iterations (SimRank.java:27-30)
+        s = s * (1 - eye) + eye
+    return s * (1 - eye)
+
+
+def exact_simrank(
+    g: Graph,
+    cfg: SimRankConfig = SimRankConfig(),
+    weighted: bool = False,
+    dtype=torch.float32,
+    device=None,
+) -> torch.Tensor:
+    """Dense [V, V] SimRank scores (diag zeroed) in full fp32: TF32 is
+    switched off for the matmuls, matching the JAX "highest" precision."""
+    if isinstance(g, DiGraph):
+        g = g.in_  # in-neighbour rows: P[i, u] = w(u->i) / sum_in(i)
+    a = dense_adjacency(g, dtype=torch.float32, device=device)
+    if not weighted and g.weight is not None:
+        a = (a > 0).to(torch.float32)
+    w = row_normalized(a).to(dtype)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _simrank_iterate(w, cfg.c, cfg.iterations)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+class _StageClock:
+    """Adds each stage's time to ``times[name]`` in ms: CUDA events on a
+    CUDA device (read once, after the loop), the host clock otherwise."""
+
+    def __init__(self, times: Optional[dict], device: torch.device):
+        self.times = times
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def stage(self, name, fn, *args, **kw):
+        if self.times is None:
+            return fn(*args, **kw)
+        if self.cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            self.marks.append((name, a, b))
+            return out
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        self.times[name] = self.times.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def close(self):
+        if self.times is None or not self.marks:
+            return
+        torch.cuda.synchronize()
+        for name, a, b in self.marks:
+            self.times[name] = self.times.get(name, 0.0) + a.elapsed_time(b)
+
+
+def exact_simrank_spmm(
+    g: Graph,
+    cfg: SimRankConfig = SimRankConfig(),
+    weighted: bool = False,
+    dtype=torch.float32,
+    spmv_mode: str = "kahan",
+    spmv_seg: int = 1,
+    device=None,
+    stage_times: Optional[dict] = None,
+) -> torch.Tensor:
+    """Exact SimRank with sparse products: [V, V] scores, diag zeroed.
+
+    Same fixed point as :func:`exact_simrank`.  Iteration 0 multiplies the
+    identity; every later iteration's first product reads the previous
+    raw output with the ``where(col == row, 1, c·x)`` scale-and-pin fused
+    into the kernel's gather (``table_scale=c``).  S is symmetric, so
+    ``P·(P·S)ᵀ = P·S·Pᵀ`` and each iteration spends one transpose.  After
+    the loop one scale-pin and the diagonal zeroing give the result.
+
+    ``spmv_mode``: "kahan" (compensated f32 row sums, the gold) or "fast"
+    (plain f32 row sums); ``dtype=torch.bfloat16`` with "fast" keeps bf16
+    iterates ("fast16").  ``spmv_seg=k`` uses the coalesced k-row stream.
+    ``stage_times``: a dict to which the ms of the two products
+    ("product1", "product2") and the transpose are added.
+    """
+    if isinstance(g, DiGraph):
+        g = g.in_
+    device = torch.device(device) if device is not None else g.device
+    v = g.n_nodes
+    if spmv_seg > 1:
+        plan = build_spmv_segments(g, weighted=weighted, k=spmv_seg, device=device)
+    else:
+        plan = build_spmv_stream(g, weighted=weighted, device=device)
+    clock = _StageClock(stage_times, device)
+
+    s = torch.eye(v, dtype=dtype, device=device)
+    for k in range(cfg.iterations):
+        pin = None if k == 0 else cfg.c
+        ps = clock.stage("product1", spmv, plan, s, spmv_mode, table_scale=pin)
+        del s
+        pst = clock.stage("transpose", lambda x: x[:v].t().contiguous(), ps)
+        del ps
+        s = clock.stage("product2", spmv, plan, pst, spmv_mode)  # raw, V+1 rows
+        del pst
+    clock.close()
+    # one scale-pin (c·S, diag 1), then sim(i,i) = 0 (SimRank.java:62-65)
+    out = s[:v].float().mul_(cfg.c)
+    out.fill_diagonal_(0.0)
+    return out.to(dtype)
+
+
+def weighted_simrank(
+    g: Graph, cfg: WeightedSimRankConfig = WeightedSimRankConfig(), **kw
+) -> torch.Tensor:
+    return exact_simrank(
+        g, SimRankConfig(c=cfg.c, iterations=cfg.iterations, topk=cfg.topk),
+        weighted=True, **kw,
+    )
+
+
+def simrank_topk(sim: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-row descending top-k (values, indices) as numpy (diag already
+    zeroed)."""
+    vals, idx = topk_rows(sim, k)
+    return vals.float().cpu().numpy(), idx.cpu().numpy()
+
+
+def weighted_simrank_reference_oracle(
+    g: Graph, c: float, iterations: int
+) -> np.ndarray:
+    """Literal numpy port of WeightedSimRank.java:68-93:
+    sim'(i,j) = C * sum_{u,v} w(i,u) w(j,v) sim(u,v) / (sum w(i,.) sum w(j,.))
+    """
+    vcount = g.n_nodes
+    rp, col, wh, _ = g.host
+    w = np.ones_like(col, np.float64) if wh is None else np.asarray(wh, np.float64)
+    sim = np.eye(vcount)
+    wsum = np.array([w[rp[i] : rp[i + 1]].sum() for i in range(vcount)])
+    for _ in range(iterations):
+        new = np.eye(vcount)
+        for i in range(vcount):
+            for j in range(i + 1, vcount):
+                if wsum[i] == 0 or wsum[j] == 0:
+                    new[i, j] = new[j, i] = 0.0
+                    continue
+                ni, wi = col[rp[i] : rp[i + 1]], w[rp[i] : rp[i + 1]]
+                nj, wj = col[rp[j] : rp[j + 1]], w[rp[j] : rp[j + 1]]
+                val = c * (wi[:, None] * wj[None, :] * sim[np.ix_(ni, nj)]).sum()
+                new[i, j] = new[j, i] = val / (wsum[i] * wsum[j])
+        sim = new
+    np.fill_diagonal(sim, 0.0)
+    return sim
+
+
+def directed_simrank_reference_oracle(
+    g: DiGraph, c: float, iterations: int
+) -> np.ndarray:
+    """Directed SimRank oracle (float64 quadruple loop over in-neighbours):
+    sim'(i,j) = C/(|I(i)||I(j)|) * sum_{u in I(i), v in I(j)} sim(u,v)."""
+    return exact_simrank_reference_oracle(g.in_, c, iterations)
+
+
+def exact_simrank_reference_oracle(
+    g: Graph, c: float, iterations: int
+) -> np.ndarray:
+    """Literal numpy port of the SimRank.java quadruple loop — the parity
+    oracle for tests (float64, O(V^2 d^2), tiny graphs only)."""
+    vcount = g.n_nodes
+    rp, col, _, deg = g.host
+    sim = np.eye(vcount)
+    for _ in range(iterations):
+        new = np.eye(vcount)
+        for i in range(vcount):
+            for j in range(i + 1, vcount):
+                if deg[i] == 0 or deg[j] == 0:
+                    new[i, j] = new[j, i] = 0.0
+                    continue
+                ni = col[rp[i] : rp[i + 1]]
+                nj = col[rp[j] : rp[j + 1]]
+                val = c * sim[np.ix_(ni, nj)].sum() / (deg[i] * deg[j])
+                new[i, j] = new[j, i] = val
+        sim = new
+    np.fill_diagonal(sim, 0.0)
+    return sim

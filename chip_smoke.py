@@ -10,10 +10,20 @@ Phases (any failure raises and the run exits non-zero):
      version and the float64 oracle on the blog-shaped stream (V = C =
      10,496), plus seg-2, ragged, bf16 and Kahan-hub cases; CUDA-event
      times of kernel and plain version.
-  4. main path: ``python -m graphtpu_torch simrank --engine spmm`` for
+  4. tree kernel: kernel B3 against its plain version on every level of
+     the blog-shaped reduction tree at 4,096-column blocks (level 0 read
+     in place from the wider iterate), the ragged tail block, C = 10,313
+     and a bf16 table; the whole tree product against the float64 oracle.
+  5. main path: ``python -m graphtpu_torch simrank --engine spmm`` for
      modes kahan, fast and fast16 on the blog-shaped graph; launch counts,
      files read back, scores against the dense fp32 engine.
-  5. skew: the kahan run again on an R-MAT graph (V = 16,384).
+  6. skew: the kahan run again on an R-MAT graph (V = 16,384).
+  7. tree path: ``exact_simrank_spmm(impl="tree")`` on the blog-shaped
+     graph (f32, bf16) and R-MAT (f32); B3 launch counts, scores against
+     the dense fp32 engine, per-stage times and peak memory.
+  8. rate probe: ``python -m graphtpu_torch.bench.spmv_rate`` on both
+     graphs (ns per item of B1, B2, X1-X3), then X1-X3 against their plain
+     versions.
 The last two lines are the kernels' JSON summary and the JSON result.
 """
 
@@ -30,18 +40,37 @@ import time
 import numpy as np
 import torch
 
+from graphtpu_torch.bench.generators import (
+    BLOG_NODES,
+    RMAT14_NODES,
+    blog_shaped_edges,
+    blog_shaped_graph,
+    rmat14_edges,
+    rmat14_graph,
+)
+from graphtpu_torch.bench.timing import cuda_ms
+
 TOL_F32 = 1e-5        # f32 product vs plain version / float64 oracle, values <= 1
+TOL_B3 = 1e-6         # B3 vs its plain version (same operations: bit-equal expected)
+TOL_RATE = 1e-5       # X2/X3 vs plain, relative to the row's sum of |terms|
 TOL_SIM_F32 = 2e-5    # SimRank scores, f32 modes, vs the dense fp32 engine
 TOL_SIM_BF16 = 1e-2   # SimRank scores, fast16, vs the dense fp32 engine
-V_BLOG = 10_496
 C_RAGGED = 10_313
 HUB_DEGREE = 20_000
 ORACLE_ROWS = 384     # rows of each product held against the float64 oracle
+COL_BLOCK = 4096      # exact_simrank_spmm's tree column block
+ITERATIONS = 3
 SOURCE = "graphtpu_torch/kernels/csrc/spmv.cu"
+RATE_SOURCE = "graphtpu_torch/kernels/csrc/spmv_rate.cu"
 REPLACES = {
     "kahan": "graphtpu/kernels/spmm.py:391",  # _spmv_kernel (B1)
     "fast": "graphtpu/kernels/spmm.py:542",   # _spmv_kernel_fast (B2)
 }
+RATE_KERNELS = (  # launch-count key, label, TPU kernel
+    ("gather_only", "rate_gather_only (X1)", "tools/exp_spmv_rate.py:29"),
+    ("accumulate_only", "rate_accumulate_only (X2)", "tools/exp_spmv_rate.py:71"),
+    ("unroll8", "rate_unroll8 (X3)", "tools/exp_spmv_rate.py:122"),
+)
 
 
 def say(msg: str) -> None:
@@ -61,22 +90,6 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup=2, runs=9) -> float:
-    """Median CUDA-event time of ``fn()`` in ms, after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
 def bf16_ulp(a: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at each entry's magnitude (0 for zeros)."""
     _, e = torch.frexp(a.double().abs())
@@ -91,28 +104,18 @@ def pinned64(x: np.ndarray, c: float) -> np.ndarray:
     return t
 
 
-def blog_graph():
-    """bench.py's stand-in for the blog graph: 330,000 uniform random
-    edges on 10,240 nodes, padded with isolated nodes to V = 10,496."""
-    from graphtpu_torch import build_graph
-
-    rng = np.random.default_rng(0)
-    edges = rng.integers(0, 10240, size=(330_000, 2)).astype(np.int64)
-    return edges, build_graph(edges, n_nodes=V_BLOG)
-
-
 def phase_kernels(dev, report):
     from graphtpu_torch import build_graph
     from graphtpu_torch.core.reorder import rcm_order, relabel_graph
     from graphtpu_torch.kernels import spmm
 
-    _, g = blog_graph()
+    g = blog_shaped_graph()
     g2, _ = relabel_graph(g, rcm_order(g))
     plan = spmm.build_spmv_stream(g, device=dev)
     seg2 = spmm.build_spmv_segments(g2, k=2, device=dev)
     say(f"blog stream: V={g.n_nodes} slots={g.n_edges} items={plan.n_items} "
         f"max_degree={g.max_degree}; rcm seg-2 stream: items={seg2.n_items}")
-    x_np = np.random.default_rng(1).random((V_BLOG, V_BLOG), dtype=np.float32)
+    x_np = np.random.default_rng(1).random((BLOG_NODES, BLOG_NODES), dtype=np.float32)
     x = torch.from_numpy(x_np).to(dev)
     xb = x.bfloat16()
     xb_np = xb.float().cpu().numpy()
@@ -120,8 +123,8 @@ def phase_kernels(dev, report):
            (False, "bf16"): xb_np, (True, "bf16"): pinned64(xb_np, 0.6)}
     rng = np.random.default_rng(2)
     deg = g.host[3]
-    special = [int(np.argmax(deg)), int(np.argmax(g2.host[3])), V_BLOG - 1, 0]
-    rows = np.unique(np.concatenate([rng.choice(V_BLOG, ORACLE_ROWS), special]))
+    special = [int(np.argmax(deg)), int(np.argmax(g2.host[3])), BLOG_NODES - 1, 0]
+    rows = np.unique(np.concatenate([rng.choice(BLOG_NODES, ORACLE_ROWS), special]))
 
     # Kahan hub: one row of degree 20,000 whose neighbours hold equal values
     # in each column, so every f32 partial sum rounds the same way
@@ -151,7 +154,7 @@ def phase_kernels(dev, report):
         out = spmm.spmv(p, table, mode, ts)
         torch.cuda.synchronize()
         plain = spmm.spmv_plain(p, table, mode, ts)
-        check(out.shape == (V_BLOG + 1, table.shape[1]) and out.dtype == table.dtype,
+        check(out.shape == (BLOG_NODES + 1, table.shape[1]) and out.dtype == table.dtype,
               f"{name}: shape/dtype {tuple(out.shape)} {out.dtype}")
         check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
         err_plain = (out.float() - plain.float()).abs().max().item()
@@ -205,6 +208,70 @@ def phase_kernels(dev, report):
     return results
 
 
+def phase_tree_kernel(dev, report):
+    """B3 on the blog-shaped tree's levels against its plain version, and
+    the whole tree product against the float64 oracle."""
+    from graphtpu_torch.kernels import spmm
+
+    g = blog_shaped_graph()
+    tree = spmm.build_reduction_tree(g, device=dev)
+    say(f"blog tree: W={tree.width}, real rows per level {list(tree.real_rows)}, "
+        f"padded {[int(l.shape[0]) for l in tree.levels]}")
+    x_np = np.random.default_rng(1).random((BLOG_NODES, BLOG_NODES), dtype=np.float32)
+    x = torch.from_numpy(x_np).to(dev)
+    xb = x.bfloat16()
+    # the tables each level reads in the first column block of a product
+    tables = [x[:, :COL_BLOCK]]
+    for k in range(len(tree.levels) - 1):
+        tables.append(spmm.gather_rows_sum(tree.levels[k], tree.weights[k], tables[-1]))
+    lv, wt = tree.levels, tree.weights
+    cases = [(f"level{k}" + ("_strided" if k == 0 else ""), lv[k], wt[k], tables[k])
+             for k in range(len(lv))]
+    cases += [
+        ("level0_tail_strided", lv[0], wt[0], x[:, 2 * COL_BLOCK:]),
+        ("level0_C10313", lv[0], wt[0], x[:, :C_RAGGED].contiguous()),
+        ("level0_bf16_strided", lv[0], wt[0], xb[:, :COL_BLOCK]),
+    ]
+    results = []
+    for name, sl, w, table in cases:
+        out = spmm.gather_rows_sum(sl, w, table)
+        torch.cuda.synchronize()
+        plain = spmm.gather_rows_sum_plain(sl, w, table)
+        check(out.shape == (sl.shape[0], table.shape[1]) and out.dtype == torch.float32,
+              f"{name}: shape/dtype {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        err = (out - plain).abs().max().item()
+        unequal = int((out != plain).sum().item())
+        ms = cuda_ms(lambda: spmm.gather_rows_sum(sl, w, table))
+        plain_ms = cuda_ms(lambda: spmm.gather_rows_sum_plain(sl, w, table), warmup=1, runs=5)
+        r = dict(case=name, rows=int(sl.shape[0]), width=int(table.shape[1]),
+                 ld=int(table.stride(0)), dtype=str(table.dtype).split(".")[-1],
+                 max_abs_err_plain=err, unequal=unequal, ms=ms, plain_ms=plain_ms)
+        results.append(r)
+        say(f"B3 {name}: [{r['rows']} x {r['width']}] ld {r['ld']} {r['dtype']}: err vs "
+            f"plain {err:.3e}, {unequal} unequal elements, bound {TOL_B3:g}; "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        check(err <= TOL_B3, f"B3 {name}: kernel vs plain version {err} > {TOL_B3}")
+        del out, plain
+    del tables
+    # sampled rows plus the hub, an isolated pad row and row 0
+    special = [int(np.argmax(g.host[3])), BLOG_NODES - 1, 0]
+    rows = np.unique(np.concatenate(
+        [np.random.default_rng(2).choice(BLOG_NODES, ORACLE_ROWS), special]))
+    prod = spmm.tree_spmm(tree, x, COL_BLOCK)
+    got = prod[torch.as_tensor(rows, device=dev)].cpu().numpy()
+    err = float(np.abs(got - spmm.spmm_oracle(g, x_np, rows=rows)).max())
+    ms = cuda_ms(lambda: spmm.tree_spmm(tree, x, COL_BLOCK), warmup=1, runs=5)
+    say(f"tree_spmm at V = C = {BLOG_NODES}: vs float64 oracle {err:.3e} over {len(rows)} "
+        f"rows (bound {TOL_F32:g}); {ms:.3f} ms per product")
+    check(err <= TOL_F32, f"tree_spmm vs float64 oracle {err} > {TOL_F32}")
+    report["tree_kernel_cases"] = results
+    report["tree_product"] = dict(max_abs_err_oracle=err, oracle_rows=int(len(rows)), ms=ms)
+    del x, xb, prod
+    torch.cuda.empty_cache()
+    return results
+
+
 def run_main_path(dev, path, n_nodes, modes, report, tag):
     """CLI runs over one edge file; returns each kernel's launches."""
     from graphtpu_torch import read_edgelist_graph
@@ -254,11 +321,14 @@ def run_main_path(dev, path, n_nodes, modes, report, tag):
         stages = {}
         dtype = torch.bfloat16 if mode == "fast16" else torch.float32
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         sim = exact_simrank_spmm(g, cfg, spmv_mode=kernel, dtype=dtype,
                                  device=dev, stage_times=stages)
         torch.cuda.synchronize()
         call_s = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
         err = (sim.float() - dense).abs().max().item()
         del sim
         per_iter = {k: stages[k] / cfg.iterations
@@ -266,12 +336,14 @@ def run_main_path(dev, path, n_nodes, modes, report, tag):
         row = dict(graph=tag, mode=mode, V=n_nodes, slots=g.n_edges,
                    max_degree=g.max_degree, launches=rise, max_abs_err_dense=err,
                    bound=tol, file_topk_err=file_err, cli_wall_s=cli_s,
-                   spmm_call_wall_s=call_s, stage_ms_per_iter=per_iter)
+                   spmm_call_wall_s=call_s, stage_ms_per_iter=per_iter,
+                   peak_gb=peak_gb)
         out_rows.append(row)
         say(f"{tag} {mode}: launches {rise}; S vs dense fp32 max err {err:.3e} "
             f"(bound {tol:g}); file top-20 vs dense {file_err:.3e}; per iteration "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in per_iter.items())
-            + f" (CUDA events); CLI {cli_s:.2f} s, spmm call {call_s:.3f} s (host clock)")
+            + f" (CUDA events); CLI {cli_s:.2f} s, spmm call {call_s:.3f} s (host clock); "
+            f"peak {peak_gb:.3f} GB above the {base / 1e9:.3f} GB held")
         check(err <= tol, f"{tag} {mode}: S vs dense {err} > {tol}")
     if "fast16" in ids and "kahan" in ids:
         # rows whose kahan top score is 0 (isolated nodes) are left out
@@ -283,6 +355,106 @@ def run_main_path(dev, path, n_nodes, modes, report, tag):
     del dense
     torch.cuda.empty_cache()
     return launches
+
+
+def run_tree_path(dev, g, tag, dtypes, report):
+    """``exact_simrank_spmm(impl="tree")`` on ``g``; returns B3's launches."""
+    from graphtpu_torch.core.config import SimRankConfig
+    from graphtpu_torch.kernels import spmm
+    from graphtpu_torch.simrank.exact import exact_simrank, exact_simrank_spmm
+
+    cfg = SimRankConfig(iterations=ITERATIONS)
+    v = g.n_nodes
+    dense = exact_simrank(g, cfg, device=dev)
+    levels = len(spmm.build_reduction_tree(g).levels)
+    want = cfg.iterations * 2 * -(-v // COL_BLOCK) * levels
+    total = 0
+    for dtype in dtypes:
+        name = str(dtype).split(".")[-1]
+        tol = TOL_SIM_BF16 if dtype == torch.bfloat16 else TOL_SIM_F32
+        stages = {}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        spmm.GATHER_LAUNCHES["gather_rows_sum"] = 0
+        t0 = time.perf_counter()
+        sim = exact_simrank_spmm(g, cfg, dtype=dtype, impl="tree", device=dev,
+                                 col_block=COL_BLOCK, stage_times=stages)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = spmm.GATHER_LAUNCHES["gather_rows_sum"]
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        total += launches
+        check(sim.shape == (v, v) and sim.dtype == dtype, f"{tag} tree {name}: shape/dtype")
+        check(bool(torch.isfinite(sim.float()).all()), f"{tag} tree {name}: non-finite scores")
+        err = (sim.float() - dense).abs().max().item()
+        del sim
+        per_iter = {k: stages[k] / cfg.iterations
+                    for k in ("product1", "transpose", "product2")}
+        report.setdefault("tree_path", []).append(dict(
+            graph=tag, dtype=name, V=v, slots=g.n_edges, levels=levels,
+            launches=launches, expected_launches=want, max_abs_err_dense=err,
+            bound=tol, call_wall_s=call_s, stage_ms_per_iter=per_iter,
+            peak_gb=peak_gb))
+        say(f"{tag} tree {name}: {levels} levels, B3 launches {launches} (expected "
+            f"{want}); S vs dense fp32 max err {err:.3e} (bound {tol:g}); per iteration "
+            + ", ".join(f"{k} {t:.3f} ms" for k, t in per_iter.items())
+            + f" (CUDA events; product2 includes scale, pin and cast); call {call_s:.3f} s "
+            f"(host clock); peak {peak_gb:.3f} GB above the {base / 1e9:.3f} GB held")
+        check(launches == want, f"{tag} tree {name}: {launches} B3 launches, expected {want}")
+        check(err <= tol, f"{tag} tree {name}: S vs dense {err} > {tol}")
+    del dense
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_rate_probe(dev, report):
+    """The probe's entry point on both graphs, then X1-X3 against their
+    plain versions; returns the X kernels' launches and their cases."""
+    from graphtpu_torch.bench import spmv_rate
+    from graphtpu_torch.kernels import spmm
+
+    for k in spmv_rate.RATE_LAUNCHES:
+        spmv_rate.RATE_LAUNCHES[k] = 0
+    report["rate_probe"] = spmv_rate.main([])
+    launches = dict(spmv_rate.RATE_LAUNCHES)
+    say(f"rate probe launches {launches}")
+
+    cases = []
+    for tag in ("blog", "rmat"):
+        g = spmv_rate.GRAPHS[tag]()
+        stream = spmm.build_spmv_stream(g, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        table = torch.rand((g.n_nodes, g.n_nodes), generator=gen, device=dev)
+        buf = torch.rand((spmv_rate.N_BUF, g.n_nodes), generator=gen, device=dev)
+        for key, label, _ in RATE_KERNELS:
+            fn = getattr(spmv_rate, key)
+            plain_fn = getattr(spmv_rate, key + "_plain")
+            arg = buf if key == "accumulate_only" else table
+            out = fn(stream, arg)
+            torch.cuda.synchronize()
+            plain = plain_fn(stream, arg)
+            check(out.shape == (g.n_nodes + 1, g.n_nodes) and bool(torch.isfinite(out).all()),
+                  f"{tag} {label}: shape or non-finite output")
+            diff = (out - plain).abs()
+            err = diff.max().item()
+            if key == "gather_only":
+                ok, bound = torch.equal(out, plain), "exact"
+            else:
+                # every term is >= 0, so the plain sum is the row's sum of |terms|
+                ok, bound = bool((diff <= TOL_RATE * plain).all()), f"{TOL_RATE:g} of sum|terms|"
+            ms = cuda_ms(lambda: fn(stream, arg))
+            plain_ms = cuda_ms(lambda: plain_fn(stream, arg), warmup=1, runs=3)
+            cases.append(dict(graph=tag, kernel=key, max_abs_err_plain=err, bound=bound,
+                              ms=ms, plain_ms=plain_ms))
+            say(f"{tag} {label}: err vs plain {err:.3e} (bound {bound}); "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            check(ok, f"{tag} {label}: kernel vs plain version outside {bound}")
+            del out, plain, diff
+        del table, buf
+        torch.cuda.empty_cache()
+    report["rate_cases"] = cases
+    return launches, cases
 
 
 def main(argv=None) -> int:
@@ -310,27 +482,39 @@ def main(argv=None) -> int:
         f"ptxas: {regs}")
     report["build_s"] = build_s
 
-    say("== phase 3: kernels against their plain version")
+    say("== phase 3: kernels B1, B2 against their plain version")
     cases = phase_kernels(dev, report)
 
-    from graphtpu_torch.bench.generators import rmat_graph
+    say("== phase 4: kernel B3 against its plain version")
+    tree_cases = phase_tree_kernel(dev, report)
+
     from graphtpu_torch.io.edgelist import write_edgelist
 
     with tempfile.TemporaryDirectory() as tmp:
-        say("== phase 4: main path (blog-shaped graph)")
-        edges, _ = blog_graph()
+        say("== phase 5: main path (blog-shaped graph)")
         path = os.path.join(tmp, "blog.txt")
-        write_edgelist(path, edges)
-        launches = run_main_path(dev, path, V_BLOG, ["kahan", "fast", "fast16"],
+        write_edgelist(path, blog_shaped_edges())
+        launches = run_main_path(dev, path, BLOG_NODES, ["kahan", "fast", "fast16"],
                                  report, "blog")
 
-        say("== phase 5: skewed degrees (R-MAT)")
+        say("== phase 6: skewed degrees (R-MAT)")
         path = os.path.join(tmp, "rmat.txt")
-        write_edgelist(path, rmat_graph(scale=14, n_edges=330_000, seed=0))
-        more = run_main_path(dev, path, 1 << 14, ["kahan"], report, "rmat")
+        write_edgelist(path, rmat14_edges())
+        more = run_main_path(dev, path, RMAT14_NODES, ["kahan"], report, "rmat")
     for k in launches:
         launches[k] += more[k]
         check(launches[k] > 0, f"kernel {k} was never launched on the main path")
+
+    say("== phase 7: tree path (exact_simrank_spmm impl='tree')")
+    launches["gather"] = run_tree_path(dev, blog_shaped_graph(), "blog",
+                                       [torch.float32, torch.bfloat16], report)
+    launches["gather"] += run_tree_path(dev, rmat14_graph(), "rmat", [torch.float32], report)
+
+    say("== phase 8: SpMV item-rate probe")
+    rate_launches, rate_cases = phase_rate_probe(dev, report)
+    launches.update(rate_launches)
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was never launched on its path")
 
     summary = []
     for kernel, label, pick in (("kahan", "spmv_kahan_f32 (B1)", "kahan_f32_pin"),
@@ -340,6 +524,23 @@ def main(argv=None) -> int:
         summary.append(dict(
             name=label, route="cuda", source=SOURCE, replaces=REPLACES[kernel],
             launches=launches[kernel],
+            max_abs_err=max(c["max_abs_err_plain"] for c in mine),
+            ms=timed["ms"], plain_ms=timed["plain_ms"],
+        ))
+    level0 = tree_cases[0]  # the largest level, first column block
+    summary.append(dict(
+        name="gather_rows_sum (B3)", route="cuda",
+        source="graphtpu_torch/kernels/csrc/gather.cu",
+        replaces="graphtpu/kernels/spmm.py:851", launches=launches["gather"],
+        max_abs_err=max(c["max_abs_err_plain"] for c in tree_cases),
+        ms=level0["ms"], plain_ms=level0["plain_ms"],
+    ))
+    for key, label, replaces in RATE_KERNELS:
+        mine = [c for c in rate_cases if c["kernel"] == key]
+        timed = next(c for c in mine if c["graph"] == "blog")
+        summary.append(dict(
+            name=label, route="cuda", source=RATE_SOURCE, replaces=replaces,
+            launches=launches[key],
             max_abs_err=max(c["max_abs_err_plain"] for c in mine),
             ms=timed["ms"], plain_ms=timed["plain_ms"],
         ))

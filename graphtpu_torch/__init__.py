@@ -3,9 +3,10 @@
 Each module sits opposite its ``graphtpu`` counterpart:
   core/     CSR graph containers, typed config, relabeling, plan conversion
   io/       edge-list and ``.sim.txt`` readers and writers
-  kernels/  streaming SpMM plans, the hand CUDA kernels (csrc/), top-k
-  simrank/  exact SimRank, dense and streaming-sparse
-  bench/    synthetic graph generators
+  kernels/  sparse product plans (item streams, reduction trees), the hand
+            CUDA kernels (csrc/), top-k
+  simrank/  exact SimRank, dense and sparse (stream or tree)
+  bench/    synthetic graph generators, the SpMV item-rate probe
 This package imports neither ``jax`` nor ``graphtpu``.
 """
 

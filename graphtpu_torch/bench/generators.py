@@ -2,7 +2,8 @@
 
 The three generators the port's checks need, with the semantics of
 ``graphtpu/bench/generators.py``: uniform random pairs, bipartite, and
-R-MAT power-law graphs.
+R-MAT power-law graphs; and the two graphs the port's checks run at full
+width, :func:`blog_shaped_graph` and :func:`rmat14_graph`.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+from graphtpu_torch.core.graph import build_graph
 
 
 def uniform_random_graph(
@@ -67,3 +70,32 @@ def rmat_graph(
         dst = dst + (1 << scale)
     keep = src != dst
     return np.stack([src[keep], dst[keep]], axis=1)
+
+
+BLOG_NODES = 10_496
+
+
+def blog_shaped_edges(seed: int = 0) -> np.ndarray:
+    """bench.py's stand-in for the BlogCatalog graph: 330,000 uniform random
+    pairs on 10,240 nodes (bench.py:184-186); build it with
+    ``n_nodes=BLOG_NODES``, which pads with isolated nodes."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 10240, size=(330_000, 2)).astype(np.int64)
+
+
+def blog_shaped_graph(seed: int = 0, device="cpu"):
+    """The blog-shaped graph: V = 10,496, 657,924 CSR slots at seed 0."""
+    return build_graph(blog_shaped_edges(seed), n_nodes=BLOG_NODES, device=device)
+
+
+RMAT14_NODES = 1 << 14
+
+
+def rmat14_edges(seed: int = 0) -> np.ndarray:
+    """R-MAT at scale 14 with 330,000 edges (self-loops dropped)."""
+    return rmat_graph(scale=14, n_edges=330_000, seed=seed)
+
+
+def rmat14_graph(seed: int = 0, device="cpu"):
+    """The R-MAT graph: V = 16,384, degrees skewed up to 4,086 at seed 0."""
+    return build_graph(rmat14_edges(seed), n_nodes=RMAT14_NODES, device=device)

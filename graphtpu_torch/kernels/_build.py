@@ -1,8 +1,9 @@
 """Build and bind the hand CUDA kernels of ``csrc/``.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface, named by a hash of the sources
-and flags, under ``kernels/_build/`` (git-ignored); ``ctypes`` loads it.
+shared library with a plain C interface, named by a hash of the sources,
+their shared headers (``csrc/*.cuh``) and the flags, under
+``kernels/_build/`` (git-ignored); ``ctypes`` loads it.
 A missing ``nvcc`` or a failed build raises with the compiler's output:
 nothing falls back to another implementation.
 """
@@ -49,7 +50,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgraphtpu_torch_kernels-{h.hexdigest()[:16]}.so"
@@ -94,6 +95,12 @@ def load() -> ctypes.CDLL:
         p, p, p, p, p, p, i64, i64, i32, i32, f32, i32, i32, p,
     ]
     lib.gt_spmv_fast.restype = ctypes.c_int
+    lib.gt_gather_rows_sum.argtypes = [p, p, p, i64, p, i64, i64, i32, i64, i32, p]
+    lib.gt_gather_rows_sum.restype = ctypes.c_int
+    for name in ("gt_rate_gather_only", "gt_rate_accumulate_only", "gt_rate_unroll8"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, i64, i64, p]
+        fn.restype = ctypes.c_int
     lib.gt_error_string.argtypes = [ctypes.c_int]
     lib.gt_error_string.restype = ctypes.c_char_p
     _lib = lib

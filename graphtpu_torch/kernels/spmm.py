@@ -1,17 +1,20 @@
-"""Streaming CSR × dense products for exact SimRank (counterpart of
+"""CSR × dense products for exact SimRank (counterpart of
 ``graphtpu/kernels/spmm.py``).
 
 SimRank's operator form S' = C·P·S·Pᵀ needs P·X with P the row-stochastic
 adjacency: row i of P·X is ``Σ_u w(i,u)·X[u, :] / Σ_u w(i,u)``, a run of
-gathered rows per output row.  The host builds one plan per graph, an
-:class:`SpmvStream` of (slot, weight, output row) items sorted by output
-row, and :func:`spmv` runs it:
+gathered rows per output row.  The host builds one plan per graph, in one
+of two forms:
 
-* on a CUDA tensor, through the hand kernels of ``csrc/spmv.cu`` — B1
-  (Kahan-compensated row sums, the gold mode) and B2 (plain f32 row sums,
-  f32 or bf16 tables);
-* on a CPU tensor, through :func:`spmv_plain`, the plain PyTorch version
-  of both kernels.
+* an :class:`SpmvStream` of (slot, weight, output row) items sorted by
+  output row, run by :func:`spmv` — on a CUDA tensor through the hand
+  kernels of ``csrc/spmv.cu``, B1 (Kahan-compensated row sums, the gold
+  mode) and B2 (plain f32 row sums, f32 or bf16 tables); on a CPU tensor
+  through :func:`spmv_plain`, the plain PyTorch version of both;
+* a :class:`ReductionTree`, a padded W-ary gather-reduction tree run by
+  :func:`tree_spmm` one level at a time through :func:`gather_rows_sum` —
+  on a CUDA tensor the hand kernel B3 of ``csrc/gather.cu``, on a CPU
+  tensor :func:`gather_rows_sum_plain`.
 
 Weighted P follows ``weighted/WeightedSimRank.java:68-93`` of the
 reference; a degree-0 row is a zero row (``SimRank.java:69``).
@@ -21,15 +24,16 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from graphtpu_torch.core.graph import Graph
 
-# kernel launches per mode, counted where the wrapper launches a kernel
+# kernel launches, counted where a wrapper launches its kernel
 SPMV_LAUNCHES = {"kahan": 0, "fast": 0}
+GATHER_LAUNCHES = {"gather_rows_sum": 0}
 
 # upper bound on the elements of spmv_plain's [T, C_blk] gather temporary
 _PLAIN_TEMP_ELEMS = 1 << 28
@@ -249,6 +253,42 @@ def _first_item_scale(stream: SpmvStream) -> torch.Tensor:
     return torch.where(has, s, torch.zeros_like(s))
 
 
+def scatter_rows_plain(
+    pos: torch.Tensor,
+    n_out: int,
+    c: int,
+    temp_rows: int,
+    rows_of,
+    reduce: str = "sum",
+    row_scale: Optional[torch.Tensor] = None,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """[n_out, c] in ``dtype``: the item rows reduced into their output rows.
+
+    Runs in column blocks that keep the [temp_rows, C_blk] temporaries near
+    1 GB.  For each block [lo, hi), ``rows_of(lo, hi)`` gives the items'
+    [T, hi-lo] f32 rows, reduced by int64 ``pos`` in f32: "sum" by
+    ``index_add_``, "amax" by ``scatter_reduce_`` (rows with no item stay
+    0).  ``row_scale`` ([n_out, 1] f32), when given, then scales each row.
+    """
+    dev = pos.device
+    out = torch.empty((n_out, c), dtype=dtype, device=dev)
+    c_blk = max(1, min(c, _PLAIN_TEMP_ELEMS // max(temp_rows, 1)))
+    for lo in range(0, c, c_blk):
+        hi = min(c, lo + c_blk)
+        rows = rows_of(lo, hi)
+        acc = torch.zeros((n_out, hi - lo), dtype=torch.float32, device=dev)
+        if reduce == "sum":
+            acc.index_add_(0, pos, rows)
+        else:
+            acc.scatter_reduce_(0, pos[:, None].expand_as(rows), rows, "amax",
+                                include_self=False)
+        if row_scale is not None:
+            acc = acc * row_scale
+        out[:, lo:hi] = acc.to(dtype)
+    return out
+
+
 def spmv_plain(
     stream: SpmvStream,
     table: torch.Tensor,
@@ -274,11 +314,9 @@ def spmv_plain(
     pos = stream.pos.to(dev, torch.int64)
     w = (stream.wts if mode == "kahan" else stream.raw_wts).to(dev).view(t_total, k)
     multiply = mode == "kahan" or not (stream.uniform and k == 1)
-    out = torch.empty((v + 1, c), dtype=table.dtype, device=dev)
-    c_blk = max(1, min(c, _PLAIN_TEMP_ELEMS // max(t_total * k, 1)))
     row_scale = _first_item_scale(stream).to(dev)[:, None] if mode == "fast" else None
-    for lo in range(0, c, c_blk):
-        hi = min(c, lo + c_blk)
+
+    def rows_of(lo, hi):
         xb = table[:, lo:hi].float()
         cols = torch.arange(lo, hi, device=dev)
         rows = None
@@ -292,12 +330,10 @@ def spmv_plain(
             if multiply:
                 r = r * w[:, j : j + 1]
             rows = r if rows is None else rows + r
-        acc = torch.zeros((v + 1, hi - lo), dtype=torch.float32, device=dev)
-        acc.index_add_(0, pos, rows)
-        if row_scale is not None:
-            acc = acc * row_scale
-        out[:, lo:hi] = acc.to(table.dtype)
-    return out
+        return rows
+
+    return scatter_rows_plain(pos, v + 1, c, t_total * k, rows_of,
+                              row_scale=row_scale, dtype=table.dtype)
 
 
 def _check_mode(mode: str, table: torch.Tensor) -> None:
@@ -375,6 +411,247 @@ def _spmv_cuda(stream, table, mode, table_scale):
     if rc != 0:
         raise RuntimeError(f"spmv {mode} kernel launch failed: {_build.error_string(rc)}")
     SPMV_LAUNCHES[mode] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# reduction tree: out[m, :] = sum_j weights[m, j] * table[slots[m, j], :]
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ReductionTree:
+    """Gather plan for P·X over one graph, laid out as graphtpu's.
+
+    ``levels[k]``: int32[M_k, W] row indices into the previous level's
+    output (level 0 indexes X by CSR column); pad slots point at row 0 with
+    weight 0.  ``weights[k]``: float32[M_k, W] per-slot factors (edge
+    weight at level 0, validity deeper, the 1/Σw row scale folded into the
+    last level).  The last level yields ``n_nodes`` rows in node order.
+    Every level is padded to a block multiple; ``real_rows[k]`` is the
+    unpadded M_k, and deeper levels index only that prefix.
+    """
+
+    levels: Tuple[torch.Tensor, ...]
+    weights: Tuple[torch.Tensor, ...]
+    width: int
+    n_nodes: int
+    real_rows: Tuple[int, ...]
+
+    def to(self, device) -> "ReductionTree":
+        return dataclasses.replace(
+            self,
+            levels=tuple(l.to(device) for l in self.levels),
+            weights=tuple(w.to(device) for w in self.weights),
+        )
+
+
+def tree_from_numpy(
+    levels, weights, width, n_nodes, real_rows, device="cpu"
+) -> ReductionTree:
+    """A :class:`ReductionTree` from host arrays (graphtpu's tree fields
+    after ``np.asarray``)."""
+    return ReductionTree(
+        levels=tuple(
+            torch.tensor(np.asarray(l, np.int32), device=device) for l in levels
+        ),
+        weights=tuple(
+            torch.tensor(np.asarray(w, np.float32), device=device) for w in weights
+        ),
+        width=int(width),
+        n_nodes=int(n_nodes),
+        real_rows=tuple(int(r) for r in real_rows),
+    )
+
+
+def _pad_rows(a: np.ndarray, mult: int, fill) -> np.ndarray:
+    pad = (-a.shape[0]) % mult
+    if pad == 0:
+        return a
+    return np.concatenate([a, np.full((pad, a.shape[1]), fill, a.dtype)])
+
+
+def build_reduction_tree(
+    g: Graph,
+    width: int = 8,
+    weighted: bool = False,
+    block: int = 256,
+    row_scale: Optional[np.ndarray] = None,
+    device=None,
+) -> ReductionTree:
+    """Host-side plan from CSR (numpy; one pass per level).
+
+    Level 1 chops each CSR row into mini-rows of ``width`` slots; each
+    deeper level reduces ``width`` partial rows of the level before, until
+    each node owns one row.  ``row_scale`` overrides the 1/Σw row scale,
+    for a column-restricted block of a larger graph whose local row sums
+    are partial.
+    """
+    rp_h, col_h, w_h, _ = g.host
+    rp = rp_h.astype(np.int64)
+    col = col_h.astype(np.int64)
+    v = g.n_nodes
+    d = np.diff(rp)
+    w = width
+    wsrc = (
+        np.asarray(w_h, np.float32)
+        if (weighted and w_h is not None)
+        else np.ones(len(col), np.float32)
+    )
+    if row_scale is not None:
+        scale = np.asarray(row_scale, np.float32)
+        if scale.shape != (v,):
+            raise ValueError(f"row_scale has shape {scale.shape}, expected ({v},)")
+    else:
+        scale = _row_scale(rp, wsrc, v).astype(np.float32)
+
+    # level 1: mini-rows over the CSR column array; pad -> row 0, weight 0
+    m = np.maximum(1, -(-d // w))
+    m1 = int(m.sum())
+    row_of = np.repeat(np.arange(v), m)
+    start = np.cumsum(m) - m
+    r_local = np.arange(m1) - start[row_of]
+    slots = np.zeros((m1, w), np.int64)
+    wts = np.zeros((m1, w), np.float32)
+    for j in range(w):
+        e = rp[:-1][row_of] + r_local * w + j
+        ok = e < rp[1:][row_of]
+        slots[ok, j] = col[e[ok]]
+        wts[ok, j] = wsrc[e[ok]]
+    levels, weights = [slots], [wts]
+
+    # levels 2+: reduce mini-row counts by W until one row per node
+    cnt = m
+    while cnt.max(initial=1) > 1:
+        prev_start = np.cumsum(cnt) - cnt
+        m2 = np.maximum(1, -(-cnt // w))
+        mk = int(m2.sum())
+        row_of2 = np.repeat(np.arange(v), m2)
+        start2 = np.cumsum(m2) - m2
+        r2 = np.arange(mk) - start2[row_of2]
+        sl = np.zeros((mk, w), np.int64)
+        wt = np.zeros((mk, w), np.float32)
+        for j in range(w):
+            p = r2 * w + j
+            ok = p < cnt[row_of2]
+            sl[ok, j] = prev_start[row_of2][ok] + p[ok]
+            wt[ok, j] = 1.0
+        levels.append(sl)
+        weights.append(wt)
+        cnt = m2
+
+    weights[-1] = weights[-1] * scale[:, None]
+    real = tuple(l.shape[0] for l in levels)
+    return tree_from_numpy(
+        [_pad_rows(l, block, 0) for l in levels],
+        [_pad_rows(x, block, 0.0) for x in weights],
+        w, v, real, device=device or g.device,
+    )
+
+
+def gather_rows_sum_plain(
+    slots: torch.Tensor, weights: torch.Tensor, table: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel B3: [M, W] slots over [N, C] -> [M, C]
+    f32, ``acc = x0·w0`` then ``acc = acc + xj·wj`` in j order.  A bf16
+    table is widened to f32 before the multiply, as XLA promotes it."""
+    s = slots.long()
+    w = weights.float()
+    acc = table[s[:, 0]].float() * w[:, 0:1]
+    for j in range(1, s.shape[1]):
+        acc = acc + table[s[:, j]].float() * w[:, j : j + 1]
+    return acc
+
+
+def _check_gather(slots, weights, table, out):
+    if slots.dim() != 2 or slots.dtype != torch.int32:
+        raise TypeError(f"slots must be int32 [M, W], got {slots.dtype} {tuple(slots.shape)}")
+    if weights.shape != slots.shape or weights.dtype != torch.float32:
+        raise TypeError("weights must be float32 with the shape of slots")
+    if table.dim() != 2 or table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"table must be a 2-D float32 or bfloat16 tensor, got {table.dtype}")
+    m, c = slots.shape[0], table.shape[1]
+    if out is not None and (
+        out.dtype != torch.float32 or tuple(out.shape) != (m, c)
+    ):
+        raise ValueError(f"out must be float32 [{m}, {c}], got {out.dtype} {tuple(out.shape)}")
+    for t in (weights, table) + (() if out is None else (out,)):
+        if t.device != slots.device:
+            raise ValueError("slots, weights, table and out must share a device")
+
+
+def gather_rows_sum(
+    slots: torch.Tensor,
+    weights: torch.Tensor,
+    table: torch.Tensor,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One tree level: ``out[m] = Σ_j weights[m, j]·table[slots[m, j]]``,
+    f32 [M, C], written into ``out`` when given (any row stride, unit
+    column stride).
+
+    A CPU table runs :func:`gather_rows_sum_plain`.  A CUDA table launches
+    kernel B3 on the current stream, or raises; there is no other path.
+    The table may be a column block of a wider tensor (unit column
+    stride).  Slots are not range-checked on the card.
+    """
+    _check_gather(slots, weights, table, out)
+    if table.device.type == "cpu":
+        res = gather_rows_sum_plain(slots, weights, table)
+        return res if out is None else out.copy_(res)
+    if table.device.type != "cuda":
+        raise RuntimeError(f"no gather kernel for device {table.device}")
+    return _gather_cuda(slots, weights, table, out)
+
+
+def _gather_cuda(slots, weights, table, out):
+    from graphtpu_torch.kernels import _build
+
+    m, w = slots.shape
+    c = table.shape[1]
+    if not (slots.is_contiguous() and weights.is_contiguous()):
+        raise ValueError("slots and weights must be contiguous")
+    if table.stride(1) != 1 and c > 1:
+        raise ValueError("table must have unit column stride")
+    if out is None:
+        out = torch.empty((m, c), dtype=torch.float32, device=table.device)
+    elif out.stride(1) != 1 and c > 1:
+        raise ValueError("out must have unit column stride")
+    if m == 0 or c == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(table.device):
+        cu_stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = lib.gt_gather_rows_sum(
+            slots.data_ptr(), weights.data_ptr(), table.data_ptr(),
+            table.stride(0), out.data_ptr(), out.stride(0), m, w, c,
+            int(table.dtype == torch.bfloat16), cu_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gather kernel launch failed: {_build.error_string(rc)}")
+    GATHER_LAUNCHES["gather_rows_sum"] += 1
+    return out
+
+
+def tree_spmm(tree: ReductionTree, x: torch.Tensor, col_block: int = 4096) -> torch.Tensor:
+    """P·x through the reduction tree: [>=V, C] -> [V, C] f32.
+
+    Column-blocked at ``min(col_block, C)`` so each level's partials stay
+    [M_k, col_block]; every block runs every level through
+    :func:`gather_rows_sum`, level 0 reading the block of ``x`` in place
+    and the last level writing its first V rows straight into the result.
+    """
+    v, c = tree.n_nodes, x.shape[1]
+    out = torch.empty((v, c), dtype=torch.float32, device=x.device)
+    cb = min(col_block, c)
+    last = len(tree.levels) - 1
+    for lo in range(0, c, max(cb, 1)):
+        hi = min(c, lo + cb)
+        cur = x[:, lo:hi]
+        for k in range(last):
+            cur = gather_rows_sum(tree.levels[k], tree.weights[k], cur)
+        gather_rows_sum(tree.levels[last][:v], tree.weights[last][:v], cur,
+                        out=out[:, lo:hi])
     return out
 
 

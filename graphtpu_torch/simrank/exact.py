@@ -7,8 +7,9 @@ is S' = C·P·S·Pᵀ, run two ways:
 
 * :func:`exact_simrank`: two dense fp32 matmuls per iteration (TF32 off),
   the gold;
-* :func:`exact_simrank_spmm`: two streaming sparse products per iteration
-  through :func:`graphtpu_torch.kernels.spmm.spmv` and one transpose.
+* :func:`exact_simrank_spmm`: two sparse products per iteration and one
+  transpose, through the item stream (:func:`graphtpu_torch.kernels.spmm.spmv`)
+  or the reduction tree (:func:`graphtpu_torch.kernels.spmm.tree_spmm`).
 
 A :class:`DiGraph` gets directed SimRank over in-neighbours (the in-CSR).
 """
@@ -23,7 +24,13 @@ import torch
 
 from graphtpu_torch.core.config import SimRankConfig, WeightedSimRankConfig
 from graphtpu_torch.core.graph import DiGraph, Graph, dense_adjacency, row_normalized
-from graphtpu_torch.kernels.spmm import build_spmv_segments, build_spmv_stream, spmv
+from graphtpu_torch.kernels.spmm import (
+    build_reduction_tree,
+    build_spmv_segments,
+    build_spmv_stream,
+    spmv,
+    tree_spmm,
+)
 from graphtpu_torch.kernels.topk import topk_rows
 
 
@@ -105,31 +112,55 @@ def exact_simrank_spmm(
     spmv_seg: int = 1,
     device=None,
     stage_times: Optional[dict] = None,
+    impl: str = "stream",
+    width: int = 8,
+    col_block: int = 4096,
 ) -> torch.Tensor:
     """Exact SimRank with sparse products: [V, V] scores, diag zeroed.
 
-    Same fixed point as :func:`exact_simrank`.  Iteration 0 multiplies the
-    identity; every later iteration's first product reads the previous
-    raw output with the ``where(col == row, 1, c·x)`` scale-and-pin fused
-    into the kernel's gather (``table_scale=c``).  S is symmetric, so
-    ``P·(P·S)ᵀ = P·S·Pᵀ`` and each iteration spends one transpose.  After
-    the loop one scale-pin and the diagonal zeroing give the result.
+    Same fixed point as :func:`exact_simrank`.  S is symmetric, so
+    ``P·(P·S)ᵀ = P·S·Pᵀ`` and each iteration spends one transpose.
 
-    ``spmv_mode``: "kahan" (compensated f32 row sums, the gold) or "fast"
-    (plain f32 row sums); ``dtype=torch.bfloat16`` with "fast" keeps bf16
-    iterates ("fast16").  ``spmv_seg=k`` uses the coalesced k-row stream.
+    ``impl="stream"`` (graphtpu's ``impl="pallas"`` branch): item-stream
+    products (kernels B1/B2).  Iteration 0 multiplies the identity; every
+    later iteration's first product reads the previous raw output with the
+    ``where(col == row, 1, c·x)`` scale-and-pin fused into the kernel's
+    gather (``table_scale=c``).  After the loop one scale-pin and the
+    diagonal zeroing give the result.  ``spmv_mode``: "kahan" (compensated
+    f32 row sums, the gold) or "fast" (plain f32 row sums);
+    ``dtype=torch.bfloat16`` with "fast" keeps bf16 iterates ("fast16").
+    ``spmv_seg=k`` uses the coalesced k-row stream.
+
+    ``impl="tree"`` (graphtpu's ``impl="xla"`` branch): reduction-tree
+    products of ``width``-slot mini-rows (kernel B3), column-blocked at
+    ``col_block``.  Each iteration computes ``c·P·(P·S)ᵀ`` in f32, pins the
+    diagonal to 1 and casts to ``dtype``.  ``spmv_mode`` and ``spmv_seg``
+    do not apply, and a value other than their defaults raises.
+
     ``stage_times``: a dict to which the ms of the two products
-    ("product1", "product2") and the transpose are added.
+    ("product1", "product2") and the transpose are added; in the tree
+    branch "product2" includes the scale, the pin and the cast.
     """
     if isinstance(g, DiGraph):
         g = g.in_
     device = torch.device(device) if device is not None else g.device
+    clock = _StageClock(stage_times, device)
+    if impl == "tree":
+        if (spmv_mode, spmv_seg) != ("kahan", 1):
+            raise ValueError(
+                "spmv_mode and spmv_seg select item-stream kernels; "
+                "impl='tree' takes neither"
+            )
+        out = _tree_iterate(g, cfg, weighted, dtype, width, col_block, device, clock)
+        clock.close()
+        return out
+    if impl != "stream":
+        raise ValueError(f"unknown impl {impl!r}: 'stream' or 'tree'")
     v = g.n_nodes
     if spmv_seg > 1:
         plan = build_spmv_segments(g, weighted=weighted, k=spmv_seg, device=device)
     else:
         plan = build_spmv_stream(g, weighted=weighted, device=device)
-    clock = _StageClock(stage_times, device)
 
     s = torch.eye(v, dtype=dtype, device=device)
     for k in range(cfg.iterations):
@@ -145,6 +176,26 @@ def exact_simrank_spmm(
     out = s[:v].float().mul_(cfg.c)
     out.fill_diagonal_(0.0)
     return out.to(dtype)
+
+
+def _tree_iterate(g, cfg, weighted, dtype, width, col_block, device, clock):
+    """The tree branch's loop (graphtpu/simrank/exact.py:429-458)."""
+    plan = build_reduction_tree(g, width=width, weighted=weighted, device=device)
+
+    def product2(pst):
+        out = tree_spmm(plan, pst, col_block).mul_(cfg.c)
+        # pin the diagonal to 1 between iterations (SimRank.java:27-30)
+        return out.fill_diagonal_(1.0).to(dtype)
+
+    s = torch.eye(g.n_nodes, dtype=dtype, device=device)
+    for _ in range(cfg.iterations):
+        ps = clock.stage("product1", tree_spmm, plan, s, col_block)  # f32
+        del s
+        pst = clock.stage("transpose", lambda x: x.t().contiguous(), ps)
+        del ps
+        s = clock.stage("product2", product2, pst)
+        del pst
+    return s.fill_diagonal_(0.0)
 
 
 def weighted_simrank(

@@ -8,23 +8,29 @@ Phases (any failure raises and the run exits non-zero):
   2. build: compile the hand kernels from graphtpu_torch/kernels/csrc.
   3. kernels: kernels B1 (Kahan) and B2 (fast) against their plain PyTorch
      version and the float64 oracle on the blog-shaped stream (V = C =
-     10,496), plus seg-2, ragged, bf16 and Kahan-hub cases; CUDA-event
-     times of kernel and plain version.
+     10,496, the column-panel design), plus seg-2, ragged and bf16 cases, a
+     V = 60,000 case in both designs (k-panels, row tiles) and the Kahan hub
+     (B1 in both designs and B2's panel within 1e-5; a sequential f32 sum
+     must miss); every case launched twice and the outputs held bit-equal;
+     CUDA-event times of kernel, plain version and one torch.sparse.mm.
   4. tree kernel: kernel B3 against its plain version on every level of
      the blog-shaped reduction tree at 4,096-column blocks (level 0 read
      in place from the wider iterate), the ragged tail block, C = 10,313
-     and a bf16 table; the whole tree product against the float64 oracle.
+     and a bf16 table; one embedding_bag beside level 0; the whole tree
+     product against the float64 oracle.
   5. main path: ``python -m graphtpu_torch simrank --engine spmm`` for
      modes kahan, fast and fast16 on the blog-shaped graph; launch counts,
-     files read back, scores against the dense fp32 engine.
-  6. skew: the kahan run again on an R-MAT graph (V = 16,384).
+     files read back, scores against the dense fp32 engine, the host ms of
+     the sliced layout.
+  6. skew: the kahan run again on an R-MAT graph (V = 16,384, row tiles).
   7. tree path: ``exact_simrank_spmm(impl="tree")`` on the blog-shaped
      graph (f32, bf16) and R-MAT (f32); B3 launch counts, scores against
      the dense fp32 engine, per-stage times and peak memory.
   8. rate probe: ``python -m graphtpu_torch.bench.spmv_rate`` on both
      graphs (ns per item of B1, B2, X1-X3), then X1-X3 against their plain
-     versions.
-The last two lines are the kernels' JSON summary and the JSON result.
+     versions (X3 beside a ones-CSR torch.sparse.mm).
+The last two lines are the kernels' JSON summary (with each kernel's bound
+from graphtpu_torch/bench/bounds.py) and the JSON result.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ TOL_SIM_F32 = 2e-5    # SimRank scores, f32 modes, vs the dense fp32 engine
 TOL_SIM_BF16 = 1e-2   # SimRank scores, fast16, vs the dense fp32 engine
 C_RAGGED = 10_313
 HUB_DEGREE = 20_000
+V_PANELS, C_PANELS = 60_000, 256  # a V past one block's shared memory
 ORACLE_ROWS = 384     # rows of each product held against the float64 oracle
 COL_BLOCK = 4096      # exact_simrank_spmm's tree column block
 ITERATIONS = 3
@@ -104,6 +111,38 @@ def pinned64(x: np.ndarray, c: float) -> np.ndarray:
     return t
 
 
+def csr_of(plan, v, weights):
+    """The stream's P as a [V, V] CSR (rows < V), for the library yardstick."""
+    pos, slots = plan.pos.long(), plan.slots.long()
+    keep = pos < v
+    w = weights.view(-1)[: pos.numel()][keep]
+    crow = torch.searchsorted(pos[keep], torch.arange(v + 1, device=pos.device))
+    return torch.sparse_csr_tensor(crow, slots[keep], w, (v, v))
+
+
+def library_ms(fn):
+    """CUDA-event time of one PyTorch call, or None where it does not run."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        say(f"  library call not available: {str(e).splitlines()[0][:120]}")
+        return None
+    return cuda_ms(fn)
+
+
+def v60000_graph():
+    """V = 60,000 (past one block's shared memory even at 4 bytes a row):
+    200,000 random edges and a hub of degree 3,000 at node 7."""
+    from graphtpu_torch import build_graph
+
+    rng = np.random.default_rng(4)
+    edges = rng.integers(0, V_PANELS, size=(200_000, 2))
+    hub = np.stack([np.full(3000, 7), rng.choice(V_PANELS, 3000, replace=False)], 1)
+    return build_graph(np.concatenate([edges[edges[:, 0] != edges[:, 1]], hub]),
+                       n_nodes=V_PANELS)
+
+
 def phase_kernels(dev, report):
     from graphtpu_torch import build_graph
     from graphtpu_torch.core.reorder import rcm_order, relabel_graph
@@ -114,7 +153,9 @@ def phase_kernels(dev, report):
     plan = spmm.build_spmv_stream(g, device=dev)
     seg2 = spmm.build_spmv_segments(g2, k=2, device=dev)
     say(f"blog stream: V={g.n_nodes} slots={g.n_edges} items={plan.n_items} "
-        f"max_degree={g.max_degree}; rcm seg-2 stream: items={seg2.n_items}")
+        f"max_degree={g.max_degree}; sliced layout: {plan.sell.n_chunks} chunks, "
+        f"compact={plan.sell.compact}, {plan.sell.hub_rows.numel()} hub rows, built in "
+        f"{plan.sell.host_ms:.1f} ms (host); rcm seg-2 stream: items={seg2.n_items}")
     x_np = np.random.default_rng(1).random((BLOG_NODES, BLOG_NODES), dtype=np.float32)
     x = torch.from_numpy(x_np).to(dev)
     xb = x.bfloat16()
@@ -126,6 +167,15 @@ def phase_kernels(dev, report):
     special = [int(np.argmax(deg)), int(np.argmax(g2.host[3])), BLOG_NODES - 1, 0]
     rows = np.unique(np.concatenate([rng.choice(BLOG_NODES, ORACLE_ROWS), special]))
 
+    # past one panel: k-panels in the panel design, row tiles by default
+    gp = v60000_graph()
+    plan_p = spmm.build_spmv_stream(gp, device=dev)
+    plan_pp = spmm.with_sell_layout(plan_p)  # the panel design needs the layout
+    xp_np = np.random.default_rng(4).random((V_PANELS, C_PANELS), dtype=np.float32)
+    xp = torch.from_numpy(xp_np).to(dev)
+    rows_p = np.unique(np.concatenate(
+        [np.random.default_rng(5).choice(V_PANELS, ORACLE_ROWS), [7, 0, V_PANELS - 1]]))
+
     # Kahan hub: one row of degree 20,000 whose neighbours hold equal values
     # in each column, so every f32 partial sum rounds the same way
     star = np.stack([np.zeros(HUB_DEGREE, np.int64), np.arange(1, HUB_DEGREE + 1)], 1)
@@ -133,34 +183,44 @@ def phase_kernels(dev, report):
     hub_vals = (1 + np.random.default_rng(3).random(1024)).astype(np.float32)
     hub_np = np.broadcast_to(hub_vals, (HUB_DEGREE + 1, 1024)).copy()
     hub_x = torch.from_numpy(hub_np).to(dev)
-    hub_plan = spmm.build_spmv_stream(hub_g, device=dev)
+    hub_plan = spmm.with_sell_layout(spmm.build_spmv_stream(hub_g, device=dev))
 
+    blog = lambda t, ts: x64[(ts is not None, "bf16" if t.dtype == torch.bfloat16 else "f32")]
     cases = [
-        # name, mode, plan, graph, table, table_scale
-        ("kahan_f32", "kahan", plan, g, x, None),
-        ("kahan_f32_pin", "kahan", plan, g, x, 0.6),
-        ("fast_f32", "fast", plan, g, x, None),
-        ("fast_f32_pin", "fast", plan, g, x, 0.6),
-        ("fast_bf16_pin", "fast", plan, g, xb, 0.6),
-        ("fast_bf16", "fast", plan, g, xb, None),
-        ("kahan_seg2_rcm_pin", "kahan", seg2, g2, x, 0.6),
-        ("fast_seg2_rcm_pin", "fast", seg2, g2, x, 0.6),
-        ("kahan_f32_pin_ragged", "kahan", plan, g, x[:, :C_RAGGED].contiguous(), 0.6),
-        ("fast_bf16_pin_ragged", "fast", plan, g, xb[:, :C_RAGGED].contiguous(), 0.6),
+        # name, mode, plan, graph, table, table_scale, design, float64 table, rows
+        ("kahan_f32", "kahan", plan, g, x, None, None, blog, rows),
+        ("kahan_f32_pin", "kahan", plan, g, x, 0.6, None, blog, rows),
+        ("fast_f32", "fast", plan, g, x, None, None, blog, rows),
+        ("fast_f32_pin", "fast", plan, g, x, 0.6, None, blog, rows),
+        ("fast_bf16_pin", "fast", plan, g, xb, 0.6, None, blog, rows),
+        ("fast_bf16", "fast", plan, g, xb, None, None, blog, rows),
+        ("kahan_seg2_rcm_pin", "kahan", seg2, g2, x, 0.6, None, blog, rows),
+        ("fast_seg2_rcm_pin", "fast", seg2, g2, x, 0.6, None, blog, rows),
+        ("kahan_f32_pin_ragged", "kahan", plan, g, x[:, :C_RAGGED].contiguous(), 0.6, None,
+         blog, rows),
+        ("fast_bf16_pin_ragged", "fast", plan, g, xb[:, :C_RAGGED].contiguous(), 0.6, None,
+         blog, rows),
     ]
+    p64 = lambda t, ts: pinned64(xp_np, 0.6)
+    for mode in ("kahan", "fast"):
+        for design, pp in (("panel", plan_pp), ("rows", plan_p)):
+            cases.append((f"{mode}_v{V_PANELS}_pin_{design}", mode, pp, gp, xp, 0.6, design,
+                          p64, rows_p))
     results = []
-    for name, mode, p, gg, table, ts in cases:
+    for name, mode, p, gg, table, ts, design, ref64, orows in cases:
         bf = table.dtype == torch.bfloat16
-        out = spmm.spmv(p, table, mode, ts)
+        out = spmm.spmv(p, table, mode, ts, design=design)
         torch.cuda.synchronize()
         plain = spmm.spmv_plain(p, table, mode, ts)
-        check(out.shape == (BLOG_NODES + 1, table.shape[1]) and out.dtype == table.dtype,
+        check(out.shape == (gg.n_nodes + 1, table.shape[1]) and out.dtype == table.dtype,
               f"{name}: shape/dtype {tuple(out.shape)} {out.dtype}")
         check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
+        again = spmm.spmv(p, table, mode, ts, design=design)
+        check(torch.equal(out, again), f"{name}: two launches differ")
+        del again
         err_plain = (out.float() - plain.float()).abs().max().item()
-        ref = x64[(ts is not None, "bf16" if bf else "f32")][:, : table.shape[1]]
-        oracle = spmm.spmm_oracle(gg, ref, rows=rows)
-        got_rows = out[torch.as_tensor(rows, device=dev)].float().cpu().numpy()
+        oracle = spmm.spmm_oracle(gg, ref64(table, ts)[:, : table.shape[1]], rows=orows)
+        got_rows = out[torch.as_tensor(orows, device=dev)].float().cpu().numpy()
         err_oracle = float(np.abs(got_rows - oracle).max())
         if bf:
             within_plain = bool(
@@ -173,39 +233,62 @@ def phase_kernels(dev, report):
             within_plain = err_plain <= TOL_F32
             within_oracle = err_oracle <= TOL_F32
             bound = f"{TOL_F32:g} absolute"
-        ms = cuda_ms(lambda: spmm.spmv(p, table, mode, ts))
+        used = design or ("panel" if p.sell is not None else "rows")
+        ms = cuda_ms(lambda: spmm.spmv(p, table, mode, ts, design=design))
         plain_ms = cuda_ms(lambda: spmm.spmv_plain(p, table, mode, ts), warmup=1, runs=5)
-        r = dict(case=name, kernel=mode, items=p.n_items, seg_k=p.seg_k,
+        lib_ms = None
+        if ts is None and p is plan and name in ("kahan_f32", "fast_f32", "fast_bf16"):
+            # one PyTorch call of the same product: the folded P as CSR
+            csr = csr_of(p, gg.n_nodes, p.wts).to(table.dtype)
+            lib_ms = library_ms(lambda: torch.sparse.mm(csr, table))
+            del csr
+        r = dict(case=name, kernel=mode, design=used, items=p.n_items, seg_k=p.seg_k,
                  width=int(table.shape[1]), dtype=str(table.dtype).split(".")[-1],
                  max_abs_err_plain=err_plain, max_abs_err_oracle=err_oracle,
-                 oracle_rows=int(len(rows)), bound=bound, ms=ms, plain_ms=plain_ms)
+                 oracle_rows=int(len(orows)), bound=bound, ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_ms)
         results.append(r)
-        say(f"{name}: err vs plain {err_plain:.3e}, vs float64 oracle "
-            f"{err_oracle:.3e} ({len(rows)} rows), bound {bound}; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        say(f"{name} ({used}): err vs plain {err_plain:.3e}, vs float64 oracle "
+            f"{err_oracle:.3e} ({len(orows)} rows), bound {bound}; two launches equal; "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+            + ("" if lib_ms is None else f", torch.sparse.mm {lib_ms:.3f} ms"))
         check(within_plain, f"{name}: kernel vs plain version outside {bound}")
         check(within_oracle, f"{name}: kernel vs float64 oracle outside {bound}")
         del out, plain
 
+    # the hub row against the oracle; its plain version is itself a plain
+    # f32 sum, which this case is built to defeat, so it is reported only
     hub_oracle = spmm.spmm_oracle(hub_g, hub_np, rows=[0])[0]
-    hub_k = spmm.spmv(hub_plan, hub_x, "kahan")[0].cpu().numpy()
-    hub_f = spmm.spmv(hub_plan, hub_x, "fast")[0].cpu().numpy()
-    hub_p = spmm.spmv_plain(hub_plan, hub_x, "kahan")[0].cpu().numpy()
-    hub = dict(case="kahan_hub", degree=HUB_DEGREE,
-               kahan_err_oracle=float(np.abs(hub_k - hub_oracle).max()),
-               fast_err_oracle=float(np.abs(hub_f - hub_oracle).max()),
-               plain_err_oracle=float(np.abs(hub_p - hub_oracle).max()))
-    say(f"kahan_hub (degree {HUB_DEGREE}): B1 err vs float64 oracle "
-        f"{hub['kahan_err_oracle']:.3e}, B2 plain f32 sum {hub['fast_err_oracle']:.3e}, "
-        f"plain version {hub['plain_err_oracle']:.3e}; bound {TOL_F32:g}")
-    check(hub["kahan_err_oracle"] <= TOL_F32, "kahan_hub: B1 outside the bound")
-    check(hub["fast_err_oracle"] > TOL_F32,
-          "kahan_hub: a plain f32 sum met the bound, so the case separates nothing")
+    lo, hi = hub_plan.row_items[:2].tolist()
+    terms = (hub_plan.wts[lo:hi].cpu().numpy()[:, None]
+             * hub_np[hub_plan.slots[lo:hi].long().cpu().numpy()]).astype(np.float32)
+    seq = np.cumsum(terms, axis=0, dtype=np.float32)[-1]
+    got = {
+        "kahan_rows": spmm.spmv(hub_plan, hub_x, "kahan", design="rows"),
+        "kahan_panel": spmm.spmv(hub_plan, hub_x, "kahan", design="panel"),
+        "fast_panel": spmm.spmv(hub_plan, hub_x, "fast", design="panel"),
+        "fast_rows": spmm.spmv(hub_plan, hub_x, "fast", design="rows"),
+    }
+    hub = {f"{k}_err_oracle": float(np.abs(v[0].cpu().numpy() - hub_oracle).max())
+           for k, v in got.items()}
+    hub.update(case="kahan_hub", degree=HUB_DEGREE,
+               sequential_f32_err_oracle=float(np.abs(seq - hub_oracle).max()),
+               plain_err_oracle=float(np.abs(
+                   spmm.spmv_plain(hub_plan, hub_x, "kahan")[0].cpu().numpy() - hub_oracle).max()))
+    say(f"kahan_hub (degree {HUB_DEGREE}): vs float64 oracle: B1 rows "
+        f"{hub['kahan_rows_err_oracle']:.3e}, B1 panel {hub['kahan_panel_err_oracle']:.3e}, "
+        f"B2 panel {hub['fast_panel_err_oracle']:.3e}, B2 rows {hub['fast_rows_err_oracle']:.3e}, "
+        f"sequential f32 sum {hub['sequential_f32_err_oracle']:.3e}, plain version "
+        f"{hub['plain_err_oracle']:.3e}; bound {TOL_F32:g}")
+    for k in ("kahan_rows", "kahan_panel", "fast_panel"):
+        check(hub[f"{k}_err_oracle"] <= TOL_F32, f"kahan_hub: {k} outside the bound")
+    check(hub["sequential_f32_err_oracle"] > TOL_F32,
+          "kahan_hub: a sequential f32 sum met the bound, so the case separates nothing")
     report["kernel_cases"] = results
     report["kahan_hub"] = hub
-    del x, xb, hub_x
+    del x, xb, hub_x, xp, got
     torch.cuda.empty_cache()
-    return results
+    return results, plan.n_items
 
 
 def phase_tree_kernel(dev, report):
@@ -244,13 +327,26 @@ def phase_tree_kernel(dev, report):
         unequal = int((out != plain).sum().item())
         ms = cuda_ms(lambda: spmm.gather_rows_sum(sl, w, table))
         plain_ms = cuda_ms(lambda: spmm.gather_rows_sum_plain(sl, w, table), warmup=1, runs=5)
+        lib_ms = None
+        if name == "level0_strided":
+            # one PyTorch call of the same level: a bag of W weighted rows per
+            # output row, over a contiguous copy of the level's table
+            tc = table.contiguous()
+            m, wd = sl.shape
+            idx, offs = sl.reshape(-1).long(), torch.arange(0, m * wd, wd, device=dev)
+            pw = w.reshape(-1)
+            lib_ms = library_ms(lambda: torch.nn.functional.embedding_bag(
+                idx, tc, offs, mode="sum", per_sample_weights=pw))
+            del tc, idx, offs
         r = dict(case=name, rows=int(sl.shape[0]), width=int(table.shape[1]),
                  ld=int(table.stride(0)), dtype=str(table.dtype).split(".")[-1],
-                 max_abs_err_plain=err, unequal=unequal, ms=ms, plain_ms=plain_ms)
+                 max_abs_err_plain=err, unequal=unequal, ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_ms)
         results.append(r)
         say(f"B3 {name}: [{r['rows']} x {r['width']}] ld {r['ld']} {r['dtype']}: err vs "
             f"plain {err:.3e}, {unequal} unequal elements, bound {TOL_B3:g}; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+            + ("" if lib_ms is None else f", embedding_bag {lib_ms:.3f} ms"))
         check(err <= TOL_B3, f"B3 {name}: kernel vs plain version {err} > {TOL_B3}")
         del out, plain
     del tables
@@ -266,6 +362,8 @@ def phase_tree_kernel(dev, report):
         f"rows (bound {TOL_F32:g}); {ms:.3f} ms per product")
     check(err <= TOL_F32, f"tree_spmm vs float64 oracle {err} > {TOL_F32}")
     report["tree_kernel_cases"] = results
+    report["tree_level0"] = dict(real_rows=int(tree.real_rows[0]), width=int(tree.width),
+                                 table_rows=int(g.n_nodes), c=COL_BLOCK)
     report["tree_product"] = dict(max_abs_err_oracle=err, oracle_rows=int(len(rows)), ms=ms)
     del x, xb, prod
     torch.cuda.empty_cache()
@@ -337,12 +435,13 @@ def run_main_path(dev, path, n_nodes, modes, report, tag):
                    max_degree=g.max_degree, launches=rise, max_abs_err_dense=err,
                    bound=tol, file_topk_err=file_err, cli_wall_s=cli_s,
                    spmm_call_wall_s=call_s, stage_ms_per_iter=per_iter,
-                   peak_gb=peak_gb)
+                   layout_host_ms=stages["layout_host"], peak_gb=peak_gb)
         out_rows.append(row)
         say(f"{tag} {mode}: launches {rise}; S vs dense fp32 max err {err:.3e} "
             f"(bound {tol:g}); file top-20 vs dense {file_err:.3e}; per iteration "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in per_iter.items())
-            + f" (CUDA events); CLI {cli_s:.2f} s, spmm call {call_s:.3f} s (host clock); "
+            + f" (CUDA events); sliced layout {stages['layout_host']:.1f} ms (host); "
+            f"CLI {cli_s:.2f} s, spmm call {call_s:.3f} s (host clock); "
             f"peak {peak_gb:.3f} GB above the {base / 1e9:.3f} GB held")
         check(err <= tol, f"{tag} {mode}: S vs dense {err} > {tol}")
     if "fast16" in ids and "kahan" in ids:
@@ -445,10 +544,18 @@ def phase_rate_probe(dev, report):
                 ok, bound = bool((diff <= TOL_RATE * plain).all()), f"{TOL_RATE:g} of sum|terms|"
             ms = cuda_ms(lambda: fn(stream, arg))
             plain_ms = cuda_ms(lambda: plain_fn(stream, arg), warmup=1, runs=3)
+            lib_ms = None
+            if key == "unroll8" and tag == "blog":
+                # one PyTorch call of the same sums: a ones-CSR times the table
+                ones = csr_of(stream, g.n_nodes, torch.ones_like(stream.wts))
+                lib_ms = library_ms(lambda: torch.sparse.mm(ones, arg))
+                del ones
             cases.append(dict(graph=tag, kernel=key, max_abs_err_plain=err, bound=bound,
-                              ms=ms, plain_ms=plain_ms))
+                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              items=stream.n_items, v=g.n_nodes))
             say(f"{tag} {label}: err vs plain {err:.3e} (bound {bound}); "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                + ("" if lib_ms is None else f", torch.sparse.mm {lib_ms:.3f} ms"))
             check(ok, f"{tag} {label}: kernel vs plain version outside {bound}")
             del out, plain, diff
         del table, buf
@@ -483,7 +590,7 @@ def main(argv=None) -> int:
     report["build_s"] = build_s
 
     say("== phase 3: kernels B1, B2 against their plain version")
-    cases = phase_kernels(dev, report)
+    cases, blog_items = phase_kernels(dev, report)
 
     say("== phase 4: kernel B3 against its plain version")
     tree_cases = phase_tree_kernel(dev, report)
@@ -516,34 +623,40 @@ def main(argv=None) -> int:
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was never launched on its path")
 
+    from graphtpu_torch.bench import bounds
+    from graphtpu_torch.bench.spmv_rate import N_BUF
+
+    def entry(name, source, replaces, key, errs, timed, work, library):
+        bound_ms, bound_by = bounds.bound(*work)
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches[key], max_abs_err=max(errs), ms=timed["ms"],
+                    plain_ms=timed["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library)
+
     summary = []
-    for kernel, label, pick in (("kahan", "spmv_kahan_f32 (B1)", "kahan_f32_pin"),
-                                ("fast", "spmv_fast (B2)", "fast_f32_pin")):
+    for kernel, label, pick, lib in (("kahan", "spmv_kahan_f32 (B1)", "kahan_f32_pin", "kahan_f32"),
+                                     ("fast", "spmv_fast (B2)", "fast_f32_pin", "fast_f32")):
         mine = [c for c in cases if c["kernel"] == kernel and c["dtype"] == "float32"]
         timed = next(c for c in cases if c["case"] == pick)
-        summary.append(dict(
-            name=label, route="cuda", source=SOURCE, replaces=REPLACES[kernel],
-            launches=launches[kernel],
-            max_abs_err=max(c["max_abs_err_plain"] for c in mine),
-            ms=timed["ms"], plain_ms=timed["plain_ms"],
-        ))
+        work = bounds.spmv_work(blog_items, 1, BLOG_NODES, BLOG_NODES, 4, kernel, pin=True,
+                                multiply=kernel == "kahan")
+        summary.append(entry(label, SOURCE, REPLACES[kernel], kernel,
+                             [c["max_abs_err_plain"] for c in mine], timed, work,
+                             next(c for c in cases if c["case"] == lib)["library_ms"]))
     level0 = tree_cases[0]  # the largest level, first column block
-    summary.append(dict(
-        name="gather_rows_sum (B3)", route="cuda",
-        source="graphtpu_torch/kernels/csrc/gather.cu",
-        replaces="graphtpu/kernels/spmm.py:851", launches=launches["gather"],
-        max_abs_err=max(c["max_abs_err_plain"] for c in tree_cases),
-        ms=level0["ms"], plain_ms=level0["plain_ms"],
-    ))
+    t0 = report["tree_level0"]
+    summary.append(entry(
+        "gather_rows_sum (B3)", "graphtpu_torch/kernels/csrc/gather.cu",
+        "graphtpu/kernels/spmm.py:851", "gather", [c["max_abs_err_plain"] for c in tree_cases],
+        level0, bounds.gather_work(t0["real_rows"], t0["width"], t0["c"], t0["table_rows"], 4),
+        level0["library_ms"]))
     for key, label, replaces in RATE_KERNELS:
         mine = [c for c in rate_cases if c["kernel"] == key]
         timed = next(c for c in mine if c["graph"] == "blog")
-        summary.append(dict(
-            name=label, route="cuda", source=RATE_SOURCE, replaces=replaces,
-            launches=launches[key],
-            max_abs_err=max(c["max_abs_err_plain"] for c in mine),
-            ms=timed["ms"], plain_ms=timed["plain_ms"],
-        ))
+        work = bounds.rate_work(key, timed["items"], timed["v"], timed["v"], N_BUF)
+        summary.append(entry(label, RATE_SOURCE, replaces, key,
+                             [c["max_abs_err_plain"] for c in mine], timed, work,
+                             timed["library_ms"]))
     report["kernels"] = summary
     if args.out:
         with open(args.out, "w") as f:

@@ -1,0 +1,58 @@
+"""Least times of the port's kernels on an NVIDIA H100 SXM.
+
+A kernel's bound is the larger of its bytes over the card's memory rate
+and its operations over the card's peak rate for their type: each input
+read once, each output written once, and only the operations these
+inputs need (real items, not padding).  The peaks are NVIDIA's published
+figures for the H100 SXM at its 700 W limit.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+HBM_BYTES_PER_S = 3.35e12   # HBM3
+F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
+
+
+def bound(nbytes: float, ops: float) -> Tuple[float, str]:
+    """(least ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def spmv_work(n_items: int, seg_k: int, v: int, c: int, itemsize: int, mode: str,
+              pin: bool, multiply: bool) -> Tuple[float, float]:
+    """(bytes, operations) of one B1/B2 product over an item stream.
+
+    Bytes: the table's V rows, the [V+1, C] output, and per item its slot
+    and seg_k weights (B2 also its scale), plus the row offsets.  Per item
+    and column: the pin's scale (when fused) and the weight multiply (B1
+    always, B2 unless the stream is uniform) for each of the seg_k rows,
+    seg_k - 1 adds joining them, and the row sum: 4 operations of a Kahan
+    update (B1) or 1 add (B2)."""
+    kahan = mode == "kahan"
+    nbytes = (v + v + 1) * c * itemsize + n_items * 4 * (1 + seg_k + (0 if kahan else 1))
+    nbytes += (v + 2) * 8
+    per = seg_k * (int(pin) + int(kahan or multiply)) + (seg_k - 1) + (4 if kahan else 1)
+    return float(nbytes), float(n_items) * c * per
+
+
+def gather_work(m: int, w: int, c: int, table_rows: int, itemsize: int) -> Tuple[float, float]:
+    """(bytes, operations) of one B3 level: [M, W] slots and weights over a
+    [table_rows, C] table into [M, C] f32; a multiply and an add per slot
+    and column."""
+    nbytes = table_rows * c * itemsize + m * c * 4 + m * w * 8
+    return float(nbytes), 2.0 * m * w * c
+
+
+def rate_work(kernel: str, n_items: int, v: int, c: int, n_buf: int) -> Tuple[float, float]:
+    """(bytes, operations) of a rate-probe kernel over an item stream into
+    [V+1, C] f32: X1 reads the table and takes a max per item and column;
+    X2 reads a resident [n_buf, C] buffer and the weights, a multiply and
+    an add per item and column; X3 reads the table and adds."""
+    out = (v + 1) * c * 4 + (v + 2) * 8
+    if kernel == "accumulate_only":
+        return float(n_buf * c * 4 + n_items * 4 + out), 2.0 * n_items * c
+    return float(v * c * 4 + n_items * 4 + out), float(n_items) * c

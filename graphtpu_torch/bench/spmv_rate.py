@@ -17,7 +17,10 @@ bf16 tables) and three stripped variants of B2, the hand kernels of
   ``out[r] = Σ_{t in r} table[slot]`` with 8 items' loads in flight.
 
 It prints ns per stream item and the rate of row reads for each, the
-median of 9 timed runs.  Each wrapper runs its plain PyTorch version on a
+median of 9 timed runs.  B1 and B2 run in the design :func:`spmv` picks
+(the column panel where its 16-byte slab fits, as at blog; row tiles at
+R-MAT); X1-X3 take the row-tile design apart, so their rates explain the
+row tiles, not the panel.  Each wrapper runs its plain PyTorch version on a
 CPU tensor and launches its kernel on a CUDA tensor, or raises; the probe
 itself needs a card.  The TPU tool's ring-depth and block-size grid and its transpose timings are
 TPU staging and have no counterpart here.

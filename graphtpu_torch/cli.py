@@ -51,13 +51,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available")
-    return device
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd != "simrank":
@@ -66,9 +59,13 @@ def main(argv=None) -> int:
     from graphtpu_torch.core.graph import read_edgelist_graph
     from graphtpu_torch.io.simfile import write_topk_files
     from graphtpu_torch.kernels.topk import topk_rows
-    from graphtpu_torch.simrank.exact import exact_simrank, exact_simrank_spmm
+    from graphtpu_torch.simrank.exact import (
+        exact_simrank,
+        exact_simrank_spmm,
+        resolve_device,
+    )
 
-    device = _resolve_device(args.device)
+    device = resolve_device(args.device)
     g = read_edgelist_graph(
         args.input, delimiter=args.delimiter, weighted=args.weighted,
         n_nodes=args.n_nodes,

@@ -34,6 +34,16 @@ from graphtpu_torch.kernels.spmm import (
 from graphtpu_torch.kernels.topk import topk_rows
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, by default ``cuda``.  Graphs are host-built data and say
+    nothing of where the work runs; a missing card raises, never a quiet
+    move to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev}: no CUDA device is available")
+    return dev
+
+
 def _simrank_iterate(w: torch.Tensor, c: float, iterations: int) -> torch.Tensor:
     """Iterate S' = C·W·S·Wᵀ from S = I with W row-stochastic; diag zeroed."""
     v = w.shape[0]
@@ -54,10 +64,11 @@ def exact_simrank(
     device=None,
 ) -> torch.Tensor:
     """Dense [V, V] SimRank scores (diag zeroed) in full fp32: TF32 is
-    switched off for the matmuls, matching the JAX "highest" precision."""
+    switched off for the matmuls, matching the JAX "highest" precision.
+    Runs on ``device`` (default ``cuda``, see :func:`resolve_device`)."""
     if isinstance(g, DiGraph):
         g = g.in_  # in-neighbour rows: P[i, u] = w(u->i) / sum_in(i)
-    a = dense_adjacency(g, dtype=torch.float32, device=device)
+    a = dense_adjacency(g, dtype=torch.float32, device=resolve_device(device))
     if not weighted and g.weight is not None:
         a = (a > 0).to(torch.float32)
     w = row_normalized(a).to(dtype)
@@ -137,30 +148,35 @@ def exact_simrank_spmm(
     diagonal to 1 and casts to ``dtype``.  ``spmv_mode`` and ``spmv_seg``
     do not apply, and a value other than their defaults raises.
 
+    Runs on ``device`` (default ``cuda``, see :func:`resolve_device`).
     ``stage_times``: a dict to which the ms of the two products
     ("product1", "product2") and the transpose are added; in the tree
-    branch "product2" includes the scale, the pin and the cast.
+    branch "product2" includes the scale, the pin and the cast.  The stream
+    branch also sets "layout_host", the host ms of the plan's sliced layout
+    (0 where the kernels run row tiles and build none).
     """
     if isinstance(g, DiGraph):
         g = g.in_
-    device = torch.device(device) if device is not None else g.device
+    if impl not in ("stream", "tree"):
+        raise ValueError(f"unknown impl {impl!r}: 'stream' or 'tree'")
+    if impl == "tree" and (spmv_mode, spmv_seg) != ("kahan", 1):
+        raise ValueError(
+            "spmv_mode and spmv_seg select item-stream kernels; "
+            "impl='tree' takes neither"
+        )
+    device = resolve_device(device)
     clock = _StageClock(stage_times, device)
     if impl == "tree":
-        if (spmv_mode, spmv_seg) != ("kahan", 1):
-            raise ValueError(
-                "spmv_mode and spmv_seg select item-stream kernels; "
-                "impl='tree' takes neither"
-            )
         out = _tree_iterate(g, cfg, weighted, dtype, width, col_block, device, clock)
         clock.close()
         return out
-    if impl != "stream":
-        raise ValueError(f"unknown impl {impl!r}: 'stream' or 'tree'")
     v = g.n_nodes
     if spmv_seg > 1:
         plan = build_spmv_segments(g, weighted=weighted, k=spmv_seg, device=device)
     else:
         plan = build_spmv_stream(g, weighted=weighted, device=device)
+    if stage_times is not None:
+        stage_times["layout_host"] = plan.sell.host_ms if plan.sell is not None else 0.0
 
     s = torch.eye(v, dtype=dtype, device=device)
     for k in range(cfg.iterations):

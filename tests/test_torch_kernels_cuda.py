@@ -102,8 +102,10 @@ def test_kernel_fast_bf16(cuda, k, width):
 
 
 def test_kahan_hub_beats_plain_sum(cuda):
-    """A row of degree 20,000 over equal values per column: a plain f32 sum
-    (kernel B2) misses the float64 oracle by more than 1e-5, B1 does not."""
+    """A row of degree 20,000 over equal values per column: a sequential f32
+    sum of its terms in item order misses the float64 oracle by more than
+    1e-5, B1 (Kahan) does not in either design, and B2 in the panel design
+    (a warp per hub row) stays within it."""
     d, width = 20_000, 1000
     star = np.stack([np.zeros(d, np.int64), np.arange(1, d + 1)], 1)
     g = gt.build_graph(star, n_nodes=d + 1)
@@ -112,9 +114,16 @@ def test_kahan_hub_beats_plain_sum(cuda):
     plan = spmm.build_spmv_stream(g, device=cuda)
     oracle = spmm.spmm_oracle(g, x.cpu().numpy(), rows=[0])[0]
     kahan = spmm.spmv(plan, x, "kahan")[0].cpu().numpy()
-    fast = spmm.spmv(plan, x, "fast")[0].cpu().numpy()
+    panel = spmm.with_sell_layout(plan)
+    kahan_panel = spmm.spmv(panel, x, "kahan", design="panel")[0].cpu().numpy()
+    fast = spmm.spmv(panel, x, "fast", design="panel")[0].cpu().numpy()
+    lo, hi = plan.row_items[:2].tolist()
+    terms = plan.wts[lo:hi].cpu().numpy()[:, None] * x[plan.slots[lo:hi].long()].cpu().numpy()
+    seq = np.cumsum(terms.astype(np.float32), axis=0, dtype=np.float32)[-1]
     assert np.abs(kahan - oracle).max() <= 1e-5
-    assert np.abs(fast - oracle).max() > 1e-5
+    assert np.abs(kahan_panel - oracle).max() <= 1e-5
+    assert np.abs(fast - oracle).max() <= 1e-5
+    assert np.abs(seq - oracle).max() > 1e-5
 
 
 def test_launch_counts(cuda):
@@ -146,6 +155,123 @@ def test_wrapper_rejects_bad_inputs(cuda):
         spmm.spmv(plan, x.bfloat16(), "kahan")
 
 
+def _check(got, plain, oracle_rows, oracle, bf16=False):
+    got = got.float().cpu().numpy()
+    plain = plain.float().cpu().numpy()
+    if bf16:
+        assert (np.abs(got - plain) <= _bf16_ulp(np.maximum(abs(got), abs(plain)))).all()
+        assert (np.abs(got[oracle_rows] - oracle) <= _bf16_ulp(oracle)).all()
+    else:
+        # f32 sums in another order: 1e-5 absolute on values <= 1
+        assert np.abs(got - plain).max() <= 1e-5
+        assert np.abs(got[oracle_rows] - oracle).max() <= 1e-5
+
+
+def _degree_graph(degrees, v, seed=0):
+    """Row i (of the first len(degrees)) gets degrees[i] distinct random
+    neighbours among rows >= len(degrees); the graph is undirected."""
+    rng = np.random.default_rng(seed)
+    lo = len(degrees)
+    edges = [np.stack([np.full(d, i), lo + rng.choice(v - lo, d, replace=False)], 1)
+             for i, d in enumerate(degrees)]
+    return gt.build_graph(np.concatenate(edges), n_nodes=v)
+
+
+@pytest.mark.parametrize("design", ["panel", "rows"])
+@pytest.mark.parametrize("mode", ["kahan", "fast"])
+def test_kernel_beyond_one_panel(cuda, mode, design):
+    """V = 60,000 rows of 4 bytes do not fit one block's shared memory: the
+    panel design walks k-panels and keeps row partials in its scratch; by
+    default such a V runs row tiles."""
+    v, width = 60_000, 256
+    assert spmm.sell_launch_shape(v, 1, 4)[2] > 1 and not spmm.sell_fits(v, 1)
+    rng = np.random.default_rng(4)
+    edges = rng.integers(0, v, size=(200_000, 2))
+    hub = np.stack([np.full(3000, 7), rng.choice(v, 3000, replace=False)], 1)
+    g = gt.build_graph(np.concatenate([edges[edges[:, 0] != edges[:, 1]], hub]), n_nodes=v)
+    plan = spmm.build_spmv_stream(g, device=cuda)
+    assert plan.sell is None
+    if design == "panel":
+        plan = spmm.with_sell_layout(plan)
+    x = torch.rand((v, width), generator=torch.Generator().manual_seed(4)).to(cuda)
+    got = spmm.spmv(plan, x, mode, 0.6, design=design)
+    rows = np.unique(np.concatenate([rng.choice(v, 300), [7, 0, v - 1]]))
+    oracle = spmm.spmm_oracle(g, _pinned(x.cpu().numpy(), 0.6), rows=rows)
+    _check(got, spmm.spmv_plain(plan, x, mode, 0.6), rows, oracle)
+
+
+@pytest.mark.parametrize("design", ["panel", "rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_narrowed_slab(cuda, dtype, design):
+    """V = 16,384 rows of 16 bytes do not fit: the panel design narrows the
+    slab to 8 bytes; by default such a V runs row tiles."""
+    v, width = 16_384, 72
+    assert spmm.sell_launch_shape(v, 1, 4)[:2] == (8, v) and not spmm.sell_fits(v, 1)
+    g = _graph(v=v, e=120_000, seed=5)
+    plan = spmm.build_spmv_stream(g, device=cuda)
+    if design == "panel":
+        plan = spmm.with_sell_layout(plan)
+    x = torch.rand((v, width), generator=torch.Generator().manual_seed(5)).to(cuda).to(dtype)
+    got = spmm.spmv(plan, x, "fast", 0.6, design=design)
+    rows = np.unique(np.concatenate([np.random.default_rng(5).choice(v, 300), [0, v - 1]]))
+    oracle = spmm.spmm_oracle(g, _pinned(x.float().cpu().numpy(), 0.6), rows=rows)
+    _check(got, spmm.spmv_plain(plan, x, "fast", 0.6), rows, oracle,
+           bf16=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", ["kahan", "fast"])
+def test_kernel_rows_at_thresholds(cuda, mode):
+    """Rows of exactly SELL_HUB items (lane rows), of SELL_HUB + 1 (hub rows)
+    and of 32·SELL_HUB + 1 (a hub row of two pieces), beside a partly
+    filled lane unit."""
+    h, per_ss = spmm.SELL_HUB, 32 * spmm.SELL_WARPS
+    degrees = [h, h + 1, h, h + 1, 32 * h + 1] + [3] * (per_ss - 4)
+    v = len(degrees) + 6000
+    g = _degree_graph(degrees, v)
+    plan = spmm.build_spmv_stream(g, device=cuda)
+    hubs = set(plan.sell.hub_rows.tolist())
+    assert {1, 3, 4} <= hubs and not {0, 2} & hubs
+    x = torch.rand((v, 40), generator=torch.Generator().manual_seed(6)).to(cuda)
+    got = spmm.spmv(plan, x, mode)
+    rows = np.arange(len(degrees) + 1)
+    _check(got, spmm.spmv_plain(plan, x, mode), rows,
+           spmm.spmm_oracle(g, x.cpu().numpy(), rows=rows))
+
+
+def test_kernel_ragged_bf16(cuda):
+    """C = 1,001 bf16 columns: rows are not 16-byte aligned, so the panel
+    and the output go element by element."""
+    g = _graph(seed=7)
+    plan = spmm.build_spmv_stream(g, device=cuda)
+    x = torch.rand((300, 1001), generator=torch.Generator().manual_seed(7)).to(cuda).bfloat16()
+    got = spmm.spmv(plan, x, "fast", 0.6)
+    oracle = spmm.spmm_oracle(g, _pinned(x.float().cpu().numpy(), 0.6))
+    _check(got, spmm.spmv_plain(plan, x, "fast", 0.6), np.arange(300), oracle, bf16=True)
+
+
+def test_kernel_uniform_fast_skips_padded_slots(cuda):
+    """A uniform stream runs B2 without the weight multiply: the slices'
+    pad positions (slot 0) must not be summed into short rows."""
+    g = _degree_graph([1, 2, 5, 9, 40, 90] * 20, 2000, seed=8)
+    plan = spmm.build_spmv_stream(g, device=cuda)
+    assert plan.uniform and (plan.sell.item < 0).any()
+    x = torch.rand((2000, 64), generator=torch.Generator().manual_seed(8)).to(cuda)
+    x[0] = 4.0  # a summed pad would show
+    got = spmm.spmv(plan, x, "fast")
+    _check(got, spmm.spmv_plain(plan, x, "fast"), np.arange(2000),
+           spmm.spmm_oracle(g, x.cpu().numpy()))
+
+
+@pytest.mark.parametrize("mode", ["kahan", "fast"])
+def test_kernel_is_deterministic(cuda, mode):
+    g = _graph(v=3000, e=40_000, seed=9)
+    plan = spmm.build_spmv_stream(g, device=cuda)
+    x = torch.rand((3000, 520), generator=torch.Generator().manual_seed(9)).to(cuda)
+    a = spmm.spmv(plan, x, mode, 0.6)
+    b = spmm.spmv(plan, x, mode, 0.6)
+    assert torch.equal(a, b)
+
+
 def _small_random():
     rng = np.random.default_rng(42)
     edges = rng.integers(0, 64, size=(400, 2))
@@ -164,7 +290,7 @@ def test_simrank_spmm_on_card_matches_cpu(cuda, mode, dtype, seg):
     before = sum(spmm.SPMV_LAUNCHES.values())
     got = exact_simrank_spmm(g, spmv_mode=mode, dtype=dtype, spmv_seg=seg, device=cuda)
     assert sum(spmm.SPMV_LAUNCHES.values()) == before + 6
-    cpu = exact_simrank_spmm(g, spmv_mode=mode, dtype=dtype, spmv_seg=seg)
+    cpu = exact_simrank_spmm(g, spmv_mode=mode, dtype=dtype, spmv_seg=seg, device="cpu")
     dense = exact_simrank(g, device=cuda)
     tol = 1e-2 if dtype == torch.bfloat16 else 2e-5
     assert (got.float().cpu() - cpu.float()).abs().max().item() <= tol

@@ -46,7 +46,7 @@ def test_dense_matches_graphtpu(case, small_random):
           "directed": _digraph()}[case]
     weighted = case == "weighted"
     got = texact.exact_simrank(to_torch(jg), SimRankConfig(iterations=4),
-                               weighted=weighted)
+                               weighted=weighted, device="cpu")
     want = jexact.exact_simrank(jg, JConfig(iterations=4), weighted=weighted)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
@@ -54,7 +54,7 @@ def test_dense_matches_graphtpu(case, small_random):
 
 def test_dense_matches_reference_oracle(small_random):
     g = to_torch(small_random)
-    got = texact.exact_simrank(g, SimRankConfig(iterations=3)).numpy()
+    got = texact.exact_simrank(g, SimRankConfig(iterations=3), device="cpu").numpy()
     want = texact.exact_simrank_reference_oracle(g, c=0.6, iterations=3)
     np.testing.assert_allclose(got, want, atol=2e-5)
     np.testing.assert_array_equal(
@@ -64,7 +64,7 @@ def test_dense_matches_reference_oracle(small_random):
 
 def test_dense_isolated_node_matches_oracle():
     g = gt.build_graph(np.array([[0, 1], [1, 2], [3, 1]]), n_nodes=5)
-    got = texact.exact_simrank(g, SimRankConfig(iterations=4)).numpy()
+    got = texact.exact_simrank(g, SimRankConfig(iterations=4), device="cpu").numpy()
     want = texact.exact_simrank_reference_oracle(g, c=0.6, iterations=4)
     np.testing.assert_allclose(got, want, atol=1e-5)
     assert (got[4] == 0).all() and (got[:, 4] == 0).all()
@@ -73,7 +73,7 @@ def test_dense_isolated_node_matches_oracle():
 def test_weighted_matches_weighted_oracle():
     jg = _weighted_graph()
     g = to_torch(jg)
-    got = texact.weighted_simrank(g, WeightedSimRankConfig(iterations=5)).numpy()
+    got = texact.weighted_simrank(g, WeightedSimRankConfig(iterations=5), device="cpu").numpy()
     want = texact.weighted_simrank_reference_oracle(g, c=0.6, iterations=5)
     np.testing.assert_allclose(got, want, atol=3e-5)
     np.testing.assert_array_equal(
@@ -84,7 +84,7 @@ def test_weighted_matches_weighted_oracle():
 def test_directed_matches_directed_oracle():
     jg = _digraph()
     g = to_torch(jg)
-    got = texact.exact_simrank(g, SimRankConfig(iterations=4)).numpy()
+    got = texact.exact_simrank(g, SimRankConfig(iterations=4), device="cpu").numpy()
     want = texact.directed_simrank_reference_oracle(g, c=0.6, iterations=4)
     np.testing.assert_allclose(got, want, atol=2e-5)
     np.testing.assert_array_equal(
@@ -98,7 +98,7 @@ def test_directed_matches_directed_oracle():
 def test_spmm_matches_graphtpu_pallas_interpret(small_random, mode, seg):
     cfg = SimRankConfig(iterations=3)
     got = texact.exact_simrank_spmm(
-        to_torch(small_random), cfg, spmv_mode=mode, spmv_seg=seg
+        to_torch(small_random), cfg, spmv_mode=mode, spmv_seg=seg, device="cpu"
     )
     want = jexact.exact_simrank_spmm(
         small_random, JConfig(iterations=3), impl="pallas", spmv_mode=mode,
@@ -107,7 +107,7 @@ def test_spmm_matches_graphtpu_pallas_interpret(small_random, mode, seg):
     assert got.shape == (64, 64) and got.dtype == torch.float32
     # the tolerance of tests/test_spmm.py:153 and :227 (sum orders differ)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
-    dense = texact.exact_simrank(to_torch(small_random), cfg).numpy()
+    dense = texact.exact_simrank(to_torch(small_random), cfg, device="cpu").numpy()
     np.testing.assert_allclose(got.numpy(), dense, atol=2e-5)
 
 
@@ -116,16 +116,18 @@ def test_spmm_weighted_and_directed_match_dense(mode):
     for jg, weighted in ((_weighted_graph(), True), (_digraph(), False)):
         g = to_torch(jg)
         cfg = SimRankConfig(iterations=4)
-        dense = texact.exact_simrank(g, cfg, weighted=weighted).numpy()
-        sparse = texact.exact_simrank_spmm(g, cfg, weighted=weighted, spmv_mode=mode)
+        dense = texact.exact_simrank(g, cfg, weighted=weighted, device="cpu").numpy()
+        sparse = texact.exact_simrank_spmm(g, cfg, weighted=weighted, spmv_mode=mode,
+                                            device="cpu")
         np.testing.assert_allclose(sparse.numpy(), dense, atol=2e-5)
 
 
 def test_fast16_matches_gold_ranking(small_random):
     g = to_torch(small_random)
     cfg = SimRankConfig(iterations=4)
-    gold = texact.exact_simrank(g, cfg).numpy()
-    a16 = texact.exact_simrank_spmm(g, cfg, spmv_mode="fast", dtype=torch.bfloat16)
+    gold = texact.exact_simrank(g, cfg, device="cpu").numpy()
+    a16 = texact.exact_simrank_spmm(g, cfg, spmv_mode="fast", dtype=torch.bfloat16,
+                                   device="cpu")
     assert a16.dtype == torch.bfloat16
     a16 = a16.float().numpy()
     assert np.abs(a16 - gold).max() < 1e-2
@@ -139,10 +141,22 @@ def test_fast16_matches_gold_ranking(small_random):
 def test_spmm_stage_times_and_topk(small_random):
     g = to_torch(small_random)
     times = {}
-    sim = texact.exact_simrank_spmm(g, SimRankConfig(iterations=2), stage_times=times)
-    assert set(times) == {"product1", "transpose", "product2"}
+    sim = texact.exact_simrank_spmm(g, SimRankConfig(iterations=2), stage_times=times,
+                                    device="cpu")
+    assert set(times) == {"product1", "transpose", "product2", "layout_host"}
     assert all(t >= 0 for t in times.values())
     vals, idx = texact.simrank_topk(sim, 5)
     jvals, jidx = jexact.simrank_topk(jnp.asarray(sim.numpy()), 5)
     np.testing.assert_array_equal(vals, jvals)
     np.testing.assert_array_equal(idx, jidx)
+
+
+@pytest.mark.parametrize("entry", ["exact_simrank", "exact_simrank_spmm", "weighted_simrank"])
+def test_entry_points_default_to_the_card(entry, small_random, monkeypatch):
+    """A host-built graph runs on ``cuda`` unless ``device="cpu"`` is given;
+    without a card that raises instead of moving to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = to_torch(small_random)
+    assert g.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(texact, entry)(g)

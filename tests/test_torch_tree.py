@@ -190,7 +190,7 @@ def test_simrank_tree_matches_graphtpu_xla(small_random, case, width, col_block)
     weighted = case == "weighted"
     got = texact.exact_simrank_spmm(
         to_torch(jg), SimRankConfig(iterations=4), weighted=weighted,
-        impl="tree", width=width, col_block=col_block)
+        impl="tree", width=width, col_block=col_block, device="cpu")
     want = np.asarray(jexact.exact_simrank_spmm(
         jg, JConfig(iterations=4), weighted=weighted, impl="xla",
         width=width, col_block=col_block))
@@ -202,7 +202,7 @@ def test_simrank_tree_matches_graphtpu_xla(small_random, case, width, col_block)
 def test_simrank_tree_bf16_within_one_ulp_of_graphtpu(small_random):
     got = texact.exact_simrank_spmm(
         to_torch(small_random), SimRankConfig(iterations=3), dtype=torch.bfloat16,
-        impl="tree")
+        impl="tree", device="cpu")
     want = jexact.exact_simrank_spmm(
         small_random, JConfig(iterations=3), dtype=jnp.bfloat16, impl="xla")
     assert got.dtype == torch.bfloat16
@@ -214,21 +214,22 @@ def test_simrank_tree_bf16_within_one_ulp_of_graphtpu(small_random):
 def test_simrank_tree_matches_oracle_and_stream(small_random):
     g = to_torch(small_random)
     cfg = SimRankConfig(iterations=3)
-    tree = texact.exact_simrank_spmm(g, cfg, impl="tree").numpy()
+    tree = texact.exact_simrank_spmm(g, cfg, impl="tree", device="cpu").numpy()
     oracle = texact.exact_simrank_reference_oracle(g, c=0.6, iterations=3)
     np.testing.assert_allclose(tree, oracle, atol=2e-5)
-    stream = texact.exact_simrank_spmm(g, cfg).numpy()  # the stream branch
+    stream = texact.exact_simrank_spmm(g, cfg, device="cpu").numpy()  # the stream branch
     np.testing.assert_allclose(tree, stream, atol=2e-5)
 
 
 def test_simrank_tree_weighted_and_directed_match_oracles():
     jw = _weighted_graph()
     got = texact.exact_simrank_spmm(
-        to_torch(jw), SimRankConfig(iterations=4), weighted=True, impl="tree")
+        to_torch(jw), SimRankConfig(iterations=4), weighted=True, impl="tree", device="cpu")
     want = texact.weighted_simrank_reference_oracle(to_torch(jw), c=0.6, iterations=4)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
     jd = _digraph()
-    got = texact.exact_simrank_spmm(to_torch(jd), SimRankConfig(iterations=4), impl="tree")
+    got = texact.exact_simrank_spmm(to_torch(jd), SimRankConfig(iterations=4), impl="tree",
+                                    device="cpu")
     want = texact.directed_simrank_reference_oracle(to_torch(jd), c=0.6, iterations=4)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
@@ -237,17 +238,17 @@ def test_simrank_tree_stage_times_and_bad_impl(small_random):
     g = to_torch(small_random)
     times = {}
     texact.exact_simrank_spmm(g, SimRankConfig(iterations=2), impl="tree",
-                              stage_times=times)
+                              stage_times=times, device="cpu")
     assert set(times) == {"product1", "transpose", "product2"}
     assert all(t >= 0 for t in times.values())
     with pytest.raises(ValueError, match="impl"):
-        texact.exact_simrank_spmm(g, impl="xla")
+        texact.exact_simrank_spmm(g, impl="xla", device="cpu")
 
 
 @pytest.mark.parametrize("kw", [{"spmv_mode": "fast"}, {"spmv_seg": 2}])
 def test_simrank_tree_rejects_stream_options(small_random, kw):
     with pytest.raises(ValueError, match="impl='tree' takes neither"):
-        texact.exact_simrank_spmm(to_torch(small_random), impl="tree", **kw)
+        texact.exact_simrank_spmm(to_torch(small_random), impl="tree", device="cpu", **kw)
 
 
 def test_gather_dispatch_counts_no_cpu_launch_and_checks_inputs():

@@ -111,7 +111,7 @@ def test_simrank_tree_on_card_matches_cpu(cuda, dtype):
     # iterations x 2 products x ceil(200 / 96) column blocks x levels
     assert spmm.GATHER_LAUNCHES["gather_rows_sum"] - before == 3 * 2 * 3 * len(tree.levels)
     assert got.dtype == dtype
-    cpu = exact_simrank_spmm(g, cfg, dtype=dtype, impl="tree", col_block=96)
+    cpu = exact_simrank_spmm(g, cfg, dtype=dtype, impl="tree", col_block=96, device="cpu")
     dense = exact_simrank(g, cfg, device=cuda)
     if dtype == torch.float32:
         assert torch.equal(got.cpu(), cpu)

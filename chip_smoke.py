@@ -8,11 +8,12 @@ Phases (any failure raises and the run exits non-zero):
   2. build: compile the hand kernels from graphtpu_torch/kernels/csrc.
   3. kernels: kernels B1 (Kahan) and B2 (fast) against their plain PyTorch
      version and the float64 oracle on the blog-shaped stream (V = C =
-     10,496, the column-panel design), plus seg-2, ragged and bf16 cases, a
-     V = 60,000 case in both designs (k-panels, row tiles) and the Kahan hub
-     (B1 in both designs and B2's panel within 1e-5; a sequential f32 sum
-     must miss); every case launched twice and the outputs held bit-equal;
-     CUDA-event times of kernel, plain version and one torch.sparse.mm.
+     10,496, the column-panel design), plus seg-2 (row tiles), ragged and
+     bf16 cases, a V = 60,000 case (row tiles) and the Kahan hub at degree
+     20,000 (row tiles) and 11,000 (the panel): B1, and B2 in the panel,
+     within 1e-5, while a sequential f32 sum must miss; every case launched
+     twice and the outputs held bit-equal; CUDA-event times of kernel,
+     plain version and one torch.sparse.mm.
   4. tree kernel: kernel B3 against its plain version on every level of
      the blog-shaped reduction tree at 4,096-column blocks (level 0 read
      in place from the wider iterate), the ragged tail block, C = 10,313
@@ -62,7 +63,7 @@ TOL_RATE = 1e-5       # X2/X3 vs plain, relative to the row's sum of |terms|
 TOL_SIM_F32 = 2e-5    # SimRank scores, f32 modes, vs the dense fp32 engine
 TOL_SIM_BF16 = 1e-2   # SimRank scores, fast16, vs the dense fp32 engine
 C_RAGGED = 10_313
-HUB_DEGREE = 20_000
+HUB_DEGREES = (20_000, 11_000)  # row tiles; the column panel (V <= 11,448)
 V_PANELS, C_PANELS = 60_000, 256  # a V past one block's shared memory
 ORACLE_ROWS = 384     # rows of each product held against the float64 oracle
 COL_BLOCK = 4096      # exact_simrank_spmm's tree column block
@@ -132,8 +133,8 @@ def library_ms(fn):
 
 
 def v60000_graph():
-    """V = 60,000 (past one block's shared memory even at 4 bytes a row):
-    200,000 random edges and a hub of degree 3,000 at node 7."""
+    """V = 60,000 (past one block's shared memory): 200,000 random edges
+    and a hub of degree 3,000 at node 7."""
     from graphtpu_torch import build_graph
 
     rng = np.random.default_rng(4)
@@ -154,8 +155,8 @@ def phase_kernels(dev, report):
     seg2 = spmm.build_spmv_segments(g2, k=2, device=dev)
     say(f"blog stream: V={g.n_nodes} slots={g.n_edges} items={plan.n_items} "
         f"max_degree={g.max_degree}; sliced layout: {plan.sell.n_chunks} chunks, "
-        f"compact={plan.sell.compact}, {plan.sell.hub_rows.numel()} hub rows, built in "
-        f"{plan.sell.host_ms:.1f} ms (host); rcm seg-2 stream: items={seg2.n_items}")
+        f"{plan.sell.hub_rows.numel()} hub rows, built in {plan.sell.host_ms:.1f} ms "
+        f"(host); rcm seg-2 stream: items={seg2.n_items}")
     x_np = np.random.default_rng(1).random((BLOG_NODES, BLOG_NODES), dtype=np.float32)
     x = torch.from_numpy(x_np).to(dev)
     xb = x.bfloat16()
@@ -167,55 +168,43 @@ def phase_kernels(dev, report):
     special = [int(np.argmax(deg)), int(np.argmax(g2.host[3])), BLOG_NODES - 1, 0]
     rows = np.unique(np.concatenate([rng.choice(BLOG_NODES, ORACLE_ROWS), special]))
 
-    # past one panel: k-panels in the panel design, row tiles by default
+    # past one panel: row tiles
     gp = v60000_graph()
     plan_p = spmm.build_spmv_stream(gp, device=dev)
-    plan_pp = spmm.with_sell_layout(plan_p)  # the panel design needs the layout
     xp_np = np.random.default_rng(4).random((V_PANELS, C_PANELS), dtype=np.float32)
     xp = torch.from_numpy(xp_np).to(dev)
     rows_p = np.unique(np.concatenate(
         [np.random.default_rng(5).choice(V_PANELS, ORACLE_ROWS), [7, 0, V_PANELS - 1]]))
 
-    # Kahan hub: one row of degree 20,000 whose neighbours hold equal values
-    # in each column, so every f32 partial sum rounds the same way
-    star = np.stack([np.zeros(HUB_DEGREE, np.int64), np.arange(1, HUB_DEGREE + 1)], 1)
-    hub_g = build_graph(star, n_nodes=HUB_DEGREE + 1)
-    hub_vals = (1 + np.random.default_rng(3).random(1024)).astype(np.float32)
-    hub_np = np.broadcast_to(hub_vals, (HUB_DEGREE + 1, 1024)).copy()
-    hub_x = torch.from_numpy(hub_np).to(dev)
-    hub_plan = spmm.with_sell_layout(spmm.build_spmv_stream(hub_g, device=dev))
-
     blog = lambda t, ts: x64[(ts is not None, "bf16" if t.dtype == torch.bfloat16 else "f32")]
     cases = [
-        # name, mode, plan, graph, table, table_scale, design, float64 table, rows
-        ("kahan_f32", "kahan", plan, g, x, None, None, blog, rows),
-        ("kahan_f32_pin", "kahan", plan, g, x, 0.6, None, blog, rows),
-        ("fast_f32", "fast", plan, g, x, None, None, blog, rows),
-        ("fast_f32_pin", "fast", plan, g, x, 0.6, None, blog, rows),
-        ("fast_bf16_pin", "fast", plan, g, xb, 0.6, None, blog, rows),
-        ("fast_bf16", "fast", plan, g, xb, None, None, blog, rows),
-        ("kahan_seg2_rcm_pin", "kahan", seg2, g2, x, 0.6, None, blog, rows),
-        ("fast_seg2_rcm_pin", "fast", seg2, g2, x, 0.6, None, blog, rows),
-        ("kahan_f32_pin_ragged", "kahan", plan, g, x[:, :C_RAGGED].contiguous(), 0.6, None,
+        # name, mode, plan, graph, table, table_scale, float64 table, rows
+        ("kahan_f32", "kahan", plan, g, x, None, blog, rows),
+        ("kahan_f32_pin", "kahan", plan, g, x, 0.6, blog, rows),
+        ("fast_f32", "fast", plan, g, x, None, blog, rows),
+        ("fast_f32_pin", "fast", plan, g, x, 0.6, blog, rows),
+        ("fast_bf16_pin", "fast", plan, g, xb, 0.6, blog, rows),
+        ("fast_bf16", "fast", plan, g, xb, None, blog, rows),
+        ("kahan_seg2_rcm_pin", "kahan", seg2, g2, x, 0.6, blog, rows),
+        ("fast_seg2_rcm_pin", "fast", seg2, g2, x, 0.6, blog, rows),
+        ("kahan_f32_pin_ragged", "kahan", plan, g, x[:, :C_RAGGED].contiguous(), 0.6,
          blog, rows),
-        ("fast_bf16_pin_ragged", "fast", plan, g, xb[:, :C_RAGGED].contiguous(), 0.6, None,
+        ("fast_bf16_pin_ragged", "fast", plan, g, xb[:, :C_RAGGED].contiguous(), 0.6,
          blog, rows),
     ]
     p64 = lambda t, ts: pinned64(xp_np, 0.6)
     for mode in ("kahan", "fast"):
-        for design, pp in (("panel", plan_pp), ("rows", plan_p)):
-            cases.append((f"{mode}_v{V_PANELS}_pin_{design}", mode, pp, gp, xp, 0.6, design,
-                          p64, rows_p))
+        cases.append((f"{mode}_v{V_PANELS}_pin", mode, plan_p, gp, xp, 0.6, p64, rows_p))
     results = []
-    for name, mode, p, gg, table, ts, design, ref64, orows in cases:
+    for name, mode, p, gg, table, ts, ref64, orows in cases:
         bf = table.dtype == torch.bfloat16
-        out = spmm.spmv(p, table, mode, ts, design=design)
+        out = spmm.spmv(p, table, mode, ts)
         torch.cuda.synchronize()
         plain = spmm.spmv_plain(p, table, mode, ts)
         check(out.shape == (gg.n_nodes + 1, table.shape[1]) and out.dtype == table.dtype,
               f"{name}: shape/dtype {tuple(out.shape)} {out.dtype}")
         check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
-        again = spmm.spmv(p, table, mode, ts, design=design)
+        again = spmm.spmv(p, table, mode, ts)
         check(torch.equal(out, again), f"{name}: two launches differ")
         del again
         err_plain = (out.float() - plain.float()).abs().max().item()
@@ -233,8 +222,8 @@ def phase_kernels(dev, report):
             within_plain = err_plain <= TOL_F32
             within_oracle = err_oracle <= TOL_F32
             bound = f"{TOL_F32:g} absolute"
-        used = design or ("panel" if p.sell is not None else "rows")
-        ms = cuda_ms(lambda: spmm.spmv(p, table, mode, ts, design=design))
+        used = "panel" if p.sell is not None else "rows"
+        ms = cuda_ms(lambda: spmm.spmv(p, table, mode, ts))
         plain_ms = cuda_ms(lambda: spmm.spmv_plain(p, table, mode, ts), warmup=1, runs=5)
         lib_ms = None
         if ts is None and p is plan and name in ("kahan_f32", "fast_f32", "fast_bf16"):
@@ -256,37 +245,44 @@ def phase_kernels(dev, report):
         check(within_oracle, f"{name}: kernel vs float64 oracle outside {bound}")
         del out, plain
 
-    # the hub row against the oracle; its plain version is itself a plain
-    # f32 sum, which this case is built to defeat, so it is reported only
-    hub_oracle = spmm.spmm_oracle(hub_g, hub_np, rows=[0])[0]
-    lo, hi = hub_plan.row_items[:2].tolist()
-    terms = (hub_plan.wts[lo:hi].cpu().numpy()[:, None]
-             * hub_np[hub_plan.slots[lo:hi].long().cpu().numpy()]).astype(np.float32)
-    seq = np.cumsum(terms, axis=0, dtype=np.float32)[-1]
-    got = {
-        "kahan_rows": spmm.spmv(hub_plan, hub_x, "kahan", design="rows"),
-        "kahan_panel": spmm.spmv(hub_plan, hub_x, "kahan", design="panel"),
-        "fast_panel": spmm.spmv(hub_plan, hub_x, "fast", design="panel"),
-        "fast_rows": spmm.spmv(hub_plan, hub_x, "fast", design="rows"),
-    }
-    hub = {f"{k}_err_oracle": float(np.abs(v[0].cpu().numpy() - hub_oracle).max())
-           for k, v in got.items()}
-    hub.update(case="kahan_hub", degree=HUB_DEGREE,
-               sequential_f32_err_oracle=float(np.abs(seq - hub_oracle).max()),
-               plain_err_oracle=float(np.abs(
-                   spmm.spmv_plain(hub_plan, hub_x, "kahan")[0].cpu().numpy() - hub_oracle).max()))
-    say(f"kahan_hub (degree {HUB_DEGREE}): vs float64 oracle: B1 rows "
-        f"{hub['kahan_rows_err_oracle']:.3e}, B1 panel {hub['kahan_panel_err_oracle']:.3e}, "
-        f"B2 panel {hub['fast_panel_err_oracle']:.3e}, B2 rows {hub['fast_rows_err_oracle']:.3e}, "
-        f"sequential f32 sum {hub['sequential_f32_err_oracle']:.3e}, plain version "
-        f"{hub['plain_err_oracle']:.3e}; bound {TOL_F32:g}")
-    for k in ("kahan_rows", "kahan_panel", "fast_panel"):
-        check(hub[f"{k}_err_oracle"] <= TOL_F32, f"kahan_hub: {k} outside the bound")
-    check(hub["sequential_f32_err_oracle"] > TOL_F32,
-          "kahan_hub: a sequential f32 sum met the bound, so the case separates nothing")
+    # Kahan hub: one row of degree d whose neighbours hold equal values in
+    # each column, so every f32 partial sum rounds the same way; its plain
+    # version is itself a plain f32 sum, which this case is built to
+    # defeat, so it is reported only
+    hubs = []
+    for d in HUB_DEGREES:
+        star = np.stack([np.zeros(d, np.int64), np.arange(1, d + 1)], 1)
+        hub_g = build_graph(star, n_nodes=d + 1)
+        hub_vals = (1 + np.random.default_rng(3).random(1024)).astype(np.float32)
+        hub_np = np.broadcast_to(hub_vals, (d + 1, 1024)).copy()
+        hub_x = torch.from_numpy(hub_np).to(dev)
+        hub_plan = spmm.build_spmv_stream(hub_g, device=dev)
+        design = "panel" if hub_plan.sell is not None else "rows"
+        hub_oracle = spmm.spmm_oracle(hub_g, hub_np, rows=[0])[0]
+        lo, hi = hub_plan.row_items[:2].tolist()
+        terms = (hub_plan.wts[lo:hi].cpu().numpy()[:, None]
+                 * hub_np[hub_plan.slots[lo:hi].long().cpu().numpy()]).astype(np.float32)
+        seq = np.cumsum(terms, axis=0, dtype=np.float32)[-1]
+        err = lambda o: float(np.abs(o[0].float().cpu().numpy() - hub_oracle).max())
+        hub = dict(case="kahan_hub", degree=d, design=design,
+                   kahan_err_oracle=err(spmm.spmv(hub_plan, hub_x, "kahan")),
+                   fast_err_oracle=err(spmm.spmv(hub_plan, hub_x, "fast")),
+                   sequential_f32_err_oracle=float(np.abs(seq - hub_oracle).max()),
+                   plain_err_oracle=err(spmm.spmv_plain(hub_plan, hub_x, "kahan")))
+        say(f"kahan_hub (degree {d}, {design}): vs float64 oracle: B1 "
+            f"{hub['kahan_err_oracle']:.3e}, B2 {hub['fast_err_oracle']:.3e}, sequential f32 "
+            f"sum {hub['sequential_f32_err_oracle']:.3e}, plain version "
+            f"{hub['plain_err_oracle']:.3e}; bound {TOL_F32:g}")
+        check(hub["kahan_err_oracle"] <= TOL_F32, f"kahan_hub {d}: B1 outside the bound")
+        if design == "panel":
+            check(hub["fast_err_oracle"] <= TOL_F32, f"kahan_hub {d}: B2 outside the bound")
+        check(hub["sequential_f32_err_oracle"] > TOL_F32,
+              f"kahan_hub {d}: a sequential f32 sum met the bound, so the case separates nothing")
+        hubs.append(hub)
+        del hub_x
     report["kernel_cases"] = results
-    report["kahan_hub"] = hub
-    del x, xb, hub_x, xp, got
+    report["kahan_hub"] = hubs
+    del x, xb, xp
     torch.cuda.empty_cache()
     return results, plan.n_items
 

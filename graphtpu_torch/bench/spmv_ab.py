@@ -10,11 +10,12 @@ seg_k, pin, scale, mul, bf16, stream)``), for example a ``git archive`` of an
 earlier commit unpacked into a git-ignored directory.  The script builds it
 with nvcc and, at the shapes the main path gives the kernels (blog-shaped
 V = C = 10,496 and R-MAT V = C = 16,384, seed 0; f32 and bf16 tables, with
-and without the fused pin, in the design ``spmv`` picks and, at R-MAT, in
-the narrowed panel as well), times old, new, new, old with CUDA events (the
-median of 9 launches each) and holds the new output against the old one.
-It counts the elements that differ on rows the panel design sums
-one lane per row (expected 0: the same operations in the same order).
+and without the fused pin), and on the blog-shaped graph's other streams
+(seg-2 after an RCM relabel, as ``--relabel rcm --seg 2`` runs it, and
+random edge weights), times old, new, new, old with CUDA events (the median
+of 9 launches each) and holds the new output against the old one.  It
+counts the elements that differ on rows the new kernel sums one lane per
+row (expected 0: the same operations in the same order).
 """
 
 from __future__ import annotations
@@ -30,19 +31,27 @@ import tempfile
 import numpy as np
 import torch
 
-from graphtpu_torch.bench.generators import blog_shaped_graph, rmat14_graph
+from graphtpu_torch.bench.generators import (
+    BLOG_NODES,
+    blog_shaped_edges,
+    blog_shaped_graph,
+    rmat14_graph,
+)
 from graphtpu_torch.bench.timing import cuda_ms
 from graphtpu_torch.kernels import _build, spmm
 
-CASES = (  # graph, mode, dtype, table_scale, design (None: what spmv picks)
-    ("blog", "kahan", torch.float32, 0.6, None),
-    ("blog", "fast", torch.float32, 0.6, None),
-    ("blog", "fast", torch.bfloat16, 0.6, None),
-    ("blog", "kahan", torch.float32, None, None),
-    ("blog", "fast", torch.float32, None, None),
-    ("rmat", "kahan", torch.float32, 0.6, None),
-    ("rmat", "fast", torch.float32, 0.6, None),
-    ("rmat", "kahan", torch.float32, 0.6, "panel"),  # the narrowed 8-byte slab
+CASES = (  # stream, mode, dtype, table_scale
+    ("blog", "kahan", torch.float32, 0.6),
+    ("blog", "fast", torch.float32, 0.6),
+    ("blog", "fast", torch.bfloat16, 0.6),
+    ("blog", "kahan", torch.float32, None),
+    ("blog", "fast", torch.float32, None),
+    ("blog_seg2_rcm", "kahan", torch.float32, 0.6),
+    ("blog_seg2_rcm", "fast", torch.float32, 0.6),
+    ("blog_weighted", "kahan", torch.float32, 0.6),
+    ("blog_weighted", "fast", torch.float32, 0.6),
+    ("rmat", "kahan", torch.float32, 0.6),
+    ("rmat", "fast", torch.float32, 0.6),
 )
 
 
@@ -81,12 +90,20 @@ def old_spmv(old, stream, table, mode, table_scale):
     return out
 
 
-def lane_rows(stream, design) -> np.ndarray:
-    """Output rows the panel design sums one lane per row."""
-    rows = np.arange(stream.n_nodes + 1)
-    if design == "rows":
-        return rows
-    return np.setdiff1d(rows, stream.sell.hub_rows.cpu().numpy())
+def streams(dev):
+    """(tag, stream) of each stream the cases run over."""
+    from graphtpu_torch import build_graph
+    from graphtpu_torch.core.reorder import rcm_order, relabel_graph
+
+    blog = blog_shaped_graph()
+    yield "blog", spmm.build_spmv_stream(blog, device=dev)
+    rcm, _ = relabel_graph(blog, rcm_order(blog))
+    yield "blog_seg2_rcm", spmm.build_spmv_segments(rcm, k=2, device=dev)
+    edges = blog_shaped_edges()
+    wts = (np.random.default_rng(0).random(len(edges)) + 0.1).astype(np.float32)
+    weighted = build_graph(edges, weights=wts, n_nodes=BLOG_NODES)
+    yield "blog_weighted", spmm.build_spmv_stream(weighted, weighted=True, device=dev)
+    yield "rmat", spmm.build_spmv_stream(rmat14_graph(), device=dev)
 
 
 def main(argv=None) -> dict:
@@ -104,27 +121,27 @@ def main(argv=None) -> dict:
         old = build_old(args.old_csrc, tmp)
         _build.load()
         rows = []
-        graphs = {"blog": blog_shaped_graph(), "rmat": rmat14_graph()}
-        for tag, g in graphs.items():
-            stream = spmm.with_sell_layout(spmm.build_spmv_stream(g, device=dev))
+        for tag, stream in streams(dev):
+            design = "panel" if stream.sell is not None else "rows"
+            v = stream.n_nodes
             gen = torch.Generator(device=dev).manual_seed(0)
-            x = torch.rand((g.n_nodes, g.n_nodes), generator=gen, device=dev)
-            for gtag, mode, dtype, ts, force in CASES:
-                if gtag != tag:
+            x = torch.rand((v, v), generator=gen, device=dev)
+            lane = np.arange(v + 1)
+            if stream.sell is not None:
+                lane = np.setdiff1d(lane, stream.sell.hub_rows.cpu().numpy())
+            lane = torch.as_tensor(lane, device=dev)
+            for stag, mode, dtype, ts in CASES:
+                if stag != tag:
                     continue
-                design = force or ("panel" if spmm.sell_fits(g.n_nodes, 1) else "rows")
                 table = x.to(dtype)
-                # unforced: what spmv picks for a stream as build_spmv_stream makes it
-                force = force or design
-                new_out = spmm.spmv(stream, table, mode, ts, design=force)
+                new_out = spmm.spmv(stream, table, mode, ts)
                 old_out = old_spmv(old, stream, table, mode, ts)
                 torch.cuda.synchronize()
                 diff = (new_out.float() - old_out.float()).abs()
-                keep = torch.as_tensor(lane_rows(stream, design), device=dev)
-                unequal = int((new_out[keep] != old_out[keep]).sum().item())
+                unequal = int((new_out[lane] != old_out[lane]).sum().item())
                 t = [cuda_ms(lambda: old_spmv(old, stream, table, mode, ts)),
-                     cuda_ms(lambda: spmm.spmv(stream, table, mode, ts, design=force)),
-                     cuda_ms(lambda: spmm.spmv(stream, table, mode, ts, design=force)),
+                     cuda_ms(lambda: spmm.spmv(stream, table, mode, ts)),
+                     cuda_ms(lambda: spmm.spmv(stream, table, mode, ts)),
                      cuda_ms(lambda: old_spmv(old, stream, table, mode, ts))]
                 r = dict(graph=tag, mode=mode, dtype=str(dtype).split(".")[-1],
                          pin=ts is not None, design=design, old_ms=[t[0], t[3]],

@@ -30,17 +30,14 @@ _lib = None
 
 class GtSell(ctypes.Structure):
     """``struct GtSell`` of ``csrc/spmv.cu``: a sliced layout's device
-    pointers and sizes, and the launch's scratch."""
+    pointers and sizes, and the launch's scratch for hub rows."""
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "slots", "wts", "lane_row", "lane_cnt", "unit_hub", "ss_chunks",
-        "hub_rows", "hub_piece", "row_scale", "row_wts", "acc", "hub_acc")] + [
-        ("n_chunks", ctypes.c_int64), ("n_ss", ctypes.c_int64),
-        ("n_hub", ctypes.c_int64),
-        ("n_pieces", ctypes.c_int64), ("jb", ctypes.c_int32), ("compact", ctypes.c_int32),
-        ("slab_bytes", ctypes.c_int32), ("panel_rows", ctypes.c_int32),
-        ("n_panels", ctypes.c_int32), ("panel", ctypes.c_int32)] + [
-        (n, ctypes.c_void_p) for n in ("item_slots", "item_wts", "item_scales", "row_items")]
+        "slots", "lane_row", "lane_cnt", "unit_hub", "ss_chunks", "hub_rows",
+        "hub_piece", "row_w", "hub_acc")] + [
+        (n, ctypes.c_int64) for n in ("n_chunks", "n_ss", "n_hub", "n_pieces")]
+
+
 build_log = ""  # nvcc's output (ptxas register/spill report) from the last build
 
 
@@ -105,9 +102,9 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
     sell = ctypes.POINTER(GtSell)
-    lib.gt_spmv_kahan_f32.argtypes = [sell, p, p, i64, i64, i32, i32, f32, p]
+    lib.gt_spmv_kahan_f32.argtypes = [p, p, p, sell, p, p, i64, i64, i32, i32, f32, p]
     lib.gt_spmv_kahan_f32.restype = ctypes.c_int
-    lib.gt_spmv_fast.argtypes = [sell, p, p, i64, i64, i32, i32, f32, i32, i32, p]
+    lib.gt_spmv_fast.argtypes = [p, p, p, p, sell, p, p, i64, i64, i32, i32, f32, i32, i32, p]
     lib.gt_spmv_fast.restype = ctypes.c_int
     lib.gt_gather_rows_sum.argtypes = [p, p, p, i64, p, i64, i64, i32, i64, i32, p]
     lib.gt_gather_rows_sum.restype = ctypes.c_int

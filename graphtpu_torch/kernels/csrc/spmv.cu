@@ -15,48 +15,43 @@
 // scales the row once by its first item's scale.  Rows with no items are
 // written as zeros; out has V+1 rows (row V takes the stream's pad items).
 //
-// The design: a column panel in shared memory.  Block b owns a slab of 16
+// Two designs behind one launch, chosen by the caller's stream:
+//
+// The column panel (spmv_panel), for a uniform K == 1 stream whose V rows
+// of 16 bytes fit one block's shared memory (V <= 11,448, kernels/spmm.py:
+// sell_fits), passed with its sliced layout.  Block b owns a slab of 16
 // bytes of every table row (4 f32 or 8 bf16 columns) and copies
 // table[0:V, slab] into shared memory once, so every row an item reads is a
-// shared-memory read, not an L2 request.  (The row-tile design before it
-// re-read a whole 42 KB table row from L2 for every item, 62x the bytes the
-// function needs, and was held to the rate at which L2 serves 16-byte
-// requests.)  The panel is V x 16 bytes next to a 48 KB stream ring, so it
-// fits up to V of about 11,400; the kernel can narrow the slab to 8 or 4
-// bytes and, past that, walk k-panels of rows with its rows' partial sums
-// (and compensations) parked in a scratch buffer only it touches, but each
-// halving of the slab doubles the stream passes, and row tiles are then the
-// faster design: the wrapper (kernels/spmm.py:spmv) runs them instead.  They
-// are kept below, one block per (output row, 1,024-column tile).
+// shared-memory read, not an L2 request.  It walks the whole stream in the
+// sliced order of kernels/spmm.py:build_sell_layout: lane l of a consumer
+// warp owns one output row and walks that row's items in stream order, so
+// B1's Kahan order, and its bits, are those of the row tiles.  Rows longer
+// than the hub threshold are cut into pieces whose items a whole warp takes
+// lane-strided; the lanes' sums are combined in a fixed lane order (TwoSum
+// for B1), and a row's pieces in a fixed order at the end.  The stream is
+// 16-bit slots only (a uniform stream's weight is one value per row), fed
+// in 16 KB chunks by bulk copies (TMA) through a ring of three shared-
+// memory stages, under full and consumed barriers.  Each output row's slab
+// segment is written once, with no atomics: the same bits on every run.
 //
-// Every panel block walks the whole item stream in the sliced order of
-// kernels/spmm.py:build_sell_layout.  Lane l of a consumer warp owns one
-// output row and walks that row's items in stream order, so B1's Kahan order,
-// and its bits, are those of the row tiles.  Rows longer than the hub
-// threshold are cut into pieces whose items a whole warp takes lane-strided;
-// the lanes' sums are combined in a fixed lane order (TwoSum for B1), and a
-// row's pieces in a fixed order at the end.  Where every row's weights are
-// one value (unweighted graphs) and V <= 65,536, the stream is compact: 16-bit
-// slots only, the weight read once per row.  The stream reaches the blocks in
-// 16 KB chunks through a ring of three shared-memory stages: in a cluster of
-// two blocks on adjacent slabs, one thread of the first block copies each
-// chunk with a multicast bulk copy (TMA) into the same stage of both, so L2
-// serves the stream once per cluster.  Full and consumed barriers per stage
-// order the ring inside a block, and an empty barrier in the first block
-// gathers both blocks' releases before a stage is reused.  Each output row's
-// slab segment is written once, with no atomics: the same bits on every run.
+// Row tiles (spmv_rows), for every other stream (seg-2/4, weighted, or V
+// past the panel): one block per (output row, 1,024-column tile), reading
+// table rows from L2.  Where the panel runs, it was measured faster; a
+// panel over int32 slots and per-item weights (seg-2, weighted), or with
+// a slab narrower than 16 bytes or several panels (larger V), was
+// measured slower than row tiles on an H100 (PERF.md) and is not built.
 //
-// What bounds it on this card: shared-memory wavefronts and instruction
-// issue, not device memory.  At V = C = 10,496 with 658,180 items the
-// function needs 0.89 GB of table, output and stream traffic (0.27 ms at
-// 3.35 TB/s), but the blocks read 658,180 x 16 bytes of panel rows per slab:
-// 27.6 GB of shared-memory reads in f32, 0.93 ms at the 128 bytes per clock
-// that each of the 132 SMs serves without conflicts.  Random rows put about
-// 2.5 lanes of each 8-lane phase of a 16-byte load on one bank group, so
-// conflicts cost ~2.5x that (about 2.3 ms); B1's pinned update issues ~30
-// instructions per (item, lane) besides.  bf16 slabs carry 8 columns per
-// 16-byte read: half the reads of f32.  The pin is a template argument, so
-// unpinned products issue none of its work.
+// What bounds the panel on this card: shared-memory wavefronts and
+// instruction issue, not device memory.  At V = C = 10,496 with 658,180
+// items the function needs 0.89 GB of table, output and stream traffic
+// (0.27 ms at 3.35 TB/s), but the blocks read 658,180 x 16 bytes of panel
+// rows per slab: 27.6 GB of shared-memory reads in f32, 0.93 ms at the 128
+// bytes per clock that each of the 132 SMs serves without conflicts.
+// Random rows put about 2.5 lanes of each 8-lane phase of a 16-byte load on
+// one bank group, so conflicts cost ~2.5x that (about 2.3 ms); B1's pinned
+// update issues ~30 instructions per (item, lane) besides.  bf16 slabs
+// carry 8 columns per 16-byte read: half the reads of f32.  The pin is a
+// template argument, so unpinned products issue none of its work.
 //
 // Rounding: every multiply and add in the item body uses the _rn
 // intrinsics, which nvcc never contracts into an FMA, so the Kahan update
@@ -65,45 +60,28 @@
 // converted to f32 on read, summed in f32 and rounded once on the store.
 //
 // Every entry point launches on the given stream, allocates nothing (the
-// caller passes the layout and any scratch), does not synchronise, and
+// caller passes the layout and its scratch), does not synchronise, and
 // returns cudaGetLastError() or the launch's own error.
-
-#include <cooperative_groups.h>
 
 #include <type_traits>
 
 #include "cols.cuh"
 
-namespace cg = cooperative_groups;
-
-// The layout of kernels/spmm.py:SellLayout, plus the launch's scratch.
+// The sliced layout of kernels/spmm.py:SellLayout, and the launch's scratch.
 struct GtSell {
-  const void* slots;         // [n_chunks * CP] int32, or uint16 when compact
-  const float* wts;          // general: [n_chunks * CP * K], folded (B1) or raw (B2)
+  const uint16_t* slots;     // [n_chunks * kChunk]: table row of each position (pads: 0)
   const int32_t* lane_row;   // [units * 32]
   const int32_t* lane_cnt;   // [units * 32]
   const int32_t* unit_hub;   // [units]
   const int32_t* ss_chunks;  // [n_ss]: chunks of each super-slice
   const int32_t* hub_rows;   // [n_hub]
   const int32_t* hub_piece;  // [n_hub + 1]
-  const float* row_scale;    // [V + 1]
-  const float* row_wts;      // compact: [V + 1], folded (B1) or raw (B2)
-  float* acc;                // n_panels > 1: [(KAHAN ? 2 : 1) * (V+1) * C]
-  float* hub_acc;            // n_pieces > 0: [(KAHAN ? 2 : 1) * n_panels * n_pieces * C]
+  const float* row_w;        // [V + 1]: the row's folded weight (B1) or scale (B2)
+  float* hub_acc;            // n_pieces > 0: [(KAHAN ? 2 : 1) * n_pieces * C]
   int64_t n_chunks;
   int64_t n_ss;
   int64_t n_hub;
   int64_t n_pieces;
-  int32_t jb;
-  int32_t compact;
-  int32_t slab_bytes;
-  int32_t panel_rows;
-  int32_t n_panels;
-  int32_t panel;             // 0: row tiles over the stream below instead
-  const int32_t* item_slots;  // the stream: [T]
-  const float* item_wts;      // [T * K], folded (B1) or raw (B2)
-  const float* item_scales;   // [T]
-  const int64_t* row_items;   // [V + 2]
 };
 
 namespace {
@@ -116,9 +94,8 @@ using gt::store_cols;
 
 constexpr int kAhead = 4;                    // items loaded before summing (row tiles)
 
-// Row tiles (where the 16-byte panel does not fit): one block per (output
-// row blockIdx.x, tile of 1,024 columns blockIdx.y), reading table rows
-// from L2.
+// Row tiles: one block per (output row blockIdx.x, tile of 1,024 columns
+// blockIdx.y), reading table rows from L2.
 template <typename T, int K, bool KAHAN>
 __global__ void __launch_bounds__(kThreads)
 spmv_rows(const int32_t* __restrict__ slots, const float* __restrict__ wts,
@@ -190,11 +167,10 @@ spmv_rows(const int32_t* __restrict__ slots, const float* __restrict__ wts,
 
 template <typename T, bool KAHAN>
 int launch_rows(const int32_t* slots, const float* wts, const float* scales,
-           const int64_t* row_items, const void* table, void* out,
-           int64_t n_rows_out, int64_t c, int seg_k, int pin, float table_scale,
-           int mul, cudaStream_t stream) {
+                const int64_t* row_items, const void* table, void* out,
+                int64_t n_rows_out, int64_t c, int seg_k, int pin, float table_scale,
+                int mul, cudaStream_t stream) {
   const int64_t tiles = (c + kTile - 1) / kTile;
-  if (n_rows_out <= 0 || c <= 0) return (int)cudaGetLastError();
   if (n_rows_out > 0x7fffffffLL || tiles > 65535) return (int)cudaErrorInvalidValue;
   const size_t align = sizeof(T) * kCols;
   const int vec = (c % kCols == 0) && ((uintptr_t)table % align == 0) &&
@@ -222,25 +198,14 @@ int launch_rows(const int32_t* slots, const float* wts, const float* scales,
 }
 
 constexpr int kWarps = 16;                     // consumer warps (SELL_WARPS)
+constexpr int kJb = 16;                        // positions per lane in a chunk (SELL_JB)
+constexpr int kChunk = kWarps * 32 * kJb;      // positions per chunk (SELL_CHUNK)
+constexpr uint32_t kChunkBytes = kChunk * 2;   // 16 KB of 16-bit slots
 constexpr int kStages = 3;                     // ring stages (SELL_STAGES)
 constexpr int kBlock = (kWarps + 1) * 32;      // + one producer warp
 constexpr int kSmemMax = 232448;               // SMEM_BYTES
 constexpr int kBarrierBytes = 128;             // SELL_BARRIER_BYTES
-constexpr int kMaxCluster = 2;                 // larger clusters ran slower on an H100:
-                                               // each block waits for its slowest peer
-
-// positions per lane in a chunk, and a chunk's bytes (kernels/spmm.py:sell_jb,
-// sell_stage_bytes): 16 KB of 16-bit slots (compact), or of int32 slots and
-// K f32 weights per position
-__host__ __device__ constexpr int jb_of(int k, bool compact) {
-  return compact ? 16 : (k == 1 ? 4 : (k == 2 ? 2 : 1));
-}
-__host__ __device__ constexpr int chunk_positions(int k, bool compact) {
-  return kWarps * 32 * jb_of(k, compact);
-}
-__host__ __device__ constexpr int stage_bytes(int k, bool compact) {
-  return chunk_positions(k, compact) * (compact ? 2 : 4 * (1 + k));
-}
+constexpr int kSlab = 16;                      // bytes of each table row in the panel
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -261,14 +226,6 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
-// arrive on the barrier at the same offset in the shared memory of block `cta`
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(bar)), "r"(cta));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
-               : "memory");
-}
-
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
       "{\n"
@@ -283,49 +240,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+// bulk copy (TMA) global -> shared, completing `bytes` on the barrier
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
   asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
-// bulk copy global -> shared at `dst` of every block in `mask` (one block:
-// mask == 0), completing `bytes` on the barrier at `bar`'s offset in each
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar, uint16_t mask) {
-  if (mask) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
-        " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
-        "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
-        : "memory");
-  } else {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-        "l"(src), "r"(bytes), "r"(smem_addr(bar))
-        : "memory");
-  }
-}
-
-// 16-byte copies bypass L1 (.cg); 8- and 4-byte ones can only go through it
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-                 "n"(N)
-                 : "memory");
+// 16-byte copy that bypasses L1
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -342,36 +270,27 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void from_f32(float x, float& y) { y = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16& y) { y = __float2bfloat16_rn(x); }
 
-template <int SB>
-struct Raw;
-template <>
-struct Raw<16> { using type = uint4; };
-template <>
-struct Raw<8> { using type = uint2; };
-template <>
-struct Raw<4> { using type = uint32_t; };
-
-// SB bytes of a panel row (or of a table row in global memory) as SC floats
-template <typename T, int SB>
-__device__ __forceinline__ void unpack(typename Raw<SB>::type q, float (&x)[SB / sizeof(T)]) {
-  T v[SB / sizeof(T)];
-  memcpy(v, &q, SB);
+// 16 bytes of a panel row as SC floats
+template <typename T>
+__device__ __forceinline__ void unpack(uint4 q, float (&x)[kSlab / sizeof(T)]) {
+  T v[kSlab / sizeof(T)];
+  memcpy(v, &q, kSlab);
 #pragma unroll
-  for (int e = 0; e < (int)(SB / sizeof(T)); ++e) x[e] = to_f32(v[e]);
+  for (int e = 0; e < (int)(kSlab / sizeof(T)); ++e) x[e] = to_f32(v[e]);
 }
 
 // out[row, col0 : col0 + SC] = x (columns >= c masked)
-template <typename T, int SB>
+template <typename T>
 __device__ __forceinline__ void store_slab(T* __restrict__ dst, int64_t col0, int64_t c,
-                                           bool vec, const float (&x)[SB / sizeof(T)]) {
-  constexpr int SC = SB / sizeof(T);
+                                           bool vec, const float (&x)[kSlab / sizeof(T)]) {
+  constexpr int SC = kSlab / sizeof(T);
   T v[SC];
 #pragma unroll
   for (int e = 0; e < SC; ++e) from_f32(x[e], v[e]);
   if (vec) {
-    typename Raw<SB>::type q;
-    memcpy(&q, v, SB);
-    *reinterpret_cast<typename Raw<SB>::type*>(dst) = q;
+    uint4 q;
+    memcpy(&q, v, kSlab);
+    *reinterpret_cast<uint4*>(dst) = q;
   } else {
 #pragma unroll
     for (int e = 0; e < SC; ++e)
@@ -389,492 +308,297 @@ __device__ __forceinline__ void kahan_merge(float& s, float& cp, float s2, float
   s = t;
 }
 
-// Hub rows of one slab: each row's piece partials, panel by panel, in
-// piece order (TwoSum for B1), then B2's row scale; one consumer thread a row.
-template <typename T, bool KAHAN, int SB>
+// Hub rows of one slab: each row's piece partials in piece order (TwoSum
+// for B1), then B2's row scale; one consumer thread a row.
+template <typename T, bool KAHAN>
 __device__ void hub_rows_out(const GtSell& L, T* __restrict__ out, int64_t col0, int64_t c,
                              bool vec_here) {
-  constexpr int SC = SB / sizeof(T);
-  const size_t half = (size_t)L.n_panels * (size_t)L.n_pieces * (size_t)c;
+  constexpr int SC = kSlab / sizeof(T);
+  const size_t half = (size_t)L.n_pieces * (size_t)c;
   for (int64_t h = threadIdx.x; h < L.n_hub; h += kWarps * 32) {
     const int hrow = __ldg(L.hub_rows + h);
     const int q0 = __ldg(L.hub_piece + h), q1 = __ldg(L.hub_piece + h + 1);
     float sh[SC], ch_[SC];
-    bool first = true;
-    for (int pp = 0; pp < L.n_panels; ++pp) {
-      for (int q = q0; q < q1; ++q) {
-        const float* part =
-            L.hub_acc + ((size_t)pp * (size_t)L.n_pieces + (size_t)q) * (size_t)c + col0;
+    for (int q = q0; q < q1; ++q) {
+      const float* part = L.hub_acc + (size_t)q * (size_t)c + col0;
 #pragma unroll
-        for (int e = 0; e < SC; ++e) {
-          const float s2 = (col0 + e < c) ? part[e] : 0.f;
-          const float c2 = (KAHAN && col0 + e < c) ? part[half + e] : 0.f;
-          if (first) {
-            sh[e] = s2;
-            ch_[e] = c2;
-          } else if (KAHAN) {
-            kahan_merge(sh[e], ch_[e], s2, c2);
-          } else {
-            sh[e] = __fadd_rn(sh[e], s2);
-          }
+      for (int e = 0; e < SC; ++e) {
+        const float s2 = (col0 + e < c) ? part[e] : 0.f;
+        const float c2 = (KAHAN && col0 + e < c) ? part[half + e] : 0.f;
+        if (q == q0) {
+          sh[e] = s2;
+          ch_[e] = c2;
+        } else if (KAHAN) {
+          kahan_merge(sh[e], ch_[e], s2, c2);
+        } else {
+          sh[e] = __fadd_rn(sh[e], s2);
         }
-        first = false;
       }
     }
     if (!KAHAN) {
-      const float scale = __ldg(L.row_scale + hrow);
+      const float scale = __ldg(L.row_w + hrow);
 #pragma unroll
       for (int e = 0; e < SC; ++e) sh[e] = __fmul_rn(sh[e], scale);
     }
-    if (col0 < c)
-      store_slab<T, SB>(out + (size_t)hrow * (size_t)c + col0, col0, c, vec_here, sh);
+    if (col0 < c) store_slab<T>(out + (size_t)hrow * (size_t)c + col0, col0, c, vec_here, sh);
   }
 }
 
-template <typename T, int K, bool KAHAN, int SB, bool COMPACT, bool PIN>
+// The column panel over a uniform K == 1 stream: B1 weighs each item by its
+// row's folded weight, B2 sums unweighted and scales the row at the end.
+template <typename T, bool KAHAN, bool PIN>
 __global__ void __launch_bounds__(kBlock, 1)
-spmv_sell(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int64_t v,
-          int64_t c, float table_scale, int mul, int vec) {
-  constexpr int SC = SB / sizeof(T);           // columns of the slab
-  constexpr int JB = jb_of(K, COMPACT);        // positions per lane per chunk
-  constexpr int UNR_MAX = SC >= 8 ? 4 : 8;
-  constexpr int UNR = JB < UNR_MAX ? JB : UNR_MAX;  // items loaded before summing
-  constexpr int CP = chunk_positions(K, COMPACT);
-  constexpr uint32_t kSlotBytes = CP * (COMPACT ? 2 : 4);
-  constexpr uint32_t kWtBytes = COMPACT ? 0 : CP * K * 4;
-  using RawT = typename Raw<SB>::type;
-  using SlotT = typename std::conditional<COMPACT, uint16_t, int32_t>::type;
+spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int64_t v,
+           int64_t c, float table_scale, int vec) {
+  constexpr int SC = kSlab / sizeof(T);        // columns of the slab
+  constexpr int UNR = SC >= 8 ? 4 : 8;         // items loaded before summing
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // stage holds a chunk
-  uint64_t* consumed = full + kStages;                   // this block's warps are done
-  uint64_t* empty = consumed + kStages;                  // (block 0) every block is done
-  SlotT* ring_slots = reinterpret_cast<SlotT*>(smem + kBarrierBytes);
-  float* ring_w = reinterpret_cast<float*>(smem + kBarrierBytes + kStages * kSlotBytes);
-  unsigned char* panel = smem + kBarrierBytes + kStages * (kSlotBytes + kWtBytes);
+  uint64_t* consumed = full + kStages;                   // the consumer warps are done
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem + kBarrierBytes);
+  unsigned char* panel = smem + kBarrierBytes + kStages * kChunkBytes;
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const uint32_t rank = cluster.block_rank();
-  const uint32_t csize = cluster.num_blocks();
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const bool weigh = KAHAN || mul;
   const int64_t col0 = (int64_t)blockIdx.x * SC;
   const bool vec_here = vec && (col0 + SC <= c);
-  const int64_t total = L.n_panels * L.n_chunks;
-  const int64_t n_out = v + 1;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&consumed[s], kWarps);
-      mbar_init(&empty[s], csize);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cluster.sync();
+  __syncthreads();
 
   if (warp == kWarps) {
-    // producer: one thread per block releases stages; block 0's fills them
+    // producer: one thread feeds the ring
     if (lane == 0) {
-      const uint16_t mask = csize > 1 ? (uint16_t)((1u << csize) - 1) : 0;
       int s = 0;
       uint32_t round = 0;
-      int64_t ch = 0;
-      for (int64_t i = 0; i < total; ++i) {
+      for (int64_t ch = 0; ch < L.n_chunks; ++ch) {
         if (round > 0) mbar_wait(&consumed[s], (round - 1) & 1);
-        mbar_expect_tx(&full[s], kSlotBytes + kWtBytes);
-        if (rank == 0) {
-          mbar_arrive(&empty[s]);
-          if (csize > 1) mbar_wait_cluster(&empty[s], round & 1);
-          bulk_copy(ring_slots + s * CP, static_cast<const SlotT*>(L.slots) + ch * CP,
-                    kSlotBytes, &full[s], mask);
-          if (!COMPACT)
-            bulk_copy(ring_w + s * CP * K, L.wts + ch * CP * K, kWtBytes, &full[s], mask);
-        } else {
-          mbar_arrive_cluster(&empty[s], 0);
-        }
+        mbar_expect_tx(&full[s], kChunkBytes);
+        bulk_copy(ring + s * kChunk, L.slots + ch * kChunk, kChunkBytes, &full[s]);
         if (++s == kStages) { s = 0; ++round; }
-        if (++ch == L.n_chunks) ch = 0;
+      }
+    }
+    return;
+  }
+
+  // the block's slab of every table row into the panel
+  for (int r = threadIdx.x; r < v; r += kWarps * 32) {
+    const T* src = table + (size_t)r * (size_t)c + col0;
+    unsigned char* dst = panel + r * kSlab;
+    if (vec_here) {
+      cp_async16(dst, src);
+    } else if (col0 < c) {
+      T tmp[SC];
+#pragma unroll
+      for (int e = 0; e < SC; ++e) {
+        if (col0 + e < c) tmp[e] = src[e];
+        else from_f32(0.f, tmp[e]);
+      }
+      memcpy(dst, tmp, kSlab);
+    }
+  }
+  cp_async_wait_all();
+  consumers_sync();
+
+  // chunks run super-slice by super-slice, j-block by j-block; this warp's
+  // unit of the next super-slice is read one super-slice ahead
+  float sum[SC], comp[SC];
+  int ss = 0, jb = 0, nch = __ldg(L.ss_chunks);
+  int row = __ldg(L.lane_row + warp * 32 + lane);
+  int cnt = __ldg(L.lane_cnt + warp * 32 + lane);
+  int hub = __ldg(L.unit_hub + warp);
+  float rw = row >= 0 ? __ldg(L.row_w + row) : 0.f;
+  int nx = L.n_ss > 1 ? 1 : 0;
+  int nx_row = __ldg(L.lane_row + (nx * kWarps + warp) * 32 + lane);
+  int nx_cnt = __ldg(L.lane_cnt + (nx * kWarps + warp) * 32 + lane);
+  int nx_hub = __ldg(L.unit_hub + nx * kWarps + warp);
+  int nx_nch = __ldg(L.ss_chunks + nx);
+  int s = 0;
+  uint32_t round = 0;
+  for (int64_t ch = 0; ch < L.n_chunks; ++ch) {
+    if (jb == 0) {
+#pragma unroll
+      for (int e = 0; e < SC; ++e) sum[e] = comp[e] = 0.f;
+    }
+    mbar_wait(&full[s], round & 1);
+    const uint16_t* sl = ring + s * kChunk + warp * 32 * kJb;
+    const int n = cnt - jb * kJb;  // this lane's items in the chunk (if > 0)
+#pragma unroll 1
+    for (int g = 0; g < kJb; g += UNR) {
+      if (!__any_sync(0xffffffffu, g < n)) break;
+      // every position of the chunk holds a slot (pads: 0), so the loads
+      // need no branch; pads are masked out of the sums
+      int slot[UNR];
+      float x[UNR][SC];
+#pragma unroll
+      for (int q = 0; q < UNR; ++q) slot[q] = sl[(g + q) * 32 + lane];
+#pragma unroll
+      for (int q = 0; q < UNR; ++q)
+        unpack<T>(*reinterpret_cast<const uint4*>(panel + slot[q] * kSlab), x[q]);
+#pragma unroll
+      for (int q = 0; q < UNR; ++q) {
+        const bool ok = g + q < n;
+        float val[SC];
+#pragma unroll
+        for (int e = 0; e < SC; ++e) val[e] = PIN ? __fmul_rn(table_scale, x[q][e]) : x[q][e];
+        // the pin's column lies in this slab for few items
+        const int diag = slot[q] - (int)col0;
+        if (PIN && (unsigned)diag < (unsigned)SC) {
+#pragma unroll
+          for (int e = 0; e < SC; ++e)
+            if (e == diag) val[e] = 1.f;
+        }
+#pragma unroll
+        for (int e = 0; e < SC; ++e) {
+          if (KAHAN) {
+            // keeps long power-law rows at ~eps instead of O(d) eps
+            const float y = __fsub_rn(__fmul_rn(val[e], rw), comp[e]);
+            const float t = __fadd_rn(sum[e], y);
+            const float cn = __fsub_rn(__fsub_rn(t, sum[e]), y);
+            sum[e] = ok ? t : sum[e];
+            comp[e] = ok ? cn : comp[e];
+          } else {
+            sum[e] = ok ? __fadd_rn(sum[e], val[e]) : sum[e];
+          }
+        }
       }
     }
     __syncwarp();
-  } else {
-    // chunks run super-slice by super-slice, j-block by j-block; this warp's
-    // unit of the next super-slice is read one super-slice ahead
-    float sum[SC], comp[SC];
-    int ss = 0, jb = 0, nch = __ldg(L.ss_chunks);
-    int row = __ldg(L.lane_row + warp * 32 + lane);
-    int cnt = __ldg(L.lane_cnt + warp * 32 + lane);
-    int hub = __ldg(L.unit_hub + warp);
-    float rscale = (!KAHAN && row >= 0) ? __ldg(L.row_scale + row) : 0.f;
-    float rw = (COMPACT && row >= 0) ? __ldg(L.row_wts + row) : 0.f;
-    int nx = L.n_ss > 1 ? 1 : 0;
-    int nx_row = __ldg(L.lane_row + (nx * kWarps + warp) * 32 + lane);
-    int nx_cnt = __ldg(L.lane_cnt + (nx * kWarps + warp) * 32 + lane);
-    int nx_hub = __ldg(L.unit_hub + nx * kWarps + warp);
-    int nx_nch = __ldg(L.ss_chunks + nx);
-    int s = 0;
-    uint32_t round = 0;
-    int p = 0, prow0 = 0, prows = 0;
-    int64_t ch = 0;
-    for (int64_t i = 0; i < total; ++i) {
-      if (ch == 0) {
-        // the block's slab of table rows [prow0, prow0 + prows) into the panel
-        if (i > 0) consumers_sync();
-        prow0 = p * L.panel_rows;
-        prows = (int)min((int64_t)L.panel_rows, v - prow0);
-        for (int r = threadIdx.x; r < prows; r += kWarps * 32) {
-          const T* src = table + (size_t)(prow0 + r) * (size_t)c + col0;
-          unsigned char* dst = panel + r * SB;
-          if (vec_here) {
-            cp_async<SB>(dst, src);
-          } else if (col0 < c) {
-            T tmp[SC];
-#pragma unroll
-            for (int e = 0; e < SC; ++e) {
-              if (col0 + e < c) tmp[e] = src[e];
-              else from_f32(0.f, tmp[e]);
-            }
-            memcpy(dst, tmp, SB);
-          }
-        }
-        cp_async_wait_all();
-        consumers_sync();
-      }
-      if (jb == 0) {
-#pragma unroll
-        for (int e = 0; e < SC; ++e) sum[e] = comp[e] = 0.f;
-        if (p > 0 && hub < 0 && row >= 0) {
-          // this lane's row state from the previous panel
-          const float* a = L.acc + (size_t)row * (size_t)c + col0;
-#pragma unroll
-          for (int e = 0; e < SC; ++e) {
-            if (col0 + e < c) {
-              sum[e] = a[e];
-              if (KAHAN) comp[e] = a[(size_t)n_out * (size_t)c + e];
-            }
-          }
-        }
-      }
+    if (lane == 0) mbar_arrive(&consumed[s]);
+    if (++s == kStages) { s = 0; ++round; }
 
-      mbar_wait(&full[s], round & 1);
-      const SlotT* sl = ring_slots + s * CP + warp * 32 * JB;
-      const float* wl = ring_w + (s * CP + warp * 32 * JB) * K;
-      const int n = cnt - jb * JB;  // this lane's items in the chunk (if > 0)
-#pragma unroll 1
-      for (int g = 0; g < JB; g += UNR) {
-        if (!__any_sync(0xffffffffu, g < n)) break;
-        // every position of the chunk holds a slot (pads: 0), so the loads
-        // need no branch; `ok` masks pads and rows outside the panel
-        int slot[UNR];
-        bool ok[UNR][K];
-        float x[UNR][K][SC];
-#pragma unroll
-        for (int q = 0; q < UNR; ++q) slot[q] = sl[(g + q) * 32 + lane];
-#pragma unroll
-        for (int q = 0; q < UNR; ++q) {
-#pragma unroll
-          for (int jn = 0; jn < K; ++jn) {
-            const int r = slot[q] + jn - prow0;
-            ok[q][jn] = g + q < n && (unsigned)r < (unsigned)prows;
-            if (ok[q][jn]) {
-              unpack<T, SB>(*reinterpret_cast<const RawT*>(panel + r * SB), x[q][jn]);
-            } else {
-#pragma unroll
-              for (int e = 0; e < SC; ++e) x[q][jn][e] = 0.f;
-            }
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < UNR; ++q) {
-          float w[K];
-          if constexpr (COMPACT) {
-            w[0] = rw;
-          } else if (weigh) {
-            const float* wq = wl + ((g + q) * 32 + lane) * K;
-            if constexpr (K == 4) {
-              const float4 f = *reinterpret_cast<const float4*>(wq);
-              w[0] = f.x; w[1] = f.y; w[2] = f.z; w[3] = f.w;
-            } else if constexpr (K == 2) {
-              const float2 f = *reinterpret_cast<const float2*>(wq);
-              w[0] = f.x; w[1] = f.y;
-            } else {
-              w[0] = wq[0];
-            }
-          }
-          // the item's transformed, weighted rows summed in j order; a row
-          // outside the panel adds an exact 0
-          float rowv[SC];
-          bool have = false;
-#pragma unroll
-          for (int jn = 0; jn < K; ++jn) {
-            float val[SC];
-#pragma unroll
-            for (int e = 0; e < SC; ++e)
-              val[e] = PIN ? __fmul_rn(table_scale, x[q][jn][e]) : x[q][jn][e];
-            // the pin's column lies in this slab for few items
-            const int diag = slot[q] + jn - (int)col0;
-            if (PIN && (unsigned)diag < (unsigned)SC) {
-#pragma unroll
-              for (int e = 0; e < SC; ++e)
-                if (e == diag) val[e] = 1.f;
-            }
-#pragma unroll
-            for (int e = 0; e < SC; ++e) {
-              if (weigh) val[e] = __fmul_rn(val[e], w[jn]);
-              if (!ok[q][jn]) val[e] = 0.f;
-              rowv[e] = jn == 0 ? val[e] : __fadd_rn(rowv[e], val[e]);
-            }
-            have = have || ok[q][jn];
-          }
-#pragma unroll
-          for (int e = 0; e < SC; ++e) {
-            if (KAHAN) {
-              // keeps long power-law rows at ~eps instead of O(d) eps
-              const float y = __fsub_rn(rowv[e], comp[e]);
-              const float t = __fadd_rn(sum[e], y);
-              const float cn = __fsub_rn(__fsub_rn(t, sum[e]), y);
-              sum[e] = have ? t : sum[e];
-              comp[e] = have ? cn : comp[e];
-            } else {
-              sum[e] = have ? __fadd_rn(sum[e], rowv[e]) : sum[e];
-            }
-          }
-        }
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&consumed[s]);
-      if (++s == kStages) { s = 0; ++round; }
-
-      if (jb < nch - 1) {
-        ++jb;
-      } else {
-        const bool final_panel = p == L.n_panels - 1;
-        if (hub >= 0) {
-          // warp per row: fold the lanes' sums in a fixed order, lane 0 keeps
-#pragma unroll
-          for (int off = 16; off > 0; off /= 2) {
-#pragma unroll
-            for (int e = 0; e < SC; ++e) {
-              const float s2 = __shfl_down_sync(0xffffffffu, sum[e], off);
-              if constexpr (KAHAN) {
-                const float c2 = __shfl_down_sync(0xffffffffu, comp[e], off);
-                if (lane < off) kahan_merge(sum[e], comp[e], s2, c2);
-              } else if (lane < off) {
-                sum[e] = __fadd_rn(sum[e], s2);
-              }
-            }
-          }
-          if (lane == 0) {
-            const size_t part = (size_t)p * (size_t)L.n_pieces + (size_t)hub;
-            float* h = L.hub_acc + part * (size_t)c + col0;
-            const size_t half = (size_t)L.n_panels * (size_t)L.n_pieces * (size_t)c;
-#pragma unroll
-            for (int e = 0; e < SC; ++e) {
-              if (col0 + e < c) {
-                h[e] = sum[e];
-                if (KAHAN) h[half + e] = comp[e];
-              }
-            }
-          }
-        } else if (row >= 0) {
-          if (!final_panel) {
-            float* a = L.acc + (size_t)row * (size_t)c + col0;
-#pragma unroll
-            for (int e = 0; e < SC; ++e) {
-              if (col0 + e < c) {
-                a[e] = sum[e];
-                if (KAHAN) a[(size_t)n_out * (size_t)c + e] = comp[e];
-              }
-            }
-          } else {
-            if (!KAHAN) {
-#pragma unroll
-              for (int e = 0; e < SC; ++e) sum[e] = __fmul_rn(sum[e], rscale);
-            }
-            if (col0 < c)
-              store_slab<T, SB>(out + (size_t)row * (size_t)c + col0, col0, c, vec_here, sum);
-          }
-        }
-        // on to the next super-slice (the first again for the next panel)
-        ss = nx;
-        jb = 0;
-        row = nx_row;
-        cnt = nx_cnt;
-        hub = nx_hub;
-        nch = nx_nch;
-        rscale = (!KAHAN && row >= 0) ? __ldg(L.row_scale + row) : 0.f;
-        rw = (COMPACT && row >= 0) ? __ldg(L.row_wts + row) : 0.f;
-        nx = ss + 1 == L.n_ss ? 0 : ss + 1;
-        nx_row = __ldg(L.lane_row + (nx * kWarps + warp) * 32 + lane);
-        nx_cnt = __ldg(L.lane_cnt + (nx * kWarps + warp) * 32 + lane);
-        nx_hub = __ldg(L.unit_hub + nx * kWarps + warp);
-        nx_nch = __ldg(L.ss_chunks + nx);
-      }
-      if (++ch == L.n_chunks) {
-        ch = 0;
-        ++p;
-      }
+    if (jb < nch - 1) {
+      ++jb;
+      continue;
     }
-    consumers_sync();
-    hub_rows_out<T, KAHAN, SB>(L, out, col0, c, vec_here);
+    if (hub >= 0) {
+      // warp per row: fold the lanes' sums in a fixed order, lane 0 keeps
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) {
+#pragma unroll
+        for (int e = 0; e < SC; ++e) {
+          const float s2 = __shfl_down_sync(0xffffffffu, sum[e], off);
+          if constexpr (KAHAN) {
+            const float c2 = __shfl_down_sync(0xffffffffu, comp[e], off);
+            if (lane < off) kahan_merge(sum[e], comp[e], s2, c2);
+          } else if (lane < off) {
+            sum[e] = __fadd_rn(sum[e], s2);
+          }
+        }
+      }
+      if (lane == 0) {
+        float* h = L.hub_acc + (size_t)hub * (size_t)c + col0;
+        const size_t half = (size_t)L.n_pieces * (size_t)c;
+#pragma unroll
+        for (int e = 0; e < SC; ++e) {
+          if (col0 + e < c) {
+            h[e] = sum[e];
+            if (KAHAN) h[half + e] = comp[e];
+          }
+        }
+      }
+    } else if (row >= 0) {
+      if (!KAHAN) {
+#pragma unroll
+        for (int e = 0; e < SC; ++e) sum[e] = __fmul_rn(sum[e], rw);
+      }
+      if (col0 < c) store_slab<T>(out + (size_t)row * (size_t)c + col0, col0, c, vec_here, sum);
+    }
+    // on to the next super-slice
+    ss = nx;
+    jb = 0;
+    row = nx_row;
+    cnt = nx_cnt;
+    hub = nx_hub;
+    nch = nx_nch;
+    rw = row >= 0 ? __ldg(L.row_w + row) : 0.f;
+    nx = ss + 1 == L.n_ss ? 0 : ss + 1;
+    nx_row = __ldg(L.lane_row + (nx * kWarps + warp) * 32 + lane);
+    nx_cnt = __ldg(L.lane_cnt + (nx * kWarps + warp) * 32 + lane);
+    nx_hub = __ldg(L.unit_hub + nx * kWarps + warp);
+    nx_nch = __ldg(L.ss_chunks + nx);
   }
-  // no block leaves while a copy into it or an arrival on it is in flight
-  cluster.sync();
+  consumers_sync();
+  hub_rows_out<T, KAHAN>(L, out, col0, c, vec_here);
 }
 
-
-// Largest cluster (kMaxCluster, halved down to 1 block, at most `cap`) of
-// which at least one fits the card at this shared-memory size.
-template <typename Kernel>
-int cluster_size(Kernel kernel, int smem, int64_t cap) {
-  for (int cl = kMaxCluster; cl > 1; cl /= 2) {
-    if (cap < cl) continue;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cl);
-    cfg.blockDim = dim3(kBlock);
-    cfg.dynamicSmemBytes = smem;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cl;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int n = 0;
-    if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess && n > 0) return cl;
-    cudaGetLastError();  // a refused size is not this launch's error
-  }
-  return 1;
-}
-
-template <typename T, int K, bool KAHAN, int SB, bool COMPACT, bool PIN>
-int launch_sell(const GtSell& L, const T* table, T* out, int64_t v, int64_t c,
-                float table_scale, int mul, cudaStream_t stream) {
-  constexpr int SC = SB / sizeof(T);
-  auto kernel = spmv_sell<T, K, KAHAN, SB, COMPACT, PIN>;
-  const int64_t smem64 =
-      kBarrierBytes + kStages * stage_bytes(K, COMPACT) + (int64_t)L.panel_rows * SB;
-  if (smem64 > kSmemMax) return (int)cudaErrorInvalidValue;
-  const int smem = (int)smem64;
-  static int attr_set = 0;
-  if (smem > attr_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = smem;
-  }
-  const int64_t slabs = (c + SC - 1) / SC;
-  // remembered per kernel for the last shared-memory size and cluster cap
-  const int64_t cap = slabs < kMaxCluster ? slabs : kMaxCluster;
-  static int known_smem = -1, known_cl = 1;
-  static int64_t known_cap = -1;
-  if (smem != known_smem || cap != known_cap) {
-    known_cl = cluster_size(kernel, smem, cap);
-    known_smem = smem;
-    known_cap = cap;
-  }
-  const int cl = known_cl;
-  const int64_t grid = (slabs + cl - 1) / cl * cl;
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int vec = (c * (int64_t)sizeof(T)) % SB == 0 && (uintptr_t)table % SB == 0 &&
-                  (uintptr_t)out % SB == 0;
-
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)grid);
-  cfg.blockDim = dim3(kBlock);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+template <typename T, bool KAHAN, bool PIN>
+int launch_panel(const GtSell& L, const T* table, T* out, int64_t v, int64_t c,
+                 float table_scale, cudaStream_t stream) {
+  constexpr int SC = kSlab / sizeof(T);
+  auto kernel = spmv_panel<T, KAHAN, PIN>;
+  const int64_t smem = kBarrierBytes + kStages * (int64_t)kChunkBytes + v * kSlab;
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, kernel, L, table, out, v, c, table_scale, mul, vec);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
+  const int64_t slabs = (c + SC - 1) / SC;
+  if (slabs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int vec = (c * (int64_t)sizeof(T)) % kSlab == 0 && (uintptr_t)table % kSlab == 0 &&
+                  (uintptr_t)out % kSlab == 0;
+  kernel<<<(unsigned)slabs, kBlock, (size_t)smem, stream>>>(L, table, out, v, c, table_scale,
+                                                            vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int K, bool KAHAN, bool COMPACT, bool PIN>
-int launch_pin(const GtSell& L, const T* table, T* out, int64_t v, int64_t c,
-               float table_scale, int mul, cudaStream_t stream) {
-  switch (L.slab_bytes) {
-    case 16:
-      return launch_sell<T, K, KAHAN, 16, COMPACT, PIN>(L, table, out, v, c, table_scale, mul,
-                                                        stream);
-    case 8:
-      return launch_sell<T, K, KAHAN, 8, COMPACT, PIN>(L, table, out, v, c, table_scale, mul,
-                                                       stream);
-    case 4:
-      return launch_sell<T, K, KAHAN, 4, COMPACT, PIN>(L, table, out, v, c, table_scale, mul,
-                                                       stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 // the pin is a template argument: unpinned products issue none of its work
-template <typename T, int K, bool KAHAN, bool COMPACT>
-int launch_sb(const GtSell& L, const T* table, T* out, int64_t v, int64_t c, int pin,
-              float table_scale, int mul, cudaStream_t stream) {
-  if (pin)
-    return launch_pin<T, K, KAHAN, COMPACT, true>(L, table, out, v, c, table_scale, mul, stream);
-  return launch_pin<T, K, KAHAN, COMPACT, false>(L, table, out, v, c, table_scale, mul, stream);
-}
-
 template <typename T, bool KAHAN>
-int launch(const GtSell* L, const void* table, void* out, int64_t v, int64_t c, int seg_k,
-           int pin, float table_scale, int mul, cudaStream_t stream) {
-  if (v < 0 || c <= 0) return (int)cudaGetLastError();
-  if (L != nullptr && !L->panel)
-    return launch_rows<T, KAHAN>(L->item_slots, L->item_wts, L->item_scales, L->row_items,
-                                 table, out, v + 1, c, seg_k, pin, table_scale, mul, stream);
-  if (L == nullptr || (L->compact && (seg_k != 1 || v > 65536)) ||
-      L->jb != jb_of(seg_k, L->compact != 0) || L->n_chunks <= 0 || L->n_ss <= 0 ||
-      L->n_panels <= 0 || (L->n_panels > 1 && L->acc == nullptr) ||
-      (L->n_pieces > 0 && L->hub_acc == nullptr) || L->slab_bytes < (int)sizeof(T) ||
-      (int64_t)L->panel_rows * (int64_t)L->n_panels < v || v + 1 > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+int launch_panel_pin(const GtSell& L, const void* table, void* out, int64_t v, int64_t c,
+                     int pin, float table_scale, cudaStream_t stream) {
   const T* tb = static_cast<const T*>(table);
   T* ob = static_cast<T*>(out);
-  if (L->compact)
-    return launch_sb<T, 1, KAHAN, true>(*L, tb, ob, v, c, pin, table_scale, mul, stream);
-  switch (seg_k) {
-    case 1:
-      return launch_sb<T, 1, KAHAN, false>(*L, tb, ob, v, c, pin, table_scale, mul, stream);
-    case 2:
-      return launch_sb<T, 2, KAHAN, false>(*L, tb, ob, v, c, pin, table_scale, mul, stream);
-    case 4:
-      return launch_sb<T, 4, KAHAN, false>(*L, tb, ob, v, c, pin, table_scale, mul, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (L.n_chunks <= 0 || L.n_ss <= 0 || (L.n_pieces > 0 && L.hub_acc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (pin) return launch_panel<T, KAHAN, true>(L, tb, ob, v, c, table_scale, stream);
+  return launch_panel<T, KAHAN, false>(L, tb, ob, v, c, table_scale, stream);
+}
+
+// the panel where the caller passes a layout (uniform seg-1 streams), else row tiles
+template <typename T, bool KAHAN>
+int launch(const int32_t* slots, const float* wts, const float* scales,
+           const int64_t* row_items, const GtSell* sell, const void* table, void* out,
+           int64_t v, int64_t c, int seg_k, int pin, float table_scale, int mul,
+           cudaStream_t stream) {
+  if (v < 0 || c <= 0) return (int)cudaGetLastError();
+  if (sell == nullptr)
+    return launch_rows<T, KAHAN>(slots, wts, scales, row_items, table, out, v + 1, c, seg_k,
+                                 pin, table_scale, mul, stream);
+  if (seg_k != 1 || mul) return (int)cudaErrorInvalidValue;
+  return launch_panel_pin<T, KAHAN>(*sell, table, out, v, c, pin, table_scale, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// B1: out[V+1, C] f32 = Kahan row sums of folded-weight items (L->wts folded).
-int gt_spmv_kahan_f32(const GtSell* L, const float* table, float* out, int64_t v, int64_t c,
+// B1: out[V+1, C] f32 = Kahan row sums of folded-weight items; `sell` is the
+// stream's sliced layout (the panel) or null (row tiles).
+int gt_spmv_kahan_f32(const int32_t* slots, const float* wts, const int64_t* row_items,
+                      const GtSell* sell, const float* table, float* out, int64_t v, int64_t c,
                       int seg_k, int pin, float table_scale, cudaStream_t stream) {
-  return launch<float, true>(L, table, out, v, c, seg_k, pin, table_scale, 1, stream);
+  return launch<float, true>(slots, wts, nullptr, row_items, sell, table, out, v, c, seg_k, pin,
+                             table_scale, 0, stream);
 }
 
 // B2: out[V+1, C] in the table's dtype (f32, or bf16 when bf16 != 0) =
-// plain f32 row sums of raw-weight items (L->wts raw) times the row's
-// first-item scale.
-int gt_spmv_fast(const GtSell* L, const void* table, void* out, int64_t v, int64_t c,
-                 int seg_k, int pin, float table_scale, int mul, int bf16,
+// plain f32 row sums of raw-weight items (unweighted when mul == 0) times
+// the row's first-item scale; `sell` as for B1 (the panel takes mul == 0).
+int gt_spmv_fast(const int32_t* slots, const float* raw_wts, const float* scales,
+                 const int64_t* row_items, const GtSell* sell, const void* table, void* out,
+                 int64_t v, int64_t c, int seg_k, int pin, float table_scale, int mul, int bf16,
                  cudaStream_t stream) {
   if (bf16)
-    return launch<__nv_bfloat16, false>(L, table, out, v, c, seg_k, pin, table_scale, mul,
-                                        stream);
-  return launch<float, false>(L, table, out, v, c, seg_k, pin, table_scale, mul, stream);
+    return launch<__nv_bfloat16, false>(slots, raw_wts, scales, row_items, sell, table, out, v,
+                                        c, seg_k, pin, table_scale, mul, stream);
+  return launch<float, false>(slots, raw_wts, scales, row_items, sell, table, out, v, c, seg_k,
+                              pin, table_scale, mul, stream);
 }
 
 const char* gt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

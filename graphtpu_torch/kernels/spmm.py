@@ -7,11 +7,12 @@ gathered rows per output row.  The host builds one plan per graph, in one
 of two forms:
 
 * an :class:`SpmvStream` of (slot, weight, output row) items sorted by
-  output row, with its sliced layout (:class:`SellLayout`), run by
-  :func:`spmv` — on a CUDA tensor through the hand kernels of
-  ``csrc/spmv.cu``, B1 (Kahan-compensated row sums, the gold mode) and B2
-  (plain f32 row sums, f32 or bf16 tables); on a CPU tensor through
-  :func:`spmv_plain`, the plain PyTorch version of both;
+  output row, on the card with its sliced layout (:class:`SellLayout`)
+  where the column panel runs it, run by :func:`spmv` — on a CUDA tensor
+  through the hand kernels of ``csrc/spmv.cu``, B1 (Kahan-compensated row
+  sums, the gold mode) and B2 (plain f32 row sums, f32 or bf16 tables); on
+  a CPU tensor through :func:`spmv_plain`, the plain PyTorch version of
+  both;
 * a :class:`ReductionTree`, a padded W-ary gather-reduction tree run by
   :func:`tree_spmm` one level at a time through :func:`gather_rows_sum` —
   on a CUDA tensor the hand kernel B3 of ``csrc/gather.cu``, on a CPU
@@ -43,8 +44,10 @@ _PLAIN_TEMP_ELEMS = 1 << 28
 
 # The sliced layout of the CUDA kernels B1/B2 (csrc/spmv.cu).  A block runs
 # SELL_WARPS consumer warps; a chunk of the layout gives each warp 32 lanes
-# x sell_jb() item positions and is what one ring stage holds.
+# x SELL_JB item positions of 16-bit slots and is what one ring stage holds.
 SELL_WARPS = 16
+SELL_JB = 16
+SELL_CHUNK = SELL_WARPS * 32 * SELL_JB  # positions per chunk: 16 KB of slots
 SELL_STAGES = 3
 SELL_HUB = 128          # rows with more items are hub rows (warp per row)
 SELL_SIGMA = 4096       # rows sorted by item count within windows of this many
@@ -52,49 +55,26 @@ SMEM_BYTES = 232_448    # dynamic shared memory one block may use on sm_90
 SELL_BARRIER_BYTES = 128
 
 
-def sell_jb(seg_k: int, compact: bool = False) -> int:
-    """Item positions per lane in one chunk: a ring stage holds 16 KB."""
-    return 16 if compact else {1: 4, 2: 2, 4: 1}[seg_k]
-
-
-def sell_chunk_positions(seg_k: int, compact: bool = False) -> int:
-    return SELL_WARPS * 32 * sell_jb(seg_k, compact)
-
-
-def sell_stage_bytes(seg_k: int, compact: bool = False) -> int:
-    """A compact chunk holds 16-bit slots; a general one int32 slots and
-    seg_k f32 weights per position."""
-    per = 2 if compact else 4 * (1 + seg_k)
-    return sell_chunk_positions(seg_k, compact) * per
-
-
-def sell_launch_shape(v: int, seg_k: int, itemsize: int,
-                      compact: bool = False) -> Tuple[int, int, int]:
-    """(slab bytes per table row, panel rows, panels) of a B1/B2 launch.
-
-    A block holds its column slab of the table's first ``v`` rows in shared
-    memory beside the stream ring: 16 bytes per row where that fits, else
-    8, else 4; past that, 4 bytes in panels of as many rows as fit."""
-    ring = SELL_STAGES * sell_stage_bytes(seg_k, compact)
-    room = SMEM_BYTES - ring - SELL_BARRIER_BYTES
-    for sb in (16, 8, 4):
-        if sb >= itemsize and v * sb <= room:
-            return sb, v, 1
-    rows = room // 4
-    return 4, rows, -(-v // rows)
-
-
-def sell_fits(v: int, seg_k: int) -> bool:
+def sell_fits(v: int) -> bool:
     """Whether a 16-byte slab of ``v`` table rows fits one block's shared
-    memory beside the ring: the shapes where the column-panel design of
-    B1/B2 runs by default (narrower slabs lose to row tiles)."""
-    room = SMEM_BYTES - SELL_BARRIER_BYTES - SELL_STAGES * sell_stage_bytes(seg_k)
+    memory beside the ring of slot chunks (V <= 11,448)."""
+    room = SMEM_BYTES - SELL_BARRIER_BYTES - SELL_STAGES * SELL_CHUNK * 2
     return v * 16 <= room
+
+
+def runs_panel(stream: "SpmvStream") -> bool:
+    """Whether B1/B2 run ``stream`` as the column panel on the card: a
+    uniform seg-1 stream (every item of a row has the row's weight) of
+    1 <= V rows that fit :func:`sell_fits`.  Other streams run row tiles,
+    which were measured faster for them."""
+    return (stream.seg_k == 1 and stream.uniform and stream.n_nodes >= 1
+            and sell_fits(stream.n_nodes))
 
 
 @dataclasses.dataclass(frozen=True)
 class SellLayout:
-    """The item stream in the sliced order kernels B1/B2 walk (SELL-32-σ).
+    """A uniform seg-1 item stream in the sliced order kernels B1/B2 walk
+    as the column panel (SELL-32-σ).
 
     Output rows with at most ``SELL_HUB`` items are lane rows: sorted by
     item count within windows of ``SELL_SIGMA`` rows and dealt 32 to a
@@ -104,27 +84,22 @@ class SellLayout:
     Units are grouped ``SELL_WARPS`` to a super-slice (hub pieces first,
     longest first, then the lane units in order); super-slice s spans
     ``ss_chunks[s]`` chunks, the j-blocks b = 0, 1, ... of its items: in
-    chunk c, position ``c·CP + (w·jb + jj)·32 + l`` is item ``jb·b + jj`` of
-    lane l of unit ``s·SELL_WARPS + w``, with jb = ``sell_jb(seg_k, compact)``
-    and CP = ``sell_chunk_positions(seg_k, compact)``.
+    chunk c, position ``c·SELL_CHUNK + (w·SELL_JB + jj)·32 + l`` is item
+    ``SELL_JB·b + jj`` of lane l of unit ``s·SELL_WARPS + w``.
 
-    ``item[p]`` is the stream item at position p (-1 for a pad); ``slots``,
-    ``wts`` and ``raw_wts`` are the stream's fields gathered to positions
-    (pads: slot 0, weight 0).  A *compact* layout (seg_k 1, V <= 65,536 and
-    weights constant along each row, as in every unweighted graph) keeps
-    only 16-bit slots (int16 holding the unsigned value) and no position
-    weights: each row's weight is ``row_wts`` (folded) or ``row_raw``.
-    ``lane_row``/``lane_cnt`` give each lane its output row (-1 none) and
-    item count; ``unit_hub[u]`` is a hub unit's piece index, -1 for lane
-    rows.  Hub row ``hub_rows[h]`` sums pieces
-    ``hub_piece[h] .. hub_piece[h+1]`` in that order.  ``row_scale[r]`` is
-    row r's first-item scale (B2).  ``host_ms``: numpy build time.
+    ``item[p]`` is the stream item at position p (-1 for a pad) and
+    ``slots[p]`` its slot (pads: 0).  ``lane_row``/``lane_cnt`` give each
+    lane its output row (-1 none) and item count; ``unit_hub[u]`` is a hub
+    unit's piece index, -1 for lane rows.  Hub row ``hub_rows[h]`` sums
+    pieces ``hub_piece[h] .. hub_piece[h+1]`` in that order.
+    ``row_wts[r]`` and ``row_scale[r]`` are row r's first folded weight
+    (B1) and first scale (B2), 0 for a row with no items; in a uniform
+    stream every item of a row has them.  ``host_ms``: host time of the
+    build.
     """
 
-    slots: torch.Tensor      # int32[NC * CP], or int16 when compact
-    wts: torch.Tensor        # float32[NC * CP * seg_k], empty when compact
-    raw_wts: torch.Tensor    # float32[NC * CP * seg_k], empty when compact
-    item: torch.Tensor       # int32[NC * CP]
+    slots: torch.Tensor      # int16[NC * SELL_CHUNK]
+    item: torch.Tensor       # int32[NC * SELL_CHUNK]
     lane_row: torch.Tensor   # int32[NU * 32]
     lane_cnt: torch.Tensor   # int32[NU * 32]
     unit_hub: torch.Tensor   # int32[NU]
@@ -132,9 +107,7 @@ class SellLayout:
     hub_rows: torch.Tensor   # int32[NH]
     hub_piece: torch.Tensor  # int32[NH + 1]
     row_scale: torch.Tensor  # float32[V + 1]
-    row_wts: torch.Tensor    # float32[V + 1]: the row's first folded weight
-    row_raw: torch.Tensor    # float32[V + 1]: the row's first raw weight
-    compact: bool
+    row_wts: torch.Tensor    # float32[V + 1]
     n_chunks: int
     n_pieces: int
     host_ms: float
@@ -148,32 +121,20 @@ class SellLayout:
         return dataclasses.replace(self, **move)
 
 
-def build_sell_layout(row_items, slots, wts, raw_wts, scales, seg_k=1,
-                      hub=SELL_HUB, sigma=SELL_SIGMA, device="cpu") -> SellLayout:
-    """The :class:`SellLayout` of a stream given as host arrays (numpy)."""
+def build_sell_layout(stream: "SpmvStream", hub=SELL_HUB, sigma=SELL_SIGMA) -> SellLayout:
+    """The :class:`SellLayout` of a uniform seg-1 ``stream``, on its device.
+
+    The host orders rows and units from ``row_items`` (O(V) numpy work);
+    the item positions are expanded on the stream's device."""
     t0 = time.perf_counter()
-    row_items = np.asarray(row_items, np.int64)
-    k = int(seg_k)
+    if stream.seg_k != 1 or not stream.uniform:
+        raise ValueError("the sliced layout takes a uniform seg-1 stream")
+    dev = stream.slots.device
+    row_items = stream.row_items.cpu().numpy()
     start = row_items[:-1]
     cnt = np.diff(row_items)                      # items of rows 0..V
     is_hub = cnt > hub
-    slots = np.asarray(slots)
-    wts = np.asarray(wts, np.float32).reshape(-1, k)
-    raw_wts = np.asarray(raw_wts, np.float32).reshape(-1, k)
-    first = np.minimum(start, max(len(slots) - 1, 0))
-
-    def per_row(a):
-        """a's first value in each row (0 for rows with no items), and
-        whether a is that value at every item of its row."""
-        if not len(a):
-            return np.zeros(len(cnt), np.float32), True
-        head = np.where(cnt > 0, a[first, 0], 0.0).astype(np.float32)
-        return head, bool(np.all(a[: row_items[-1]] == np.repeat(head, cnt)[:, None]))
-
-    row_wts, same_w = per_row(wts)
-    row_raw, same_raw = per_row(raw_wts)
-    compact = k == 1 and len(cnt) - 1 <= 65_536 and same_w and same_raw
-    jb, nw = sell_jb(k, compact), SELL_WARPS
+    nw, jb = SELL_WARPS, SELL_JB
 
     # lane rows: sorted by count (descending) within windows of sigma rows
     lane_ids = np.flatnonzero(~is_hub)
@@ -200,66 +161,62 @@ def build_sell_layout(row_items, slots, wts, raw_wts, scales, seg_k=1,
     h_row = np.repeat(p_row[:, None], 32, 1)
     h_ord = np.argsort(-p_len, kind="stable")
 
-    # units: hub pieces (longest first), then lane units
-    u_row = np.concatenate([h_row[h_ord], l_row]).reshape(-1, 32)
-    u_cnt = np.concatenate([h_cnt[h_ord], l_cnt]).reshape(-1, 32)
-    u_base = np.concatenate([h_base[h_ord], l_base]).reshape(-1, 32)
+    # units: hub pieces (longest first), then lane units, padded to whole
+    # super-slices
     u_hub = np.concatenate([h_ord, np.full(n_lu, -1)]).astype(np.int64)
-    u_step = np.where(u_hub >= 0, 32, 1)
     pad = (-len(u_hub)) % nw
-    if pad:
-        u_row = np.concatenate([u_row, np.full((pad, 32), -1)])
-        u_cnt = np.concatenate([u_cnt, np.zeros((pad, 32), np.int64)])
-        u_base = np.concatenate([u_base, np.zeros((pad, 32), np.int64)])
-        u_hub = np.concatenate([u_hub, np.full(pad, -1)])
-        u_step = np.concatenate([u_step, np.ones(pad, np.int64)])
+    u_row = np.concatenate([h_row[h_ord], l_row, np.full((pad, 32), -1)])
+    u_cnt = np.concatenate([h_cnt[h_ord], l_cnt, np.zeros((pad, 32), np.int64)])
+    u_base = np.concatenate([h_base[h_ord], l_base, np.zeros((pad, 32), np.int64)])
+    u_hub = np.concatenate([u_hub, np.full(pad, -1)])
     n_ss = len(u_hub) // nw
     ss_len = u_cnt.reshape(n_ss, nw * 32).max(1, initial=0)
     ss_chunks = np.maximum(1, -(-ss_len // jb))
     chunk_ss = np.repeat(np.arange(n_ss), ss_chunks)
     chunk_jb = np.arange(len(chunk_ss)) - np.repeat(np.cumsum(ss_chunks) - ss_chunks, ss_chunks)
-    n_c = len(chunk_ss)
 
-    # positions [chunk, warp, jj, lane] -> stream item
-    u = chunk_ss[:, None, None, None] * nw + np.arange(nw)[None, :, None, None]
-    j = chunk_jb[:, None, None, None] * jb + np.arange(jb)[None, None, :, None]
-    ul = (u, lane[None, None, None, :])
-    item = np.where(j < u_cnt[ul], u_base[ul] + u_step[u] * j, -1).reshape(-1)
-    real = item >= 0
-    src = np.where(real, item, 0)
-    p_slots = np.where(real, slots[src], 0)
+    # positions [chunk, warp, jj, lane] -> stream item, on the device
+    def d(a, dt=torch.int64):
+        return torch.as_tensor(np.asarray(a), dtype=dt).to(dev)
 
-    def gather_w(w):
-        if compact:
-            return np.zeros(0, np.float32)
-        return np.where(real[:, None], w[src], 0.0).astype(np.float32).reshape(-1)
+    u = (d(chunk_ss * nw)[:, None, None, None]
+         + torch.arange(nw, device=dev)[None, :, None, None])
+    j = (d(chunk_jb * jb)[:, None, None, None]
+         + torch.arange(jb, device=dev)[None, None, :, None])
+    ln = torch.arange(32, device=dev)
+    step = d(np.where(u_hub >= 0, 32, 1))[u]
+    item = torch.where(j < d(u_cnt)[u, ln], d(u_base)[u, ln] + step * j, -1).reshape(-1)
+    slots = torch.where(item >= 0, stream.slots[item.clamp(min=0)], 0)
 
-    scales = np.asarray(scales, np.float32)
-    row_scale = np.where(cnt > 0, scales[first] if len(scales) else 0.0, 0.0)
+    first = stream.row_items[:-1].clamp(max=stream.slots.numel() - 1)
+    has = stream.row_items[1:] > stream.row_items[:-1]
 
-    def t(a, dt):
-        return torch.tensor(np.asarray(a, dtype=dt), device=device)
+    def per_row(a):
+        return torch.where(has, a[first], torch.zeros((), dtype=a.dtype, device=dev))
 
     return SellLayout(
-        slots=(t(p_slots.astype(np.uint16).view(np.int16), np.int16) if compact
-               else t(p_slots, np.int32)),
-        wts=t(gather_w(wts), np.float32),
-        raw_wts=t(gather_w(raw_wts), np.float32),
-        item=t(item, np.int32),
-        lane_row=t(u_row.reshape(-1), np.int32),
-        lane_cnt=t(u_cnt.reshape(-1), np.int32),
-        unit_hub=t(u_hub, np.int32),
-        ss_chunks=t(ss_chunks, np.int32),
-        hub_rows=t(hub_ids, np.int32),
-        hub_piece=t(hub_piece, np.int32),
-        row_scale=t(row_scale, np.float32),
-        row_wts=t(row_wts, np.float32),
-        row_raw=t(row_raw, np.float32),
-        compact=compact,
-        n_chunks=int(n_c),
+        slots=slots.to(torch.int16),  # slots < V <= 11,448
+        item=item.to(torch.int32),
+        lane_row=d(u_row.reshape(-1), torch.int32),
+        lane_cnt=d(u_cnt.reshape(-1), torch.int32),
+        unit_hub=d(u_hub, torch.int32),
+        ss_chunks=d(ss_chunks, torch.int32),
+        hub_rows=d(hub_ids, torch.int32),
+        hub_piece=d(hub_piece, torch.int32),
+        row_scale=per_row(stream.scales),
+        row_wts=per_row(stream.wts),
+        n_chunks=int(len(chunk_ss)),
         n_pieces=int(hub_piece[-1]),
         host_ms=1e3 * (time.perf_counter() - t0),
     )
+
+
+def _with_layout(stream: "SpmvStream") -> "SpmvStream":
+    """``stream`` with its sliced layout where it lies on a CUDA device and
+    :func:`runs_panel` holds; unchanged otherwise."""
+    if stream.sell is None and stream.slots.is_cuda and runs_panel(stream):
+        return dataclasses.replace(stream, sell=build_sell_layout(stream))
+    return stream
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,8 +230,9 @@ class SpmvStream:
     carry one (slot 0, weight 0) dummy item; items padding the stream to a
     ``block_items`` multiple run in the dummy output row V.
     ``row_items[r] .. row_items[r+1]`` are the items of output row r
-    (int64[V+2]).  ``sell`` is the same stream in the sliced order the CUDA
-    kernels walk (:class:`SellLayout`), built beside these fields.
+    (int64[V+2]).  ``sell``: on a CUDA device, the same stream in the
+    sliced order of the column panel (:class:`SellLayout`) where
+    :func:`runs_panel` holds, built beside these fields; else None.
     """
 
     slots: torch.Tensor     # int32[T]
@@ -297,7 +255,7 @@ class SpmvStream:
         }
         if self.sell is not None:
             move["sell"] = self.sell.to(device)
-        return dataclasses.replace(self, **move)
+        return _with_layout(dataclasses.replace(self, **move))
 
 
 def stream_from_numpy(
@@ -306,18 +264,14 @@ def stream_from_numpy(
 ) -> SpmvStream:
     """An :class:`SpmvStream` from host arrays (the fields of the JAX
     package's stream after ``np.asarray``), adding the per-row item offsets
-    and the sliced layout of the CUDA kernels."""
+    and, on a CUDA device, the sliced layout where the panel runs it."""
     pos = np.asarray(pos, np.int32)
     row_items = np.searchsorted(pos, np.arange(n_nodes + 2)).astype(np.int64)
-    sell = None
-    if int(seg_k) in (1, 2, 4) and sell_fits(int(n_nodes), int(seg_k)):
-        sell = build_sell_layout(row_items, slots, wts, raw_wts, scales, seg_k,
-                                 device=device)
 
     def t(a, dt):
         return torch.tensor(np.asarray(a, dtype=dt), device=device)
 
-    return SpmvStream(
+    return _with_layout(SpmvStream(
         slots=t(slots, np.int32),
         wts=t(wts, np.float32),
         pos=t(pos, np.int32),
@@ -329,15 +283,14 @@ def stream_from_numpy(
         block_items=int(block_items),
         uniform=bool(uniform),
         seg_k=int(seg_k),
-        sell=sell,
-    )
+    ))
 
 
 def _row_scale(rp, wsrc, v):
     """float32[V]: 1/Σw per row, 0 for rows with no weight."""
     d = np.diff(rp)
-    denom = np.zeros(v, np.float64)
-    np.add.at(denom, np.repeat(np.arange(v), d), wsrc)
+    # float64 sums in edge order, as np.add.at would give them
+    denom = np.bincount(np.repeat(np.arange(v), d), weights=wsrc, minlength=v)
     return np.where(denom > 0, 1.0 / np.maximum(denom, 1e-30), 0.0)
 
 
@@ -360,17 +313,15 @@ def build_spmv_stream(
     cnt = np.maximum(d, 1)
     t_real = int(cnt.sum())
     pos = np.repeat(np.arange(v), cnt).astype(np.int32)
+    # the real items are the CSR slots in order; isolated rows' dummies
+    # are the rest
+    real = np.repeat(d > 0, cnt)
     slots = np.zeros(t_real, np.int64)
     wts = np.zeros(t_real, np.float32)
-    start = np.cumsum(cnt) - cnt
-    e_idx = np.arange(t_real) - start[pos]
-    real = e_idx < d[pos]
-    slots[real] = col[rp[pos[real]] + e_idx[real]]
-    wts[real] = (wsrc * scale.astype(np.float32)[np.repeat(np.arange(v), d)])[
-        rp[pos[real]] + e_idx[real]
-    ]
     raw = np.zeros(t_real, np.float32)
-    raw[real] = wsrc[rp[pos[real]] + e_idx[real]]
+    slots[real] = col
+    wts[real] = wsrc * scale.astype(np.float32)[np.repeat(np.arange(v), d)]
+    raw[real] = wsrc
     scales = scale.astype(np.float32)[pos]
     pad = (-t_real) % block_items
     if pad:
@@ -587,48 +538,25 @@ def spmv(
     table: torch.Tensor,
     mode: str = "kahan",
     table_scale: Optional[float] = None,
-    design: Optional[str] = None,
 ) -> torch.Tensor:
     """Raw P·table over ``stream``: [>=V, C] -> [V+1, C] (row V is the
     dummy row of the pad items; callers trim it).
 
     A CPU table runs :func:`spmv_plain`.  A CUDA table launches kernel B1
     (``mode="kahan"``) or B2 (``mode="fast"``) on the current stream, or
-    raises; there is no other path.  The kernel runs one of two designs
-    (``csrc/spmv.cu``): "panel", the column panel in shared memory over the
-    sliced layout, where the stream has one (:func:`sell_fits`), else
-    "rows", row tiles read from L2.  ``design`` forces one; the panel needs
-    a stream with a layout (:func:`with_sell_layout`).
+    raises; there is no other path.  The kernel runs the column panel over
+    the stream's sliced layout where it has one (:func:`runs_panel`), else
+    row tiles (``csrc/spmv.cu``).
     """
     _check_mode(mode, table)
-    if design not in (None, "panel", "rows"):
-        raise ValueError(f"unknown spmv design {design!r}: 'panel' or 'rows'")
-    if design == "panel" and stream.sell is None:
-        raise ValueError("design='panel' needs a stream with a sliced layout: "
-                         "see with_sell_layout")
     if table.device.type == "cpu":
         return spmv_plain(stream, table, mode, table_scale)
     if table.device.type != "cuda":
         raise RuntimeError(f"no spmv kernel for device {table.device}")
-    return _spmv_cuda(stream, table, mode, table_scale, design)
+    return _spmv_cuda(stream, table, mode, table_scale)
 
 
-def with_sell_layout(stream: SpmvStream) -> SpmvStream:
-    """``stream`` with its sliced layout, built from its own fields where
-    it has none (streams get one only where the 16-byte panel fits)."""
-    if stream.sell is not None:
-        return stream
-
-    def h(t):
-        return t.cpu().numpy()
-
-    lay = build_sell_layout(h(stream.row_items), h(stream.slots), h(stream.wts),
-                            h(stream.raw_wts), h(stream.scales), stream.seg_k,
-                            device=stream.slots.device)
-    return dataclasses.replace(stream, sell=lay)
-
-
-def _spmv_cuda(stream, table, mode, table_scale, design=None):
+def _spmv_cuda(stream, table, mode, table_scale):
     from graphtpu_torch.kernels import _build
 
     v, k = stream.n_nodes, stream.seg_k
@@ -643,54 +571,46 @@ def _spmv_cuda(stream, table, mode, table_scale, design=None):
     items = (stream.slots, stream.wts if kahan else stream.raw_wts, stream.scales,
              stream.row_items)
     lay = stream.sell
-    panel = lay is not None and design != "rows"
-    fields = ()
-    if panel:
-        fields = (lay.slots, lay.wts if kahan else lay.raw_wts, lay.lane_row, lay.lane_cnt,
-                  lay.unit_hub, lay.ss_chunks, lay.hub_rows, lay.hub_piece, lay.row_scale,
-                  lay.row_wts if kahan else lay.row_raw)
-    for f in fields + items:
+    fields = () if lay is None else (
+        lay.slots, lay.lane_row, lay.lane_cnt, lay.unit_hub, lay.ss_chunks, lay.hub_rows,
+        lay.hub_piece, lay.row_wts if kahan else lay.row_scale)
+    for f in items + fields:
         if f.device != table.device or not f.is_contiguous():
             raise ValueError("stream tensors must be contiguous on the table's device")
     out = torch.empty((v + 1, c), dtype=table.dtype, device=table.device)
     if c == 0:
         return out
     lib = _build.load()
-    args = _build.GtSell()
-    for name, f in zip(("item_slots", "item_wts", "item_scales", "row_items"), items):
-        setattr(args, name, f.data_ptr())
-    if panel:
-        sb, panel_rows, n_panels = sell_launch_shape(v, k, table.element_size(), lay.compact)
-        pairs = 2 if kahan else 1  # (sum, compensation) or sum
-        acc = hub_acc = None  # scratch, held until the launch is enqueued
-        if n_panels > 1:
-            acc = torch.empty(pairs * (v + 1) * c, dtype=torch.float32, device=table.device)
+    sell = hub_acc = None  # the layout and its scratch, held until the launch is enqueued
+    if lay is not None:
+        if k != 1 or not stream.uniform:
+            raise ValueError("a sliced layout needs a uniform seg-1 stream")
         if lay.n_pieces:
-            hub_acc = torch.empty(pairs * n_panels * lay.n_pieces * c, dtype=torch.float32,
+            pairs = 2 if kahan else 1  # (sum, compensation) or sum
+            hub_acc = torch.empty(pairs * lay.n_pieces * c, dtype=torch.float32,
                                   device=table.device)
-        for name, f in zip(("slots", "wts", "lane_row", "lane_cnt", "unit_hub", "ss_chunks",
-                            "hub_rows", "hub_piece", "row_scale", "row_wts"), fields):
+        args = _build.GtSell()
+        for name, f in zip(("slots", "lane_row", "lane_cnt", "unit_hub", "ss_chunks",
+                            "hub_rows", "hub_piece", "row_w"), fields):
             setattr(args, name, f.data_ptr())
-        args.acc = None if acc is None else acc.data_ptr()
         args.hub_acc = None if hub_acc is None else hub_acc.data_ptr()
         args.n_chunks, args.n_ss = lay.n_chunks, lay.ss_chunks.numel()
         args.n_hub, args.n_pieces = lay.hub_rows.numel(), lay.n_pieces
-        args.jb, args.compact = sell_jb(k, lay.compact), int(lay.compact)
-        args.slab_bytes, args.panel_rows, args.n_panels = sb, panel_rows, n_panels
-        args.panel = 1
+        sell = ctypes.byref(args)
+    slots, wts, scales, row_items = (f.data_ptr() for f in items)
     pin = table_scale is not None
     scale = ctypes.c_float(float(table_scale) if pin else 0.0)
     with torch.cuda.device(table.device):
         cu_stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        if mode == "kahan":
+        if kahan:
             rc = lib.gt_spmv_kahan_f32(
-                ctypes.byref(args), table.data_ptr(), out.data_ptr(), v, c, k,
+                slots, wts, row_items, sell, table.data_ptr(), out.data_ptr(), v, c, k,
                 int(pin), scale, cu_stream,
             )
         else:
             rc = lib.gt_spmv_fast(
-                ctypes.byref(args), table.data_ptr(), out.data_ptr(), v, c, k,
-                int(pin), scale, int(not (stream.uniform and k == 1)),
+                slots, wts, scales, row_items, sell, table.data_ptr(), out.data_ptr(), v, c,
+                k, int(pin), scale, int(not (stream.uniform and k == 1)),
                 int(table.dtype == torch.bfloat16), cu_stream,
             )
     if rc != 0:

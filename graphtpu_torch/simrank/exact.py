@@ -153,7 +153,7 @@ def exact_simrank_spmm(
     ("product1", "product2") and the transpose are added; in the tree
     branch "product2" includes the scale, the pin and the cast.  The stream
     branch also sets "layout_host", the host ms of the plan's sliced layout
-    (0 where the kernels run row tiles and build none).
+    (0 where the kernels run row tiles, or on the CPU, and build none).
     """
     if isinstance(g, DiGraph):
         g = g.in_

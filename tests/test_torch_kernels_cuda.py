@@ -6,6 +6,8 @@ where only the port is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -101,29 +103,30 @@ def test_kernel_fast_bf16(cuda, k, width):
     assert (np.abs(got[:300] - oracle) <= _bf16_ulp(oracle)).all()
 
 
-def test_kahan_hub_beats_plain_sum(cuda):
-    """A row of degree 20,000 over equal values per column: a sequential f32
-    sum of its terms in item order misses the float64 oracle by more than
-    1e-5, B1 (Kahan) does not in either design, and B2 in the panel design
-    (a warp per hub row) stays within it."""
-    d, width = 20_000, 1000
+@pytest.mark.parametrize("d", [20_000, 11_000])
+def test_kahan_hub_beats_plain_sum(cuda, d):
+    """A row of degree d over equal values per column: a sequential f32 sum
+    of its terms in item order misses the float64 oracle by more than 1e-5,
+    B1 (Kahan) does not.  At d = 20,000 the kernels run row tiles; at
+    d = 11,000 the column panel (a warp per hub row), where B2 stays within
+    1e-5 as well."""
+    width = 1000
     star = np.stack([np.zeros(d, np.int64), np.arange(1, d + 1)], 1)
     g = gt.build_graph(star, n_nodes=d + 1)
     vals = (1 + np.random.default_rng(0).random(width)).astype(np.float32)
     x = torch.from_numpy(np.broadcast_to(vals, (d + 1, width)).copy()).to(cuda)
     plan = spmm.build_spmv_stream(g, device=cuda)
+    assert (plan.sell is not None) == (d == 11_000)
     oracle = spmm.spmm_oracle(g, x.cpu().numpy(), rows=[0])[0]
     kahan = spmm.spmv(plan, x, "kahan")[0].cpu().numpy()
-    panel = spmm.with_sell_layout(plan)
-    kahan_panel = spmm.spmv(panel, x, "kahan", design="panel")[0].cpu().numpy()
-    fast = spmm.spmv(panel, x, "fast", design="panel")[0].cpu().numpy()
     lo, hi = plan.row_items[:2].tolist()
     terms = plan.wts[lo:hi].cpu().numpy()[:, None] * x[plan.slots[lo:hi].long()].cpu().numpy()
     seq = np.cumsum(terms.astype(np.float32), axis=0, dtype=np.float32)[-1]
     assert np.abs(kahan - oracle).max() <= 1e-5
-    assert np.abs(kahan_panel - oracle).max() <= 1e-5
-    assert np.abs(fast - oracle).max() <= 1e-5
     assert np.abs(seq - oracle).max() > 1e-5
+    if plan.sell is not None:
+        fast = spmm.spmv(plan, x, "fast")[0].cpu().numpy()
+        assert np.abs(fast - oracle).max() <= 1e-5
 
 
 def test_launch_counts(cuda):
@@ -177,46 +180,64 @@ def _degree_graph(degrees, v, seed=0):
     return gt.build_graph(np.concatenate(edges), n_nodes=v)
 
 
-@pytest.mark.parametrize("design", ["panel", "rows"])
 @pytest.mark.parametrize("mode", ["kahan", "fast"])
-def test_kernel_beyond_one_panel(cuda, mode, design):
-    """V = 60,000 rows of 4 bytes do not fit one block's shared memory: the
-    panel design walks k-panels and keeps row partials in its scratch; by
-    default such a V runs row tiles."""
+def test_kernel_beyond_one_panel(cuda, mode):
+    """V = 60,000 rows do not fit one block's shared memory: the stream
+    runs row tiles."""
     v, width = 60_000, 256
-    assert spmm.sell_launch_shape(v, 1, 4)[2] > 1 and not spmm.sell_fits(v, 1)
+    assert not spmm.sell_fits(v)
     rng = np.random.default_rng(4)
     edges = rng.integers(0, v, size=(200_000, 2))
     hub = np.stack([np.full(3000, 7), rng.choice(v, 3000, replace=False)], 1)
     g = gt.build_graph(np.concatenate([edges[edges[:, 0] != edges[:, 1]], hub]), n_nodes=v)
     plan = spmm.build_spmv_stream(g, device=cuda)
     assert plan.sell is None
-    if design == "panel":
-        plan = spmm.with_sell_layout(plan)
     x = torch.rand((v, width), generator=torch.Generator().manual_seed(4)).to(cuda)
-    got = spmm.spmv(plan, x, mode, 0.6, design=design)
+    got = spmm.spmv(plan, x, mode, 0.6)
     rows = np.unique(np.concatenate([rng.choice(v, 300), [7, 0, v - 1]]))
     oracle = spmm.spmm_oracle(g, _pinned(x.cpu().numpy(), 0.6), rows=rows)
     _check(got, spmm.spmv_plain(plan, x, mode, 0.6), rows, oracle)
 
 
-@pytest.mark.parametrize("design", ["panel", "rows"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_narrowed_slab(cuda, dtype, design):
-    """V = 16,384 rows of 16 bytes do not fit: the panel design narrows the
-    slab to 8 bytes; by default such a V runs row tiles."""
+def test_kernel_narrowed_slab(cuda, dtype):
+    """V = 16,384 (R-MAT's) rows of 16 bytes do not fit one block's shared
+    memory, and narrower slabs lost to row tiles: the stream runs row
+    tiles."""
     v, width = 16_384, 72
-    assert spmm.sell_launch_shape(v, 1, 4)[:2] == (8, v) and not spmm.sell_fits(v, 1)
+    assert not spmm.sell_fits(v)
     g = _graph(v=v, e=120_000, seed=5)
     plan = spmm.build_spmv_stream(g, device=cuda)
-    if design == "panel":
-        plan = spmm.with_sell_layout(plan)
+    assert plan.sell is None
     x = torch.rand((v, width), generator=torch.Generator().manual_seed(5)).to(cuda).to(dtype)
-    got = spmm.spmv(plan, x, "fast", 0.6, design=design)
+    got = spmm.spmv(plan, x, "fast", 0.6)
     rows = np.unique(np.concatenate([np.random.default_rng(5).choice(v, 300), [0, v - 1]]))
     oracle = spmm.spmm_oracle(g, _pinned(x.float().cpu().numpy(), 0.6), rows=rows)
     _check(got, spmm.spmv_plain(plan, x, "fast", 0.6), rows, oracle,
            bf16=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("table_scale", [None, 0.6])
+@pytest.mark.parametrize("mode,dtype", [("kahan", torch.float32), ("fast", torch.float32),
+                                        ("fast", torch.bfloat16)])
+def test_panel_matches_row_tiles(cuda, mode, dtype, table_scale):
+    """The panel and the row tiles sum a lane row's items in the same order
+    with the same operations: bit-equal outputs; hub rows (a warp per row)
+    within 1e-5 (bf16: one ulp)."""
+    g = _graph(v=3000, e=40_000, seed=10)
+    plan = spmm.build_spmv_stream(g, device=cuda)
+    assert plan.sell is not None and plan.sell.hub_rows.numel() > 0
+    rows = dataclasses.replace(plan, sell=None)
+    x = torch.rand((3000, 530), generator=torch.Generator().manual_seed(10)).to(cuda).to(dtype)
+    a = spmm.spmv(plan, x, mode, table_scale)
+    b = spmm.spmv(rows, x, mode, table_scale)
+    lane = np.setdiff1d(np.arange(3001), plan.sell.hub_rows.cpu().numpy())
+    lane = torch.as_tensor(lane, device=cuda)
+    assert torch.equal(a[lane], b[lane])
+    hub = plan.sell.hub_rows.long()
+    ha, hb = a[hub].float().cpu().numpy(), b[hub].float().cpu().numpy()
+    tol = _bf16_ulp(np.maximum(abs(ha), abs(hb))) if dtype == torch.bfloat16 else 1e-5
+    assert (np.abs(ha - hb) <= tol).all()
 
 
 @pytest.mark.parametrize("mode", ["kahan", "fast"])

@@ -3,6 +3,8 @@ random item streams, it must hold every stream item exactly once in the
 order each lane walks, give every output row one lane (or, for hub rows, a
 warp), and sum to the float64 oracle."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -28,20 +30,13 @@ def _graph(seed, v, n_edges, hub_degree, weighted):
     return gt.build_graph(edges, weights=wts, n_nodes=v)
 
 
-def _stream(g, k, weighted):
+def _stream(g, k=1, weighted=False):
     return spmm.build_spmv_segments(g, weighted=weighted, k=k, block_items=64)
 
 
-def _layout(s, hub, sigma):
-    h = lambda t: t.numpy()
-    return spmm.build_sell_layout(h(s.row_items), h(s.slots), h(s.wts), h(s.raw_wts),
-                                  h(s.scales), s.seg_k, hub=hub, sigma=sigma)
-
-
-def _positions(lay, k):
+def _positions(lay):
     """Per position: (unit, lane, j) from the chunk order of the layout."""
-    jb = spmm.sell_jb(k, lay.compact)
-    cp = spmm.SELL_WARPS * 32 * jb
+    jb, cp = spmm.SELL_JB, spmm.SELL_CHUNK
     p = np.arange(lay.item.numel())
     c, rem = p // cp, p % cp
     w, jj, lane = rem // (32 * jb), (rem // 32) % jb, rem % 32
@@ -58,8 +53,6 @@ cases = st.tuples(
     st.integers(12, 160),               # V
     st.integers(0, 900),                # random edges
     st.integers(5, 8),                  # hub degree: over the threshold below
-    st.booleans(),                      # weighted
-    st.sampled_from([1, 2, 4]),         # seg_k
     st.sampled_from([4, 6]),            # hub threshold
     st.sampled_from([8, 64, 4096]),     # sort window
 )
@@ -68,37 +61,31 @@ cases = st.tuples(
 @settings(max_examples=40, deadline=None, suppress_health_check=[HealthCheck.too_slow])
 @given(cases)
 def test_layout_holds_the_stream(case):
-    seed, v, n_edges, hub_degree, weighted, k, hub, sigma = case
-    g = _graph(seed, v, n_edges, hub_degree, weighted)
-    s = _stream(g, k, weighted)
-    lay = _layout(s, hub, sigma)
+    seed, v, n_edges, hub_degree, hub, sigma = case
+    g = _graph(seed, v, n_edges, hub_degree, False)
+    s = _stream(g)
+    lay = spmm.build_sell_layout(s, hub=hub, sigma=sigma)
     row_items = s.row_items.numpy()
     cnt = np.diff(row_items)
     n_rows = v + 1
     item = lay.item.numpy()
-    unit, lane, j = _positions(lay, k)
+    unit, lane, j = _positions(lay)
     lane_row = lay.lane_row.numpy().reshape(-1, 32)
     lane_cnt = lay.lane_cnt.numpy().reshape(-1, 32)
     unit_hub = lay.unit_hub.numpy()
 
-    # every stream item exactly once, with its slot and its weights
+    # every stream item exactly once, with its slot; every item of a row
+    # has the row's weight and scale
     real = item >= 0
     assert np.array_equal(np.sort(item[real]), np.arange(s.slots.numel()))
     assert np.array_equal(real, j < lane_cnt[unit, lane])
     slots = lay.slots.numpy()
-    if lay.compact:
-        slots = slots.view(np.uint16)
-        rows_of = np.repeat(np.arange(n_rows), cnt)
-        assert np.array_equal(lay.row_wts.numpy()[rows_of], s.wts.numpy())
-        assert np.array_equal(lay.row_raw.numpy()[rows_of], s.raw_wts.numpy())
-    else:
-        for name in ("wts", "raw_wts"):
-            got = getattr(lay, name).numpy().reshape(-1, k)
-            want = getattr(s, name).numpy().reshape(-1, k)
-            assert np.array_equal(got[real], want[item[real]])
-            assert not got[~real].any()
     assert np.array_equal(slots[real], s.slots.numpy()[item[real]])
     assert not slots[~real].any()
+    rows_of = np.repeat(np.arange(n_rows), cnt)
+    assert np.array_equal(lay.row_wts.numpy()[rows_of], s.wts.numpy())
+    assert np.array_equal(lay.row_scale.numpy()[rows_of], s.scales.numpy())
+    assert not lay.row_wts.numpy()[cnt == 0].any()
 
     # a lane walks its row's items in stream order; a hub piece's lanes
     # take its items lane-strided
@@ -124,61 +111,54 @@ def test_layout_holds_the_stream(case):
         assert lane_cnt[mine].sum() == cnt[r]
         assert (lane_cnt[mine] <= -(-32 * hub // 32)).all()
     assert lay.n_pieces == pieces[-1] == (unit_hub >= 0).sum()
-    # the first-item scale of each row
-    first = np.minimum(row_items[:-1], max(s.scales.numel() - 1, 0))
-    assert np.array_equal(lay.row_scale.numpy(),
-                          np.where(cnt > 0, s.scales.numpy()[first], 0).astype(np.float32))
 
-    # a float64 sum over the layout's own order equals the oracle
+    # a float64 mean over the layout's own order equals the oracle (rows of
+    # weight 0, the isolated rows' dummies and the pads, are zero rows)
     x = np.random.default_rng(seed + 1).random((v, 3))
-    raw = (lay.row_raw.numpy()[pos_row] if lay.compact
-           else lay.raw_wts.numpy().reshape(-1, k))
-    raw = raw.reshape(len(item), -1).astype(np.float64)
+    ok = real & (lay.row_wts.numpy()[pos_row] != 0)
     num = np.zeros((n_rows, 3))
     den = np.zeros(n_rows)
-    for jn in range(k):
-        rr = slots.astype(np.int64) + jn
-        ok = real & (raw[:, min(jn, raw.shape[1] - 1)] != 0)
-        w = raw[ok, min(jn, raw.shape[1] - 1)]
-        np.add.at(num, pos_row[ok], w[:, None] * x[rr[ok]])
-        np.add.at(den, pos_row[ok], w)
+    np.add.at(num, pos_row[ok], x[slots[ok].astype(np.int64)])
+    np.add.at(den, pos_row[ok], 1.0)
     got = np.where(den[:v, None] > 0, num[:v] / np.maximum(den[:v, None], 1e-300), 0.0)
-    np.testing.assert_allclose(got, spmm.spmm_oracle(g, x, weighted=weighted), rtol=0,
-                               atol=1e-12)
+    np.testing.assert_allclose(got, spmm.spmm_oracle(g, x), rtol=0, atol=1e-12)
 
 
 def test_compact_only_for_unweighted_single_rows():
+    """The panel's layout holds 16-bit slots and one weight per row: only a
+    uniform seg-1 stream has one."""
     g = _graph(3, 60, 300, 8, False)
-    assert _layout(_stream(g, 1, False), 6, 16).compact
-    assert _layout(_stream(g, 1, False), 6, 16).slots.dtype == torch.int16
-    assert not _layout(_stream(g, 2, False), 6, 16).compact
+    lay = spmm.build_sell_layout(_stream(g), 6, 16)
+    assert lay.slots.dtype == torch.int16
+    assert spmm.runs_panel(_stream(g))
+    assert not spmm.runs_panel(_stream(g, 2))
     gw = _graph(3, 60, 300, 8, True)
-    assert not _layout(_stream(gw, 1, True), 6, 16).compact
+    assert not spmm.runs_panel(_stream(gw, 1, True))
+    for s in (_stream(g, 2), _stream(gw, 1, True)):
+        with pytest.raises(ValueError, match="uniform seg-1"):
+            spmm.build_sell_layout(s)
 
 
-@pytest.mark.parametrize("v,itemsize,want", [
-    (10_496, 4, (16, 10_496, 1)),   # blog-shaped: the 16-byte slab fits
-    (10_496, 2, (16, 10_496, 1)),
-    (16_384, 4, (8, 16_384, 1)),    # R-MAT: narrowed
-    (60_000, 4, (4, 45_792, 2)),    # k-panels
+@pytest.mark.parametrize("v,want", [
+    (10_496, True),     # blog-shaped: the 16-byte slab fits
+    (11_448, True),     # the largest V that fits
+    (11_449, False),
+    (16_384, False),    # R-MAT: row tiles
 ])
-def test_launch_shape(v, itemsize, want):
-    assert spmm.sell_launch_shape(v, 1, itemsize) == want
-    assert spmm.sell_fits(v, 1) == (want[0] == 16)
+def test_launch_shape(v, want):
+    assert spmm.sell_fits(v) == want
+    s = spmm.build_spmv_stream(gt.build_graph(np.array([[0, 1], [2, 3]]), n_nodes=v))
+    assert spmm.runs_panel(s) == want
 
 
 def test_stream_builds_a_layout_only_where_the_panel_fits():
+    """Streams get their layout on the card only; on the CPU the plain
+    version runs and a layout changes nothing."""
     small = _graph(0, 40, 200, 8, False)
-    assert spmm.build_spmv_stream(small).sell is not None
-    assert spmm.build_spmv_segments(small, k=3).sell is None   # no kernel takes seg_k 3
-    big = gt.build_graph(np.array([[0, 1], [2, 3]]), n_nodes=16_384)
-    s = spmm.build_spmv_stream(big)
-    assert s.sell is None
-    x = torch.zeros((16_384, 4))
-    with pytest.raises(ValueError, match="with_sell_layout"):
-        spmm.spmv(s, x, "kahan", design="panel")
-    with pytest.raises(ValueError, match="design"):
-        spmm.spmv(s, x, "kahan", design="tiles")
-    forced = spmm.with_sell_layout(s)
-    assert forced.sell is not None and spmm.with_sell_layout(forced) is forced
-    assert torch.equal(spmm.spmv(forced, x, "kahan", design="panel"), spmm.spmv(s, x, "kahan"))
+    s = spmm.build_spmv_stream(small)
+    assert s.sell is None and s.to("cpu").sell is None
+    assert spmm.runs_panel(s)
+    assert not spmm.runs_panel(spmm.build_spmv_segments(small, k=3))  # no kernel takes seg_k 3
+    x = torch.rand((40, 4), generator=torch.Generator().manual_seed(0))
+    with_layout = dataclasses.replace(s, sell=spmm.build_sell_layout(s))
+    assert torch.equal(spmm.spmv(with_layout, x, "kahan"), spmm.spmv(s, x, "kahan"))

@@ -15,10 +15,16 @@ Phases (any failure raises and the run exits non-zero):
      twice and the outputs held bit-equal; CUDA-event times of kernel,
      plain version and one torch.sparse.mm.
   4. tree kernel: kernel B3 against its plain version on every level of
-     the blog-shaped reduction tree at 4,096-column blocks (level 0 read
-     in place from the wider iterate), the ragged tail block, C = 10,313
-     and a bf16 table; one embedding_bag beside level 0; the whole tree
-     product against the float64 oracle.
+     the blog-shaped and R-MAT reduction trees at 4,096-column blocks
+     (level 0 read in place from the wider iterate), the ragged tail
+     block, C = 10,313, a bf16 table and the weighted blog tree's level 0;
+     each level in every design tree_spmm can launch on it (blog level 0:
+     row tiles, and the panel, which stores slab-major; level 1: row tiles
+     reading rows and reading level 0's slabs), each bit-equal to the
+     plain version, with each level's time and bound; one embedding_bag
+     beside level 0; the whole tree product against the float64 oracle
+     and, f32 and bf16, bit-equal to the row tiles alone
+     (``dataclasses.replace(tree, layouts=())``).
   5. main path: ``python -m graphtpu_torch simrank --engine spmm`` for
      modes kahan, fast and fast16 on the blog-shaped graph; launch counts,
      files read back, scores against the dense fp32 engine, the host ms of
@@ -26,17 +32,24 @@ Phases (any failure raises and the run exits non-zero):
   6. skew: the kahan run again on an R-MAT graph (V = 16,384, row tiles).
   7. tree path: ``exact_simrank_spmm(impl="tree")`` on the blog-shaped
      graph (f32, bf16) and R-MAT (f32); B3 launch counts, scores against
-     the dense fp32 engine, per-stage times and peak memory.
+     the dense fp32 engine, per-stage times, the compact plans' host ms and
+     peak memory.
   8. rate probe: ``python -m graphtpu_torch.bench.spmv_rate`` on both
-     graphs (ns per item of B1, B2, X1-X3), then X1-X3 against their plain
-     versions (X3 beside a ones-CSR torch.sparse.mm).
+     graphs (ns per item of B1, B2, X1-X3; X3 on B2's panel at blog beside
+     B2), then X1-X3 against their plain versions, each beside one PyTorch
+     library call at blog (X1 a max embedding_bag, X2 a weighted sum bag,
+     X3 a ones-CSR torch.sparse.mm), checked once against the plain version.
 The last two lines are the kernels' JSON summary (with each kernel's bound
-from graphtpu_torch/bench/bounds.py) and the JSON result.
+from graphtpu_torch/bench/bounds.py; B3's level-0 time excludes the cost its
+slab-major output moves to level 1, so its entry also gives levels 0 + 1
+and the whole product, each against the row tiles alone) and the JSON
+result.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -287,41 +300,98 @@ def phase_kernels(dev, report):
     return results, plan.n_items
 
 
+def tree_level_tables(tree, x):
+    """The tables each level of ``tree`` reads in the first column block of
+    a product over ``x`` (level 0 read in place from the wider iterate),
+    row-major."""
+    from graphtpu_torch.kernels import spmm
+
+    tables = [x[:, :COL_BLOCK]]
+    for k in range(len(tree.levels) - 1):
+        tables.append(spmm.gather_rows_sum(tree.levels[k], tree.weights[k], tables[-1]))
+    return tables
+
+
 def phase_tree_kernel(dev, report):
-    """B3 on the blog-shaped tree's levels against its plain version, and
-    the whole tree product against the float64 oracle."""
+    """B3 on every level of the blog-shaped and R-MAT trees in both designs
+    where the column panel takes the level (the panel and the row tiles held
+    bit-equal to each other and to the plain version), and the whole blog
+    tree product against the float64 oracle."""
+    from graphtpu_torch import build_graph
+    from graphtpu_torch.bench import bounds
     from graphtpu_torch.kernels import spmm
 
     g = blog_shaped_graph()
     tree = spmm.build_reduction_tree(g, device=dev)
-    say(f"blog tree: W={tree.width}, real rows per level {list(tree.real_rows)}, "
-        f"padded {[int(l.shape[0]) for l in tree.levels]}")
+    edges = blog_shaped_edges()
+    weights = (np.random.default_rng(0).random(len(edges)) + 0.1).astype(np.float32)
+    gw = build_graph(edges, weights=weights, n_nodes=BLOG_NODES)
+    wtree = spmm.build_reduction_tree(gw, weighted=True, device=dev)
+    rg = rmat14_graph()
+    rtree = spmm.build_reduction_tree(rg, device=dev)
+    for tag, t in (("blog", tree), ("blog weighted", wtree), ("rmat", rtree)):
+        say(f"{tag} tree: W={t.width}, real rows per level {list(t.real_rows)}, padded "
+            f"{[int(l.shape[0]) for l in t.levels]}; compact plans "
+            f"{['-' if l is None else f'N={l.n_table}' for l in t.layouts]}, "
+            f"built in {t.layout_host_ms:.1f} ms (host)")
+    check(tree.layout(0) is not None and all(l is None for l in tree.layouts[1:]),
+          "blog tree: the panel should take level 0 only")
+    check(all(l is None for l in rtree.layouts), "rmat tree: no level fits the panel")
+    check(wtree.layout(0) is None, "weighted blog tree: level 0 (a weight per slot) keeps the row tiles")
     x_np = np.random.default_rng(1).random((BLOG_NODES, BLOG_NODES), dtype=np.float32)
     x = torch.from_numpy(x_np).to(dev)
     xb = x.bfloat16()
-    # the tables each level reads in the first column block of a product
-    tables = [x[:, :COL_BLOCK]]
-    for k in range(len(tree.levels) - 1):
-        tables.append(spmm.gather_rows_sum(tree.levels[k], tree.weights[k], tables[-1]))
-    lv, wt = tree.levels, tree.weights
-    cases = [(f"level{k}" + ("_strided" if k == 0 else ""), lv[k], wt[k], tables[k])
-             for k in range(len(lv))]
+    xr = torch.rand((RMAT14_NODES, RMAT14_NODES), generator=torch.Generator(device=dev)
+                    .manual_seed(3), device=dev)
+    tables = tree_level_tables(tree, x)
+    rtables = tree_level_tables(rtree, xr)
+
+    def level(t, k, table):
+        rows = t.real_rows[k]
+        n = t.n_nodes if k == 0 else t.real_rows[k - 1]
+        return t.levels[k], t.weights[k], t.layout(k), table, rows, n
+
+    cases = [(f"level{k}" + ("_strided" if k == 0 else ""), *level(tree, k, tables[k]))
+             for k in range(len(tree.levels))]
     cases += [
-        ("level0_tail_strided", lv[0], wt[0], x[:, 2 * COL_BLOCK:]),
-        ("level0_C10313", lv[0], wt[0], x[:, :C_RAGGED].contiguous()),
-        ("level0_bf16_strided", lv[0], wt[0], xb[:, :COL_BLOCK]),
+        ("level0_tail_strided", *level(tree, 0, x[:, 2 * COL_BLOCK:])),
+        ("level0_C10313", *level(tree, 0, x[:, :C_RAGGED].contiguous())),
+        ("level0_bf16_strided", *level(tree, 0, xb[:, :COL_BLOCK])),
+        ("level0_weighted_strided", *level(wtree, 0, x[:, :COL_BLOCK])),
     ]
+    cases += [(f"rmat_level{k}", *level(rtree, k, rtables[k])) for k in range(len(rtree.levels))]
     results = []
-    for name, sl, w, table in cases:
-        out = spmm.gather_rows_sum(sl, w, table)
-        torch.cuda.synchronize()
+    slab0 = {}  # blog level 0's slab-major output, the table level 1 reads in tree_spmm
+    for name, sl, w, lay, table, real, n in cases:
+        c = table.shape[1]
+        # each design of this level as tree_spmm launches it: row tiles;
+        # where the level has a plan, the panel, which stores slab-major for
+        # the next level; for blog level 1, the row tiles reading level 0's
+        # slabs
+        runs = {"rows": lambda: spmm.gather_rows_sum(sl, w, table)}
+        if lay is not None:
+            runs["panel"] = lambda: spmm._gather_cuda(sl, w, table, None, lay)
+        if name == "level1" and "level0_strided" in slab0:
+            t0 = slab0["level0_strided"]
+            runs["rows_slabs_in"] = lambda: spmm._gather_cuda(sl, w, t0, None, None, c=c,
+                                                              table_slabs=True)
         plain = spmm.gather_rows_sum_plain(sl, w, table)
-        check(out.shape == (sl.shape[0], table.shape[1]) and out.dtype == torch.float32,
-              f"{name}: shape/dtype {tuple(out.shape)} {out.dtype}")
-        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
-        err = (out - plain).abs().max().item()
-        unequal = int((out != plain).sum().item())
-        ms = cuda_ms(lambda: spmm.gather_rows_sum(sl, w, table))
+        outs = {d: f() for d, f in runs.items()}
+        torch.cuda.synchronize()
+        if "panel" in outs:  # slab-major back to rows
+            if name == "level0_strided":
+                slab0[name] = outs["panel"]
+            outs["panel"] = outs["panel"].permute(1, 0, 2).reshape(sl.shape[0], -1)[:, :c]
+        unequal = {}
+        for d, out in outs.items():
+            check(out.shape == (sl.shape[0], c) and out.dtype == torch.float32,
+                  f"B3 {name} {d}: shape/dtype {tuple(out.shape)} {out.dtype}")
+            check(bool(torch.isfinite(out).all()), f"B3 {name} {d}: non-finite output")
+            unequal[d] = int((out != plain).sum().item())
+        err = max((o - plain).abs().max().item() for o in outs.values())
+        times = {d: cuda_ms(f) for d, f in runs.items()}
+        # the design tree_spmm runs this level with
+        used = next(d for d in ("panel", "rows_slabs_in", "rows") if d in runs)
         plain_ms = cuda_ms(lambda: spmm.gather_rows_sum_plain(sl, w, table), warmup=1, runs=5)
         lib_ms = None
         if name == "level0_strided":
@@ -334,18 +404,25 @@ def phase_tree_kernel(dev, report):
             lib_ms = library_ms(lambda: torch.nn.functional.embedding_bag(
                 idx, tc, offs, mode="sum", per_sample_weights=pw))
             del tc, idx, offs
-        r = dict(case=name, rows=int(sl.shape[0]), width=int(table.shape[1]),
-                 ld=int(table.stride(0)), dtype=str(table.dtype).split(".")[-1],
-                 max_abs_err_plain=err, unequal=unequal, ms=ms, plain_ms=plain_ms,
-                 library_ms=lib_ms)
+        bound_ms, bound_by = bounds.bound(*bounds.gather_work(
+            real, sl.shape[1], c, n, table.element_size()))
+        r = dict(case=name, rows=int(sl.shape[0]), real_rows=int(real), table_rows=int(n),
+                 width=int(c), ld=int(table.stride(0)), dtype=str(table.dtype).split(".")[-1],
+                 design=used, max_abs_err_plain=err, unequal=unequal[used],
+                 unequal_by_design=unequal, ms=times[used], ms_by_design=times,
+                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
         results.append(r)
-        say(f"B3 {name}: [{r['rows']} x {r['width']}] ld {r['ld']} {r['dtype']}: err vs "
-            f"plain {err:.3e}, {unequal} unequal elements, bound {TOL_B3:g}; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
-            + ("" if lib_ms is None else f", embedding_bag {lib_ms:.3f} ms"))
+        say(f"B3 {name}: [{r['rows']} x {c}] over {n} rows, ld {r['ld']} {r['dtype']}: "
+            f"unequal elements vs plain {unequal}; "
+            + ", ".join(f"{d} {t:.3f} ms" for d, t in times.items())
+            + f" (tree_spmm runs {used}), plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({bound_by})" + ("" if lib_ms is None else f", embedding_bag {lib_ms:.3f} ms"))
         check(err <= TOL_B3, f"B3 {name}: kernel vs plain version {err} > {TOL_B3}")
-        del out, plain
-    del tables
+        for d, u in unequal.items():
+            check(u == 0, f"B3 {name} {d}: {u} elements differ from the plain version")
+        del outs, plain
+    del slab0
+    del tables, rtables, xr
     # sampled rows plus the hub, an isolated pad row and row 0
     special = [int(np.argmax(g.host[3])), BLOG_NODES - 1, 0]
     rows = np.unique(np.concatenate(
@@ -353,14 +430,27 @@ def phase_tree_kernel(dev, report):
     prod = spmm.tree_spmm(tree, x, COL_BLOCK)
     got = prod[torch.as_tensor(rows, device=dev)].cpu().numpy()
     err = float(np.abs(got - spmm.spmm_oracle(g, x_np, rows=rows)).max())
-    ms = cuda_ms(lambda: spmm.tree_spmm(tree, x, COL_BLOCK), warmup=1, runs=5)
+    # level 0 runs the panel into a slab-major intermediate; the row tiles
+    # alone must give the same bits, over f32 and bf16 iterates
+    rows_tree = dataclasses.replace(tree, layouts=())
+    times = {}
+    for tag, xx in (("f32", x), ("bf16", xb)):
+        check(torch.equal(prod if tag == "f32" else spmm.tree_spmm(tree, xx, COL_BLOCK),
+                          spmm.tree_spmm(rows_tree, xx, COL_BLOCK)),
+              f"tree_spmm over {tag}: the panel and the row tiles differ")
+        times[tag] = (cuda_ms(lambda: spmm.tree_spmm(tree, xx, COL_BLOCK), warmup=1, runs=5),
+                      cuda_ms(lambda: spmm.tree_spmm(rows_tree, xx, COL_BLOCK), warmup=1, runs=5))
+    ms = times["f32"][0]
     say(f"tree_spmm at V = C = {BLOG_NODES}: vs float64 oracle {err:.3e} over {len(rows)} "
-        f"rows (bound {TOL_F32:g}); {ms:.3f} ms per product")
+        f"rows (bound {TOL_F32:g}); ms per product with the panel / row tiles only (the "
+        f"same bits): " + ", ".join(f"{t} {a:.3f} / {b:.3f}" for t, (a, b) in times.items()))
     check(err <= TOL_F32, f"tree_spmm vs float64 oracle {err} > {TOL_F32}")
     report["tree_kernel_cases"] = results
     report["tree_level0"] = dict(real_rows=int(tree.real_rows[0]), width=int(tree.width),
                                  table_rows=int(g.n_nodes), c=COL_BLOCK)
-    report["tree_product"] = dict(max_abs_err_oracle=err, oracle_rows=int(len(rows)), ms=ms)
+    report["tree_product"] = dict(max_abs_err_oracle=err, oracle_rows=int(len(rows)), ms=ms,
+                                  ms_by_dtype={t: dict(panel=a, rows=b)
+                                               for t, (a, b) in times.items()})
     del x, xb, prod
     torch.cuda.empty_cache()
     return results
@@ -490,11 +580,12 @@ def run_tree_path(dev, g, tag, dtypes, report):
             graph=tag, dtype=name, V=v, slots=g.n_edges, levels=levels,
             launches=launches, expected_launches=want, max_abs_err_dense=err,
             bound=tol, call_wall_s=call_s, stage_ms_per_iter=per_iter,
-            peak_gb=peak_gb))
+            layout_host_ms=stages["layout_host"], peak_gb=peak_gb))
         say(f"{tag} tree {name}: {levels} levels, B3 launches {launches} (expected "
             f"{want}); S vs dense fp32 max err {err:.3e} (bound {tol:g}); per iteration "
             + ", ".join(f"{k} {t:.3f} ms" for k, t in per_iter.items())
-            + f" (CUDA events; product2 includes scale, pin and cast); call {call_s:.3f} s "
+            + f" (CUDA events; product2 includes scale, pin and cast); compact plans "
+            f"{stages['layout_host']:.1f} ms (host); call {call_s:.3f} s "
             f"(host clock); peak {peak_gb:.3f} GB above the {base / 1e9:.3f} GB held")
         check(launches == want, f"{tag} tree {name}: {launches} B3 launches, expected {want}")
         check(err <= tol, f"{tag} tree {name}: S vs dense {err} > {tol}")
@@ -503,9 +594,30 @@ def run_tree_path(dev, g, tag, dtypes, report):
     return total
 
 
+def rate_library(key, stream, arg):
+    """One PyTorch call of rate kernel ``key``'s function over ``stream``,
+    or None: X1 a max bag, X2 a weighted sum bag over t mod 16, X3 a
+    ones-CSR times the table."""
+    from graphtpu_torch.bench import spmv_rate
+
+    f = torch.nn.functional
+    offs = stream.row_items[:-1]  # bags of rows 0..V, the last to the end
+    if key == "gather_only":
+        idx = stream.slots.long()
+        return lambda: f.embedding_bag(idx, arg, offs, mode="max")
+    if key == "accumulate_only":
+        idx = torch.arange(stream.slots.numel(), device=arg.device) % spmv_rate.N_BUF
+        return lambda: f.embedding_bag(idx, arg, offs, mode="sum",
+                                       per_sample_weights=stream.wts)
+    ones = csr_of(stream, stream.n_nodes, torch.ones_like(stream.wts))
+    return lambda: torch.sparse.mm(ones, arg)
+
+
 def phase_rate_probe(dev, report):
     """The probe's entry point on both graphs, then X1-X3 against their
-    plain versions; returns the X kernels' launches and their cases."""
+    plain versions (and, at blog, each beside one PyTorch library call of
+    its function, checked once against the plain version); returns the X
+    kernels' launches and their cases."""
     from graphtpu_torch.bench import spmv_rate
     from graphtpu_torch.kernels import spmm
 
@@ -514,6 +626,11 @@ def phase_rate_probe(dev, report):
     report["rate_probe"] = spmv_rate.main([])
     launches = dict(spmv_rate.RATE_LAUNCHES)
     say(f"rate probe launches {launches}")
+    for tag, res in report["rate_probe"]["graphs"].items():
+        by = {r["kernel"]: r for r in res["rows"]}
+        b2, x3 = by["B2 fast f32"], by["X3 unroll"]
+        say(f"{tag}: X3 ({x3['design']}, twice B2's items in flight) {x3['ms']:.3f} ms beside "
+            f"B2 fast f32 ({b2['design']}) {b2['ms']:.3f} ms: X3/B2 {x3['ms'] / b2['ms']:.3f}")
 
     cases = []
     for tag in ("blog", "rmat"):
@@ -526,34 +643,46 @@ def phase_rate_probe(dev, report):
             fn = getattr(spmv_rate, key)
             plain_fn = getattr(spmv_rate, key + "_plain")
             arg = buf if key == "accumulate_only" else table
+            used = spmv_rate.design(key, stream)
             out = fn(stream, arg)
             torch.cuda.synchronize()
             plain = plain_fn(stream, arg)
             check(out.shape == (g.n_nodes + 1, g.n_nodes) and bool(torch.isfinite(out).all()),
                   f"{tag} {label}: shape or non-finite output")
-            diff = (out - plain).abs()
-            err = diff.max().item()
-            if key == "gather_only":
-                ok, bound = torch.equal(out, plain), "exact"
-            else:
+
+            def within(got):
+                """(ok, max |got - plain|, bound) of an output against the plain
+                one's first rows (the ones-CSR product has no dummy row V)."""
+                ref = plain[: got.shape[0]]
+                diff = (got - ref).abs()
+                if key == "gather_only":
+                    return torch.equal(got, ref), diff.max().item(), "exact"
                 # every term is >= 0, so the plain sum is the row's sum of |terms|
-                ok, bound = bool((diff <= TOL_RATE * plain).all()), f"{TOL_RATE:g} of sum|terms|"
+                return (bool((diff <= TOL_RATE * ref).all()), diff.max().item(),
+                        f"{TOL_RATE:g} of sum|terms|")
+
+            ok, err, bound = within(out)
             ms = cuda_ms(lambda: fn(stream, arg))
             plain_ms = cuda_ms(lambda: plain_fn(stream, arg), warmup=1, runs=3)
-            lib_ms = None
-            if key == "unroll8" and tag == "blog":
-                # one PyTorch call of the same sums: a ones-CSR times the table
-                ones = csr_of(stream, g.n_nodes, torch.ones_like(stream.wts))
-                lib_ms = library_ms(lambda: torch.sparse.mm(ones, arg))
-                del ones
-            cases.append(dict(graph=tag, kernel=key, max_abs_err_plain=err, bound=bound,
-                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              items=stream.n_items, v=g.n_nodes))
-            say(f"{tag} {label}: err vs plain {err:.3e} (bound {bound}); "
+            lib_ms = lib_err = None
+            if tag == "blog":
+                lib = rate_library(key, stream, arg)
+                lib_ms = library_ms(lib)
+                if lib_ms is not None:
+                    lib_ok, lib_err, _ = within(lib())
+                    check(lib_ok, f"{tag} {label}: the library call is not the same function "
+                                  f"(max |lib - plain| {lib_err:.3e}, bound {bound})")
+                del lib
+            cases.append(dict(graph=tag, kernel=key, design=used, max_abs_err_plain=err,
+                              bound=bound, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              library_max_abs_err_plain=lib_err, items=stream.n_items,
+                              v=g.n_nodes))
+            say(f"{tag} {label} ({used}): err vs plain {err:.3e} (bound {bound}); "
                 f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
-                + ("" if lib_ms is None else f", torch.sparse.mm {lib_ms:.3f} ms"))
+                + ("" if lib_ms is None else
+                   f", library call {lib_ms:.3f} ms (err vs plain {lib_err:.3e})"))
             check(ok, f"{tag} {label}: kernel vs plain version outside {bound}")
-            del out, plain, diff
+            del out, plain
         del table, buf
         torch.cuda.empty_cache()
     report["rate_cases"] = cases
@@ -639,13 +768,21 @@ def main(argv=None) -> int:
         summary.append(entry(label, SOURCE, REPLACES[kernel], kernel,
                              [c["max_abs_err_plain"] for c in mine], timed, work,
                              next(c for c in cases if c["case"] == lib)["library_ms"]))
-    level0 = tree_cases[0]  # the largest level, first column block
+    level0, level1 = tree_cases[0], tree_cases[1]  # the largest level, first column block
     t0 = report["tree_level0"]
-    summary.append(entry(
+    b3 = entry(
         "gather_rows_sum (B3)", "graphtpu_torch/kernels/csrc/gather.cu",
         "graphtpu/kernels/spmm.py:851", "gather", [c["max_abs_err_plain"] for c in tree_cases],
         level0, bounds.gather_work(t0["real_rows"], t0["width"], t0["c"], t0["table_rows"], 4),
-        level0["library_ms"]))
+        level0["library_ms"])
+    # `ms` is level 0 alone, whose panel stores slab-major; level 1 pays for
+    # reading the slabs, so levels 0 + 1 and the whole product are given
+    # beside it, each against the row tiles alone
+    t1, prod = level1["ms_by_design"], report["tree_product"]["ms_by_dtype"]["f32"]
+    b3.update(levels01_ms=level0["ms"] + level1["ms"],
+              levels01_row_tiles_ms=level0["ms_by_design"]["rows"] + t1["rows"],
+              product_ms=prod["panel"], product_row_tiles_ms=prod["rows"])
+    summary.append(b3)
     for key, label, replaces in RATE_KERNELS:
         mine = [c for c in rate_cases if c["kernel"] == key]
         timed = next(c for c in mine if c["graph"] == "blog")

@@ -58,10 +58,7 @@ CASES = (  # stream, mode, dtype, table_scale
 def build_old(csrc: str, out_dir: str) -> ctypes.CDLL:
     """nvcc the earlier ``spmv.cu`` (with its headers) into a library."""
     lib = os.path.join(out_dir, "libspmv_old.so")
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib, os.path.join(csrc, "spmv.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed: {proc.stdout}{proc.stderr}")
+    _build.compile_library([os.path.join(csrc, "spmv.cu")], lib)
     old = ctypes.CDLL(lib)
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
     old.gt_spmv_kahan_f32.argtypes = [p, p, p, p, p, i64, i64, i32, i32, f32, p]

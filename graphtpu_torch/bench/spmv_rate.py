@@ -14,16 +14,23 @@ bf16 tables) and three stripped variants of B2, the hand kernels of
   from a resident [16, C] buffer, no row reads:
   ``out[r] = Σ_{t in r} wts[t]·buf[t mod 16]``;
 * X3 :func:`unroll8` — raw, unweighted, unscaled run sums
-  ``out[r] = Σ_{t in r} table[slot]`` with 8 items' loads in flight.
+  ``out[r] = Σ_{t in r} table[slot]``, in B2's design with more loads in
+  flight.
 
 It prints ns per stream item and the rate of row reads for each, the
-median of 9 timed runs.  B1 and B2 run in the design :func:`spmv` picks
-(the column panel where its 16-byte slab fits, as at blog; row tiles at
-R-MAT); X1-X3 take the row-tile design apart, so their rates explain the
-row tiles, not the panel.  Each wrapper runs its plain PyTorch version on a
-CPU tensor and launches its kernel on a CUDA tensor, or raises; the probe
-itself needs a card.  The TPU tool's ring-depth and block-size grid and its transpose timings are
-TPU staging and have no counterpart here.
+median of 9 timed runs, and the design each kernel ran.  The streams are
+built on the card with their sliced layout where B2's column panel takes
+them (blog; not R-MAT).  B1, B2 and X3 run the design the stream gives
+them: the column panel at blog, where X3 is B2's panel kernel with 16
+items in flight instead of 8 and no row scale, so X3 beside B2 says
+whether more panel reads in flight move the panel; row tiles at R-MAT,
+where X3 keeps 8 items in flight a thread against B2's 4.  X1 and X2
+always take the row tiles apart (row reads alone, per-item work alone),
+so their rates explain the row tiles, not the panel.  Each wrapper runs
+its plain PyTorch version on a CPU tensor and launches its kernel on a
+CUDA tensor, or raises; the probe itself needs a card.  The TPU tool's
+ring-depth and block-size grid and its transpose timings are TPU staging
+and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from graphtpu_torch.kernels.spmm import (
     SpmvStream,
     build_spmv_stream,
     scatter_rows_plain,
+    sell_launch_args,
     spmv,
 )
 
@@ -88,6 +96,13 @@ def unroll8_plain(stream: SpmvStream, table: torch.Tensor) -> torch.Tensor:
     return _plain(stream, table, lambda lo, hi: table[slots, lo:hi], "sum")
 
 
+def design(name: str, stream: SpmvStream) -> str:
+    """The design kernel ``name`` (a key of RATE_LAUNCHES) runs on
+    ``stream``: "panel" for X3 over a stream with a sliced layout, else
+    "rows"."""
+    return "panel" if name == "unroll8" and stream.sell is not None else "rows"
+
+
 def _launch(name: str, stream: SpmvStream, first: torch.Tensor, x: torch.Tensor):
     from graphtpu_torch.kernels import _build
 
@@ -100,11 +115,18 @@ def _launch(name: str, stream: SpmvStream, first: torch.Tensor, x: torch.Tensor)
     out = torch.empty((v + 1, c), dtype=torch.float32, device=x.device)
     if c == 0:
         return out
-    fn = getattr(_build.load(), f"gt_rate_{name}")
+    lib = _build.load()
+    fn = getattr(lib, f"gt_rate_{name}")
+    args = (first.data_ptr(), stream.row_items.data_ptr())
+    hub_acc = None  # the panel's scratch, held until the launch is enqueued
+    if name == "unroll8":
+        sell = None
+        if design(name, stream) == "panel":
+            sell, hub_acc = sell_launch_args(stream.sell, c, False, x.device)
+        args += (sell,)
     with torch.cuda.device(x.device):
         cu_stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        rc = fn(first.data_ptr(), stream.row_items.data_ptr(), x.data_ptr(),
-                out.data_ptr(), v + 1, c, cu_stream)
+        rc = fn(*args, x.data_ptr(), out.data_ptr(), v + 1, c, cu_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: {_build.error_string(rc)}")
     RATE_LAUNCHES[name] += 1
@@ -132,29 +154,33 @@ def accumulate_only(stream: SpmvStream, buf: torch.Tensor) -> torch.Tensor:
 
 
 def unroll8(stream: SpmvStream, table: torch.Tensor) -> torch.Tensor:
-    """X3 over ``stream``: [>=V, C] f32 -> [V+1, C] f32."""
+    """X3 over ``stream``: [>=V, C] f32 -> [V+1, C] f32; on the card, B2's
+    column panel over the stream's sliced layout where it has one, else
+    row tiles."""
     _check(stream, table, stream.n_nodes)
     return _dispatch("unroll8", unroll8_plain, stream, stream.slots, table)
 
 
 def probe(stream: SpmvStream, table: torch.Tensor, buf: torch.Tensor) -> List[Dict]:
-    """Time the six kernels on one stream: one row per kernel with its ms,
-    ns per stream item and GB/s of table-row reads."""
+    """Time the six kernels on one stream: one row per kernel with its
+    design, ms, ns per stream item and GB/s of table-row reads."""
     items = stream.slots.numel()
     c = table.shape[1]
     table16 = table.bfloat16()
+    b = "panel" if stream.sell is not None else "rows"
     cases = [
-        ("B1 kahan", lambda: spmv(stream, table, "kahan"), 4),
-        ("B2 fast f32", lambda: spmv(stream, table, "fast"), 4),
-        ("B2 fast bf16", lambda: spmv(stream, table16, "fast"), 2),
-        ("X1 gather only", lambda: gather_only(stream, table), 4),
-        ("X2 accumulate only", lambda: accumulate_only(stream, buf), 0),
-        ("X3 unroll 8", lambda: unroll8(stream, table), 4),
+        ("B1 kahan", b, lambda: spmv(stream, table, "kahan"), 4),
+        ("B2 fast f32", b, lambda: spmv(stream, table, "fast"), 4),
+        ("B2 fast bf16", b, lambda: spmv(stream, table16, "fast"), 2),
+        ("X1 gather only", design("gather_only", stream), lambda: gather_only(stream, table), 4),
+        ("X2 accumulate only", design("accumulate_only", stream),
+         lambda: accumulate_only(stream, buf), 0),
+        ("X3 unroll", design("unroll8", stream), lambda: unroll8(stream, table), 4),
     ]
     rows = []
-    for name, fn, elem_bytes in cases:
+    for name, used, fn, elem_bytes in cases:
         ms = cuda_ms(fn, runs=RUNS)
-        rows.append(dict(kernel=name, ms=ms, ns_per_item=ms * 1e6 / items,
+        rows.append(dict(kernel=name, design=used, ms=ms, ns_per_item=ms * 1e6 / items,
                          read_gb_per_s=items * c * elem_bytes / (ms * 1e6)))
     return rows
 
@@ -183,8 +209,9 @@ def run(device) -> Dict:
         print(f"{name}: V = C = {v}, {items} stream items, {g.n_edges} CSR slots, "
               f"max degree {g.max_degree}", flush=True)
         for r in rows:
-            print(f"  {r['kernel']:<20} {r['ms']:9.3f} ms {r['ns_per_item']:8.3f} ns/item "
-                  f"{r['read_gb_per_s']:8.1f} GB/s of row reads", flush=True)
+            print(f"  {r['kernel']:<20} {r['design']:<5} {r['ms']:9.3f} ms "
+                  f"{r['ns_per_item']:8.3f} ns/item {r['read_gb_per_s']:8.1f} GB/s of row reads",
+                  flush=True)
     return results
 
 

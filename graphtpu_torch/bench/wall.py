@@ -6,8 +6,9 @@ Times, on the first CUDA card, ``python -m graphtpu_torch simrank --engine
 spmm`` (file in to files out) and one ``exact_simrank_spmm`` call (plan
 built, three iterations, result on the card) on the blog-shaped graph in
 modes kahan, fast and fast16 and on the R-MAT graph in kahan, at 3
-iterations and top-20: one warm-up, then the median and every reading of
-``--runs`` runs.  It uses only entry points that earlier commits of
+iterations and top-20, and the tree branch's call (``impl="tree"``, f32;
+the CLI has no tree option) on both graphs: one warm-up, then the median
+and every reading of ``--runs`` runs.  It uses only entry points that earlier commits of
 graphtpu_torch share, so it runs as a script against whichever package is
 first on ``PYTHONPATH``, for example an earlier commit's tree unpacked by
 ``git archive`` into a git-ignored directory: run parent, change, change,
@@ -40,7 +41,8 @@ from graphtpu_torch.core.config import SimRankConfig
 from graphtpu_torch.io.edgelist import write_edgelist
 from graphtpu_torch.simrank.exact import exact_simrank_spmm
 
-CASES = (("blog", "kahan"), ("blog", "fast"), ("blog", "fast16"), ("rmat", "kahan"))
+CASES = (("blog", "kahan"), ("blog", "fast"), ("blog", "fast16"), ("blog", "tree"),
+         ("rmat", "kahan"), ("rmat", "tree"))
 
 
 def main(argv=None) -> dict:
@@ -72,15 +74,21 @@ def main(argv=None) -> dict:
                 kernel = "kahan" if mode == "kahan" else "fast"
                 dtype = torch.bfloat16 if mode == "fast16" else torch.float32
 
+                tree = mode == "tree"
+
                 def call():
-                    sim = exact_simrank_spmm(g, cfg, spmv_mode=kernel, dtype=dtype, device=dev)
+                    if tree:
+                        sim = exact_simrank_spmm(g, cfg, impl="tree", device=dev)
+                    else:
+                        sim = exact_simrank_spmm(g, cfg, spmv_mode=kernel, dtype=dtype,
+                                                 device=dev)
                     torch.cuda.synchronize()
                     del sim
 
                 cli, spmm_call = [], []
                 for i in range(args.runs + 1):  # the first run warms up
                     t0 = time.perf_counter()
-                    if cli_main(argv_cli) != 0:
+                    if not tree and cli_main(argv_cli) != 0:
                         raise RuntimeError(f"{tag} {mode}: CLI failed")
                     t1 = time.perf_counter()
                     call()
@@ -89,12 +97,15 @@ def main(argv=None) -> dict:
                         cli.append(t1 - t0)
                         spmm_call.append(t2 - t1)
                     torch.cuda.empty_cache()
-                r = dict(graph=tag, mode=mode, cli_wall_s=float(np.median(cli)),
-                         spmm_call_wall_s=float(np.median(spmm_call)), cli_runs=cli,
-                         spmm_call_runs=spmm_call)
+                r = dict(graph=tag, mode=mode,
+                         cli_wall_s=None if tree else float(np.median(cli)),
+                         spmm_call_wall_s=float(np.median(spmm_call)),
+                         cli_runs=None if tree else cli, spmm_call_runs=spmm_call)
                 rows.append(r)
-                print(f"{tag} {mode}: CLI {r['cli_wall_s']:.4f} s {[round(t, 4) for t in cli]}, "
-                      f"spmm call {r['spmm_call_wall_s']:.4f} s "
+                print(f"{tag} {mode}: "
+                      + ("" if tree else
+                         f"CLI {r['cli_wall_s']:.4f} s {[round(t, 4) for t in cli]}, ")
+                      + f"spmm call {r['spmm_call_wall_s']:.4f} s "
                       f"{[round(t, 4) for t in spmm_call]} (host clock)", flush=True)
     res = dict(card=card, package=pkg, cases=rows)
     if args.out:

@@ -1,6 +1,7 @@
 """Build and bind the hand CUDA kernels of ``csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, named by a hash of the sources,
 their shared headers (``csrc/*.cuh``) and the flags, under
 ``kernels/_build/`` (git-ignored); ``ctypes`` loads it.
@@ -22,20 +23,28 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib = None
 
 
 class GtSell(ctypes.Structure):
-    """``struct GtSell`` of ``csrc/spmv.cu``: a sliced layout's device
+    """``struct GtSell`` of ``csrc/panel.cuh``: a sliced layout's device
     pointers and sizes, and the launch's scratch for hub rows."""
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "slots", "lane_row", "lane_cnt", "unit_hub", "ss_chunks", "hub_rows",
         "hub_piece", "row_w", "hub_acc")] + [
         (n, ctypes.c_int64) for n in ("n_chunks", "n_ss", "n_hub", "n_pieces")]
+
+
+class GtGather(ctypes.Structure):
+    """``struct GtGather`` of ``csrc/gather.cu``: a tree level's compact
+    plan (:class:`graphtpu_torch.kernels.spmm.GatherLayout`) on the card."""
+
+    _fields_ = [("chunks", ctypes.c_void_p)] + [
+        (n, ctypes.c_int64) for n in ("n_chunks", "n_table")]
 
 
 build_log = ""  # nvcc's output (ptxas register/spill report) from the last build
@@ -68,25 +77,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgraphtpu_torch_kernels-{h.hexdigest()[:16]}.so"
 
 
+def compile_library(sources, out: str) -> str:
+    """nvcc each of ``sources`` into an object, all at once, then link them
+    into the shared library ``out``; returns the compilers' output (the
+    ptxas register and spill report) or raises with it."""
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
+        objs = [os.path.join(tmp, f"{i}_{Path(src).stem}.o") for i, src in enumerate(sources)]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]  # every process ends before a raise
+        for src, p, log in zip(sources, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}) on {src}:\n{log}")
+        link = [nvcc, "-shared", "-o", out, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+    return "".join(logs)
+
+
 def build() -> Path:
     """Compile the kernels unless a library of the same hash exists."""
     global build_log
     out = library_path()
     if out.exists():
         return out
-    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        build_log = proc.stdout + proc.stderr
+        build_log = compile_library(_sources(), tmp)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -106,12 +129,15 @@ def load() -> ctypes.CDLL:
     lib.gt_spmv_kahan_f32.restype = ctypes.c_int
     lib.gt_spmv_fast.argtypes = [p, p, p, p, sell, p, p, i64, i64, i32, i32, f32, i32, i32, p]
     lib.gt_spmv_fast.restype = ctypes.c_int
-    lib.gt_gather_rows_sum.argtypes = [p, p, p, i64, p, i64, i64, i32, i64, i32, p]
+    lib.gt_gather_rows_sum.argtypes = [p, p, p, i64, i32, p, i64, i64, i32, i64, i32,
+                                       ctypes.POINTER(GtGather), p]
     lib.gt_gather_rows_sum.restype = ctypes.c_int
-    for name in ("gt_rate_gather_only", "gt_rate_accumulate_only", "gt_rate_unroll8"):
+    for name in ("gt_rate_gather_only", "gt_rate_accumulate_only"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i64, i64, p]
         fn.restype = ctypes.c_int
+    lib.gt_rate_unroll8.argtypes = [p, p, sell, p, p, i64, i64, p]
+    lib.gt_rate_unroll8.restype = ctypes.c_int
     lib.gt_error_string.argtypes = [ctypes.c_int]
     lib.gt_error_string.restype = ctypes.c_char_p
     _lib = lib

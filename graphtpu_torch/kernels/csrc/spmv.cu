@@ -31,8 +31,10 @@
 // for B1), and a row's pieces in a fixed order at the end.  The stream is
 // 16-bit slots only (a uniform stream's weight is one value per row), fed
 // in 16 KB chunks by bulk copies (TMA) through a ring of three shared-
-// memory stages, under full and consumed barriers.  Each output row's slab
-// segment is written once, with no atomics: the same bits on every run.
+// memory stages, under full and consumed barriers (csrc/panel.cuh).  Each
+// output row's slab segment is written once, with no atomics: the same bits
+// on every run.  The rate probe's X3 (csrc/spmv_rate.cu) runs this kernel
+// too, unscaled and with 16 items in flight (sell_raw_sums_f32).
 //
 // Row tiles (spmv_rows), for every other stream (seg-2/4, weighted, or V
 // past the panel): one block per (output row, 1,024-column tile), reading
@@ -66,23 +68,7 @@
 #include <type_traits>
 
 #include "cols.cuh"
-
-// The sliced layout of kernels/spmm.py:SellLayout, and the launch's scratch.
-struct GtSell {
-  const uint16_t* slots;     // [n_chunks * kChunk]: table row of each position (pads: 0)
-  const int32_t* lane_row;   // [units * 32]
-  const int32_t* lane_cnt;   // [units * 32]
-  const int32_t* unit_hub;   // [units]
-  const int32_t* ss_chunks;  // [n_ss]: chunks of each super-slice
-  const int32_t* hub_rows;   // [n_hub]
-  const int32_t* hub_piece;  // [n_hub + 1]
-  const float* row_w;        // [V + 1]: the row's folded weight (B1) or scale (B2)
-  float* hub_acc;            // n_pieces > 0: [(KAHAN ? 2 : 1) * n_pieces * C]
-  int64_t n_chunks;
-  int64_t n_ss;
-  int64_t n_hub;
-  int64_t n_pieces;
-};
+#include "panel.cuh"
 
 namespace {
 
@@ -197,87 +183,20 @@ int launch_rows(const int32_t* slots, const float* wts, const float* scales,
   return (int)cudaGetLastError();
 }
 
-constexpr int kWarps = 16;                     // consumer warps (SELL_WARPS)
+using gt::kBarrierBytes;
+using gt::kSlab;
+using gt::kSmemMax;
+using gt::from_f32;
+using gt::mbar_arrive;
+using gt::mbar_wait;
+using gt::unpack;
+
+constexpr int kWarps = gt::kPanelWarps;        // consumer warps (SELL_WARPS)
 constexpr int kJb = 16;                        // positions per lane in a chunk (SELL_JB)
 constexpr int kChunk = kWarps * 32 * kJb;      // positions per chunk (SELL_CHUNK)
 constexpr uint32_t kChunkBytes = kChunk * 2;   // 16 KB of 16-bit slots
 constexpr int kStages = 3;                     // ring stages (SELL_STAGES)
-constexpr int kBlock = (kWarps + 1) * 32;      // + one producer warp
-constexpr int kSmemMax = 232448;               // SMEM_BYTES
-constexpr int kBarrierBytes = 128;             // SELL_BARRIER_BYTES
-constexpr int kSlab = 16;                      // bytes of each table row in the panel
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// bulk copy (TMA) global -> shared, completing `bytes` on the barrier
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// 16-byte copy that bypasses L1
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
-}
-
-// barrier of the consumer warps only (the producer warp runs on)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kWarps * 32) : "memory");
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float x, float& y) { y = x; }
-__device__ __forceinline__ void from_f32(float x, __nv_bfloat16& y) { y = __float2bfloat16_rn(x); }
-
-// 16 bytes of a panel row as SC floats
-template <typename T>
-__device__ __forceinline__ void unpack(uint4 q, float (&x)[kSlab / sizeof(T)]) {
-  T v[kSlab / sizeof(T)];
-  memcpy(v, &q, kSlab);
-#pragma unroll
-  for (int e = 0; e < (int)(kSlab / sizeof(T)); ++e) x[e] = to_f32(v[e]);
-}
+constexpr int kBlock = gt::kPanelBlock;        // + one producer warp
 
 // out[row, col0 : col0 + SC] = x (columns >= c masked)
 template <typename T>
@@ -309,8 +228,8 @@ __device__ __forceinline__ void kahan_merge(float& s, float& cp, float s2, float
 }
 
 // Hub rows of one slab: each row's piece partials in piece order (TwoSum
-// for B1), then B2's row scale; one consumer thread a row.
-template <typename T, bool KAHAN>
+// for B1), then B2's row scale (SCALE); one consumer thread a row.
+template <typename T, bool KAHAN, bool SCALE>
 __device__ void hub_rows_out(const GtSell& L, T* __restrict__ out, int64_t col0, int64_t c,
                              bool vec_here) {
   constexpr int SC = kSlab / sizeof(T);
@@ -335,7 +254,7 @@ __device__ void hub_rows_out(const GtSell& L, T* __restrict__ out, int64_t col0,
         }
       }
     }
-    if (!KAHAN) {
+    if (SCALE) {
       const float scale = __ldg(L.row_w + hrow);
 #pragma unroll
       for (int e = 0; e < SC; ++e) sh[e] = __fmul_rn(sh[e], scale);
@@ -345,18 +264,21 @@ __device__ void hub_rows_out(const GtSell& L, T* __restrict__ out, int64_t col0,
 }
 
 // The column panel over a uniform K == 1 stream: B1 weighs each item by its
-// row's folded weight, B2 sums unweighted and scales the row at the end.
-template <typename T, bool KAHAN, bool PIN>
+// row's folded weight, B2 sums unweighted and scales the row at the end
+// (SCALE), X3 sums unweighted and unscaled.  UNR items' panel rows are read
+// before they are summed.
+template <typename T, bool KAHAN, bool PIN, int UNR, bool SCALE>
 __global__ void __launch_bounds__(kBlock, 1)
 spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int64_t v,
            int64_t c, float table_scale, int vec) {
   constexpr int SC = kSlab / sizeof(T);        // columns of the slab
-  constexpr int UNR = SC >= 8 ? 4 : 8;         // items loaded before summing
+  static_assert(kJb % UNR == 0, "a chunk's j-block splits into whole groups");
+  static_assert(!(KAHAN && SCALE), "B1 folds the row scale into its weights");
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // stage holds a chunk
   uint64_t* consumed = full + kStages;                   // the consumer warps are done
-  uint16_t* ring = reinterpret_cast<uint16_t*>(smem + kBarrierBytes);
+  unsigned char* ring = smem + kBarrierBytes;
   unsigned char* panel = smem + kBarrierBytes + kStages * kChunkBytes;
 
   const int warp = threadIdx.x / 32;
@@ -364,36 +286,20 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
   const int64_t col0 = (int64_t)blockIdx.x * SC;
   const bool vec_here = vec && (col0 + SC <= c);
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&consumed[s], kWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
+  gt::init_ring(full, consumed, kStages);
   if (warp == kWarps) {
     // producer: one thread feeds the ring
-    if (lane == 0) {
-      int s = 0;
-      uint32_t round = 0;
-      for (int64_t ch = 0; ch < L.n_chunks; ++ch) {
-        if (round > 0) mbar_wait(&consumed[s], (round - 1) & 1);
-        mbar_expect_tx(&full[s], kChunkBytes);
-        bulk_copy(ring + s * kChunk, L.slots + ch * kChunk, kChunkBytes, &full[s]);
-        if (++s == kStages) { s = 0; ++round; }
-      }
-    }
+    if (lane == 0)
+      gt::produce<kStages>(ring, reinterpret_cast<const unsigned char*>(L.slots), L.n_chunks,
+                           kChunkBytes, kChunkBytes, full, consumed);
     return;
   }
-
   // the block's slab of every table row into the panel
   for (int r = threadIdx.x; r < v; r += kWarps * 32) {
     const T* src = table + (size_t)r * (size_t)c + col0;
     unsigned char* dst = panel + r * kSlab;
     if (vec_here) {
-      cp_async16(dst, src);
+      gt::cp_async16(dst, src);
     } else if (col0 < c) {
       T tmp[SC];
 #pragma unroll
@@ -404,8 +310,8 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
       memcpy(dst, tmp, kSlab);
     }
   }
-  cp_async_wait_all();
-  consumers_sync();
+  gt::cp_async_wait_all();
+  gt::consumers_sync();
 
   // chunks run super-slice by super-slice, j-block by j-block; this warp's
   // unit of the next super-slice is read one super-slice ahead
@@ -428,7 +334,8 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
       for (int e = 0; e < SC; ++e) sum[e] = comp[e] = 0.f;
     }
     mbar_wait(&full[s], round & 1);
-    const uint16_t* sl = ring + s * kChunk + warp * 32 * kJb;
+    const uint16_t* sl =
+        reinterpret_cast<const uint16_t*>(ring + s * kChunkBytes) + warp * 32 * kJb;
     const int n = cnt - jb * kJb;  // this lane's items in the chunk (if > 0)
 #pragma unroll 1
     for (int g = 0; g < kJb; g += UNR) {
@@ -505,7 +412,7 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
         }
       }
     } else if (row >= 0) {
-      if (!KAHAN) {
+      if (SCALE) {
 #pragma unroll
         for (int e = 0; e < SC; ++e) sum[e] = __fmul_rn(sum[e], rw);
       }
@@ -525,15 +432,17 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
     nx_hub = __ldg(L.unit_hub + nx * kWarps + warp);
     nx_nch = __ldg(L.ss_chunks + nx);
   }
-  consumers_sync();
-  hub_rows_out<T, KAHAN>(L, out, col0, c, vec_here);
+  gt::consumers_sync();
+  hub_rows_out<T, KAHAN, SCALE>(L, out, col0, c, vec_here);
 }
 
-template <typename T, bool KAHAN, bool PIN>
+template <typename T, bool KAHAN, bool PIN, int UNR, bool SCALE>
 int launch_panel(const GtSell& L, const T* table, T* out, int64_t v, int64_t c,
                  float table_scale, cudaStream_t stream) {
   constexpr int SC = kSlab / sizeof(T);
-  auto kernel = spmv_panel<T, KAHAN, PIN>;
+  auto kernel = spmv_panel<T, KAHAN, PIN, UNR, SCALE>;
+  if (L.n_chunks <= 0 || L.n_ss <= 0 || (L.n_pieces > 0 && L.hub_acc == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int64_t smem = kBarrierBytes + kStages * (int64_t)kChunkBytes + v * kSlab;
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   const cudaError_t e =
@@ -548,16 +457,16 @@ int launch_panel(const GtSell& L, const T* table, T* out, int64_t v, int64_t c,
   return (int)cudaGetLastError();
 }
 
-// the pin is a template argument: unpinned products issue none of its work
+// the pin is a template argument: unpinned products issue none of its work;
+// B1 keeps 8 items in flight, B2 8 at f32 and 4 at bf16 (8 columns each)
 template <typename T, bool KAHAN>
 int launch_panel_pin(const GtSell& L, const void* table, void* out, int64_t v, int64_t c,
                      int pin, float table_scale, cudaStream_t stream) {
+  constexpr int UNR = sizeof(T) == 2 ? 4 : 8;
   const T* tb = static_cast<const T*>(table);
   T* ob = static_cast<T*>(out);
-  if (L.n_chunks <= 0 || L.n_ss <= 0 || (L.n_pieces > 0 && L.hub_acc == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (pin) return launch_panel<T, KAHAN, true>(L, tb, ob, v, c, table_scale, stream);
-  return launch_panel<T, KAHAN, false>(L, tb, ob, v, c, table_scale, stream);
+  if (pin) return launch_panel<T, KAHAN, true, UNR, !KAHAN>(L, tb, ob, v, c, table_scale, stream);
+  return launch_panel<T, KAHAN, false, UNR, !KAHAN>(L, tb, ob, v, c, table_scale, stream);
 }
 
 // the panel where the caller passes a layout (uniform seg-1 streams), else row tiles
@@ -575,6 +484,13 @@ int launch(const int32_t* slots, const float* wts, const float* scales,
 }
 
 }  // namespace
+
+// X3 on the panel: B2 with twice its items in flight (16 at f32), no row scale.
+int sell_raw_sums_f32(const GtSell& L, const float* table, float* out, int64_t v, int64_t c,
+                      cudaStream_t stream) {
+  if (v < 0 || c <= 0) return (int)cudaGetLastError();
+  return launch_panel<float, false, false, 16, false>(L, table, out, v, c, 0.f, stream);
+}
 
 extern "C" {
 

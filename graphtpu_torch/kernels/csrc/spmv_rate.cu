@@ -4,13 +4,18 @@
 // Replaces the three Pallas TPU kernels of tools/exp_spmv_rate.py:
 //   X1  _dma_only_kernel     (row reads, no accumulation)    -> gt_rate_gather_only
 //   X2  _vpu_only_kernel     (accumulation, no row reads)    -> gt_rate_accumulate_only
-//   X3  _fast_unroll_kernel  (B2 unrolled 8-wide, raw sums)  -> gt_rate_unroll8
+//   X3  _fast_unroll_kernel  (B2 unrolled, raw sums)         -> gt_rate_unroll8
 //
-// Each walks an item stream exactly as B2 does (csrc/spmv.cu): one block of
-// 256 threads per (output row r, tile of 1,024 columns), 4 columns per
-// thread, r's items taken from row_items[r] .. row_items[r+1], and writes
-// row r of an [n_rows_out, C] f32 output once.  Rows with no items are
-// written as zeros.
+// X1 and X2, and X3 on a stream without a sliced layout, walk the item stream
+// as B2's row tiles do (csrc/spmv.cu): one block of 256 threads per (output
+// row r, tile of 1,024 columns), 4 columns per thread, r's items taken from
+// row_items[r] .. row_items[r+1], and write row r of an [n_rows_out, C] f32
+// output once.  Rows with no items are written as zeros.  X3 on a stream
+// with a sliced layout (a uniform seg-1 stream whose 16-byte slab fits, as
+// B2's) runs B2's column panel itself, a template instance of spmv_panel
+// with 16 items in flight where B2 keeps 8 and no row scale
+// (sell_raw_sums_f32 in spmv.cu); hub rows are summed lane-strided, so its
+// sums differ from the row tiles' in the last bits.
 //
 // The TPU versions leave X1's and X2's outputs undefined, and on this card a
 // load whose value is never used is removed by the compiler, so each
@@ -20,21 +25,24 @@
 //       buf is a resident [16, C] f32 buffer that each thread holds in
 //       registers for its 4 columns: no table reads at all
 //   X3  out[r] = sum over r's items t of table[slots[t]]
-//       raw, unweighted and unscaled, with 8 items' loads in flight
-//       where B2 keeps 4
+//       raw, unweighted and unscaled, with 8 items' loads in flight per
+//       thread in row tiles, where B2 keeps 4, and 16 a lane on the panel
 // Sums are taken in item order with the _rn intrinsics.
 //
 // What bounds them: X1 is B2's row traffic alone (one C-value row read per
 // item at a data-dependent address, no arithmetic on the read path but a
 // max); X2 is B2's per-item control and arithmetic alone (a weight load and
-// one multiply-add per value); X3 is B2's traffic with more loads in flight
-// per thread.  Set beside B1 and B2 on the same stream, their times say
-// whether the product is bound by row reads or by the work per item.
+// one multiply-add per value); X3 is B2's traffic with more loads in flight.
+// Set beside B1 and B2 on the same stream, their times say whether the
+// product is bound by row reads or by the work per item, and X3 on the
+// panel beside B2's panel whether more panel reads in flight move it (bank
+// conflicts bound it if not, latency if so).
 //
 // Every entry point launches on the given stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().
 
 #include "cols.cuh"
+#include "panel.cuh"
 
 namespace {
 
@@ -159,10 +167,13 @@ int gt_rate_accumulate_only(const float* wts, const int64_t* row_items,
   return (int)cudaGetLastError();
 }
 
-// X3: out[r, :] = sum over r's items of table[slots[t], :], 8 loads in flight.
-int gt_rate_unroll8(const int32_t* slots, const int64_t* row_items,
+// X3: out[r, :] = sum over r's items of table[slots[t], :]; on the column
+// panel over `sell` (n_rows_out = V + 1, table [>=V, C] contiguous) when it
+// is not null, else row tiles with 8 loads in flight.
+int gt_rate_unroll8(const int32_t* slots, const int64_t* row_items, const GtSell* sell,
                     const float* table, float* out, int64_t n_rows_out, int64_t c,
                     cudaStream_t stream) {
+  if (sell != nullptr) return sell_raw_sums_f32(*sell, table, out, n_rows_out - 1, c, stream);
   return launch_reads<8, false>(slots, row_items, table, out, n_rows_out, c, stream);
 }
 

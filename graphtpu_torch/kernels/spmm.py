@@ -14,9 +14,11 @@ of two forms:
   a CPU tensor through :func:`spmv_plain`, the plain PyTorch version of
   both;
 * a :class:`ReductionTree`, a padded W-ary gather-reduction tree run by
-  :func:`tree_spmm` one level at a time through :func:`gather_rows_sum` —
-  on a CUDA tensor the hand kernel B3 of ``csrc/gather.cu``, on a CPU
-  tensor :func:`gather_rows_sum_plain`.
+  :func:`tree_spmm` one level at a time — on a CUDA tensor through the
+  hand kernel B3 of ``csrc/gather.cu`` (as the column panel over the
+  level's compact plan, :class:`GatherLayout`, where it fits), on a CPU
+  tensor through :func:`gather_rows_sum_plain`; :func:`gather_rows_sum`
+  runs one level.
 
 Weighted P follows ``weighted/WeightedSimRank.java:68-93`` of the
 reference; a degree-0 row is a zero row (``SimRank.java:69``).
@@ -556,6 +558,29 @@ def spmv(
     return _spmv_cuda(stream, table, mode, table_scale)
 
 
+def sell_launch_args(lay: SellLayout, c: int, kahan: bool, device):
+    """``(byref(GtSell), hub_acc)``: the arguments of a column-panel launch
+    over ``lay`` at ``c`` columns and the scratch of its hub rows (None
+    without hub pieces), to be held until the launch is enqueued.  B1
+    (``kahan``) reads each row's folded weight, B2 and X3 its scale."""
+    from graphtpu_torch.kernels import _build
+
+    hub_acc = None
+    if lay.n_pieces:
+        pairs = 2 if kahan else 1  # (sum, compensation) or sum
+        hub_acc = torch.empty(pairs * lay.n_pieces * c, dtype=torch.float32, device=device)
+    args = _build.GtSell()
+    fields = (lay.slots, lay.lane_row, lay.lane_cnt, lay.unit_hub, lay.ss_chunks,
+              lay.hub_rows, lay.hub_piece, lay.row_wts if kahan else lay.row_scale)
+    for name, f in zip(("slots", "lane_row", "lane_cnt", "unit_hub", "ss_chunks",
+                        "hub_rows", "hub_piece", "row_w"), fields):
+        setattr(args, name, f.data_ptr())
+    args.hub_acc = None if hub_acc is None else hub_acc.data_ptr()
+    args.n_chunks, args.n_ss = lay.n_chunks, lay.ss_chunks.numel()
+    args.n_hub, args.n_pieces = lay.hub_rows.numel(), lay.n_pieces
+    return ctypes.byref(args), hub_acc
+
+
 def _spmv_cuda(stream, table, mode, table_scale):
     from graphtpu_torch.kernels import _build
 
@@ -585,18 +610,7 @@ def _spmv_cuda(stream, table, mode, table_scale):
     if lay is not None:
         if k != 1 or not stream.uniform:
             raise ValueError("a sliced layout needs a uniform seg-1 stream")
-        if lay.n_pieces:
-            pairs = 2 if kahan else 1  # (sum, compensation) or sum
-            hub_acc = torch.empty(pairs * lay.n_pieces * c, dtype=torch.float32,
-                                  device=table.device)
-        args = _build.GtSell()
-        for name, f in zip(("slots", "lane_row", "lane_cnt", "unit_hub", "ss_chunks",
-                            "hub_rows", "hub_piece", "row_w"), fields):
-            setattr(args, name, f.data_ptr())
-        args.hub_acc = None if hub_acc is None else hub_acc.data_ptr()
-        args.n_chunks, args.n_ss = lay.n_chunks, lay.ss_chunks.numel()
-        args.n_hub, args.n_pieces = lay.hub_rows.numel(), lay.n_pieces
-        sell = ctypes.byref(args)
+        sell, hub_acc = sell_launch_args(lay, c, kahan, table.device)
     slots, wts, scales, row_items = (f.data_ptr() for f in items)
     pin = table_scale is not None
     scale = ctypes.c_float(float(table_scale) if pin else 0.0)
@@ -624,6 +638,91 @@ def _spmv_cuda(stream, table, mode, table_scale):
 # ---------------------------------------------------------------------------
 
 
+# The compact level plan of kernel B3's column panel (csrc/gather.cu).  A
+# chunk holds GATHER_CHUNK_ROWS mini-rows, 32 for each of the SELL_WARPS
+# consumer warps, and is what one ring stage holds.
+GATHER_CHUNK_ROWS = SELL_WARPS * 32
+GATHER_MAX_W = 8
+GATHER_STAGES = 3
+
+
+def gather_chunk_bytes(width: int) -> int:
+    """Bytes of one chunk of the compact plan: 16-bit slots, the f32
+    weight and the 8-bit count of each mini-row."""
+    return GATHER_CHUNK_ROWS * (2 * width + 4 + 1)
+
+
+def gather_fits(n_table: int, width: int) -> bool:
+    """Whether B3's column panel takes a level of ``width``-slot mini-rows
+    over ``n_table`` table rows: a 16-byte slab of every row beside the
+    plan's ring of three chunks in one block's shared memory
+    (n_table <= 12,504 at W = 8)."""
+    room = SMEM_BYTES - SELL_BARRIER_BYTES - GATHER_STAGES * gather_chunk_bytes(width)
+    return 1 <= width <= GATHER_MAX_W and 1 <= n_table and n_table * 16 <= room
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherLayout:
+    """One tree level as the compact plan kernel B3's column panel reads.
+
+    ``data`` holds ``n_chunks`` chunks of :func:`gather_chunk_bytes` bytes;
+    chunk k covers mini-rows 512k .. 512k+511, mini-row 512k + 32u + l
+    being lane l of warp u.  In a chunk: int16 slots [16, W, 32] (warp, j,
+    lane), then f32 weights [512] (each mini-row's one weight), then uint8
+    counts [512].  A mini-row's count is one past its last nonzero weight;
+    its slots at j >= count are 0.  ``n_rows``: the level's mini-rows;
+    ``n_table``: one past the largest slot, the table rows the panel
+    holds.  ``host_ms``: host time of the build."""
+
+    data: torch.Tensor  # uint8[n_chunks * chunk_bytes]
+    width: int
+    n_rows: int
+    n_table: int
+    n_chunks: int
+    host_ms: float
+
+    def to(self, device) -> "GatherLayout":
+        return dataclasses.replace(self, data=self.data.to(device))
+
+
+def build_gather_layout(slots: np.ndarray, weights: np.ndarray) -> Optional[GatherLayout]:
+    """The :class:`GatherLayout` of one level ([M, W] int32 slots, f32
+    weights, host arrays), built in numpy and held on the host, or None:
+    where :func:`gather_fits` refuses it, or where a mini-row's weights
+    before its count differ (weighted level 0, which keeps the row tiles).
+    Every unweighted tree level, and every deeper level and the last one's
+    1/Σw, has one weight a mini-row."""
+    t0 = time.perf_counter()
+    slots = np.asarray(slots)
+    weights = np.asarray(weights, np.float32)
+    m, w = slots.shape
+    nz = (weights != 0).view(np.uint8)
+    cnt = np.zeros(m, np.uint8)  # one past the last nonzero weight
+    for j in range(w):
+        np.maximum(cnt, nz[:, j] * np.uint8(j + 1), out=cnt)
+    valid = np.arange(w, dtype=np.uint8)[None, :] < cnt[:, None]
+    sl = np.where(valid, slots, 0)
+    n_table = int(sl.max(initial=0)) + 1
+    if not gather_fits(n_table, w) or not ((weights == weights[:, :1]) | ~valid).all():
+        return None
+    n_ch = max(1, -(-m // GATHER_CHUNK_ROWS))
+    rows = n_ch * GATHER_CHUNK_ROWS
+
+    def chunks(a, dt, transpose):
+        """[rows, ...] padded with zeros, as [n_ch, bytes] of ``dt``."""
+        p = np.zeros((rows,) + a.shape[1:], dt)
+        p[:m] = a
+        if transpose:  # [chunk, warp, lane, j] -> [chunk, warp, j, lane]
+            p = p.reshape(n_ch, SELL_WARPS, 32, w).transpose(0, 1, 3, 2)
+        return np.ascontiguousarray(p).reshape(n_ch, -1).view(np.uint8)
+
+    data = np.concatenate([chunks(sl, np.int16, True), chunks(weights[:, 0], np.float32, False),
+                           chunks(cnt, np.uint8, False)], 1)
+    return GatherLayout(data=torch.from_numpy(data.reshape(-1)), width=w, n_rows=m,
+                        n_table=n_table, n_chunks=n_ch,
+                        host_ms=1e3 * (time.perf_counter() - t0))
+
+
 @dataclasses.dataclass(frozen=True)
 class ReductionTree:
     """Gather plan for P·X over one graph, laid out as graphtpu's.
@@ -634,7 +733,10 @@ class ReductionTree:
     weight at level 0, validity deeper, the 1/Σw row scale folded into the
     last level).  The last level yields ``n_nodes`` rows in node order.
     Every level is padded to a block multiple; ``real_rows[k]`` is the
-    unpadded M_k, and deeper levels index only that prefix.
+    unpadded M_k, and deeper levels index only that prefix.  ``layouts``:
+    on a CUDA device, each level's compact plan (:class:`GatherLayout`)
+    where B3's column panel takes it, else None, built on the host from the
+    same arrays and moved beside these fields; empty elsewhere.
     """
 
     levels: Tuple[torch.Tensor, ...]
@@ -642,31 +744,57 @@ class ReductionTree:
     width: int
     n_nodes: int
     real_rows: Tuple[int, ...]
+    layouts: Tuple[Optional[GatherLayout], ...] = ()
+
+    def layout(self, k: int) -> Optional[GatherLayout]:
+        """Level k's compact plan, or None (the row tiles run it)."""
+        return self.layouts[k] if self.layouts else None
+
+    @property
+    def layout_host_ms(self) -> float:
+        """Host ms of building the compact plans (numpy work only, not the
+        copy to the card)."""
+        return sum(l.host_ms for l in self.layouts if l is not None)
 
     def to(self, device) -> "ReductionTree":
-        return dataclasses.replace(
+        return _with_layouts(dataclasses.replace(
             self,
             levels=tuple(l.to(device) for l in self.levels),
             weights=tuple(w.to(device) for w in self.weights),
-        )
+            layouts=tuple(None if l is None else l.to(device) for l in self.layouts),
+        ), self.levels, self.weights)
+
+
+def _with_layouts(tree: ReductionTree, levels, weights) -> ReductionTree:
+    """``tree`` with each level's compact plan, built from ``levels`` and
+    ``weights`` (host arrays or tensors of the tree's fields), where it
+    lies on a CUDA device and has none; unchanged otherwise."""
+    if tree.layouts or not tree.levels or not tree.levels[0].is_cuda:
+        return tree
+
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+    plans = (build_gather_layout(host(l), host(w)) for l, w in zip(levels, weights))
+    dev = tree.levels[0].device
+    return dataclasses.replace(tree, layouts=tuple(
+        None if p is None else p.to(dev) for p in plans))
 
 
 def tree_from_numpy(
     levels, weights, width, n_nodes, real_rows, device="cpu"
 ) -> ReductionTree:
     """A :class:`ReductionTree` from host arrays (graphtpu's tree fields
-    after ``np.asarray``)."""
-    return ReductionTree(
-        levels=tuple(
-            torch.tensor(np.asarray(l, np.int32), device=device) for l in levels
-        ),
-        weights=tuple(
-            torch.tensor(np.asarray(w, np.float32), device=device) for w in weights
-        ),
+    after ``np.asarray``), with its compact plans on a CUDA device."""
+    levels = [np.asarray(l, np.int32) for l in levels]
+    weights = [np.asarray(w, np.float32) for w in weights]
+    return _with_layouts(ReductionTree(
+        levels=tuple(torch.tensor(l, device=device) for l in levels),
+        weights=tuple(torch.tensor(w, device=device) for w in weights),
         width=int(width),
         n_nodes=int(n_nodes),
         real_rows=tuple(int(r) for r in real_rows),
-    )
+    ), levels, weights)
 
 
 def _pad_rows(a: np.ndarray, mult: int, fill) -> np.ndarray:
@@ -796,9 +924,10 @@ def gather_rows_sum(
     column stride).
 
     A CPU table runs :func:`gather_rows_sum_plain`.  A CUDA table launches
-    kernel B3 on the current stream, or raises; there is no other path.
-    The table may be a column block of a wider tensor (unit column
-    stride).  Slots are not range-checked on the card.
+    kernel B3 on the current stream (its row tiles; the column panel runs
+    only inside :func:`tree_spmm`), or raises; there is no other path.  The
+    table may be a column block of a wider tensor (unit column stride).
+    Slots are not range-checked on the card.
     """
     _check_gather(slots, weights, table, out)
     if table.device.type == "cpu":
@@ -809,28 +938,44 @@ def gather_rows_sum(
     return _gather_cuda(slots, weights, table, out)
 
 
-def _gather_cuda(slots, weights, table, out):
+def _gather_cuda(slots, weights, table, out, layout=None, c=None, table_slabs=False):
+    """Launch B3.  ``table`` is row-major, or, between two levels of
+    :func:`tree_spmm`, f32 slab-major ``[ceil(c/4), R, 4]`` (``table_slabs``).
+    With ``layout``, the level's compact plan, the column panel runs and
+    returns the level slab-major, ``[ceil(c/4), M, 4]`` (``out`` must be
+    None); without it the row tiles write row-major ``out`` (allocated when
+    None)."""
     from graphtpu_torch.kernels import _build
 
     m, w = slots.shape
-    c = table.shape[1]
+    c = table.shape[1] if c is None else c
     if not (slots.is_contiguous() and weights.is_contiguous()):
         raise ValueError("slots and weights must be contiguous")
-    if table.stride(1) != 1 and c > 1:
+    if not table_slabs and table.stride(1) != 1 and c > 1:
         raise ValueError("table must have unit column stride")
-    if out is None:
+    if layout is not None:
+        if out is not None:
+            raise ValueError("the column panel allocates its slab-major output")
+        out = torch.empty((-(-c // 4), m, 4), dtype=torch.float32, device=table.device)
+    elif out is None:
         out = torch.empty((m, c), dtype=torch.float32, device=table.device)
     elif out.stride(1) != 1 and c > 1:
         raise ValueError("out must have unit column stride")
     if m == 0 or c == 0:
         return out
     lib = _build.load()
+    plan = None
+    if layout is not None:
+        plan = ctypes.byref(_build.GtGather(layout.data.data_ptr(), layout.n_chunks,
+                                            layout.n_table))
+    ld = table.shape[1] if table_slabs else table.stride(0)
+    ldo = m if layout is not None else out.stride(0)
     with torch.cuda.device(table.device):
         cu_stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         rc = lib.gt_gather_rows_sum(
-            slots.data_ptr(), weights.data_ptr(), table.data_ptr(),
-            table.stride(0), out.data_ptr(), out.stride(0), m, w, c,
-            int(table.dtype == torch.bfloat16), cu_stream,
+            slots.data_ptr(), weights.data_ptr(), table.data_ptr(), ld, int(table_slabs),
+            out.data_ptr(), ldo, m, w, c,
+            int(table.dtype == torch.bfloat16), plan, cu_stream,
         )
     if rc != 0:
         raise RuntimeError(f"gather kernel launch failed: {_build.error_string(rc)}")
@@ -842,21 +987,39 @@ def tree_spmm(tree: ReductionTree, x: torch.Tensor, col_block: int = 4096) -> to
     """P·x through the reduction tree: [>=V, C] -> [V, C] f32.
 
     Column-blocked at ``min(col_block, C)`` so each level's partials stay
-    [M_k, col_block]; every block runs every level through
-    :func:`gather_rows_sum`, level 0 reading the block of ``x`` in place
-    and the last level writing its first V rows straight into the result.
+    [M_k, col_block]; every block runs every level through kernel B3
+    (:func:`gather_rows_sum` on the CPU), level 0 reading the block of
+    ``x`` in place and the last level writing its first V rows straight
+    into the result.  On the card a level below the last with a compact
+    plan (``tree.layout(k)``) runs B3's column panel and passes the next
+    level its result slab-major (``[ceil(C_blk/4), M_k, 4]``: the panel
+    stores each block's 16-byte slab contiguously, which row-major rows
+    would scatter); the next level reads it so.  Every other level runs
+    the row tiles.  The bits are those of the row tiles alone, which
+    ``dataclasses.replace(tree, layouts=())`` runs.
     """
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be a 2-D float32 or bfloat16 tensor, got {x.dtype}")
+    if tree.levels[0].device != x.device:
+        raise ValueError(f"tree on {tree.levels[0].device}, x on {x.device}")
     v, c = tree.n_nodes, x.shape[1]
     out = torch.empty((v, c), dtype=torch.float32, device=x.device)
     cb = min(col_block, c)
     last = len(tree.levels) - 1
     for lo in range(0, c, max(cb, 1)):
         hi = min(c, lo + cb)
-        cur = x[:, lo:hi]
-        for k in range(last):
-            cur = gather_rows_sum(tree.levels[k], tree.weights[k], cur)
-        gather_rows_sum(tree.levels[last][:v], tree.weights[last][:v], cur,
-                        out=out[:, lo:hi])
+        cur, slabs = x[:, lo:hi], False
+        for k in range(last + 1):
+            sl, w = tree.levels[k], tree.weights[k]
+            dst = out[:, lo:hi] if k == last else None
+            if k == last:
+                sl, w = sl[:v], w[:v]
+            if not x.is_cuda:
+                cur = gather_rows_sum(sl, w, cur, out=dst)
+                continue
+            lay = tree.layout(k) if k < last else None
+            cur = _gather_cuda(sl, w, cur, dst, lay, c=hi - lo, table_slabs=slabs)
+            slabs = lay is not None
     return out
 
 

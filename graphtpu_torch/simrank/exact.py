@@ -151,9 +151,10 @@ def exact_simrank_spmm(
     Runs on ``device`` (default ``cuda``, see :func:`resolve_device`).
     ``stage_times``: a dict to which the ms of the two products
     ("product1", "product2") and the transpose are added; in the tree
-    branch "product2" includes the scale, the pin and the cast.  The stream
-    branch also sets "layout_host", the host ms of the plan's sliced layout
-    (0 where the kernels run row tiles, or on the CPU, and build none).
+    branch "product2" includes the scale, the pin and the cast.  Both
+    branches also set "layout_host", the host ms of the plan's kernel
+    layouts: the stream's sliced layout, or the tree levels' compact plans
+    (0 where the kernels run row tiles only, or on the CPU, and build none).
     """
     if isinstance(g, DiGraph):
         g = g.in_
@@ -197,6 +198,8 @@ def exact_simrank_spmm(
 def _tree_iterate(g, cfg, weighted, dtype, width, col_block, device, clock):
     """The tree branch's loop (graphtpu/simrank/exact.py:429-458)."""
     plan = build_reduction_tree(g, width=width, weighted=weighted, device=device)
+    if clock.times is not None:
+        clock.times["layout_host"] = plan.layout_host_ms
 
     def product2(pst):
         out = tree_spmm(plan, pst, col_block).mul_(cfg.c)

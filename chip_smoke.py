@@ -35,8 +35,10 @@ Phases (any failure raises and the run exits non-zero):
      the dense fp32 engine, per-stage times, the compact plans' host ms and
      peak memory.
   8. rate probe: ``python -m graphtpu_torch.bench.spmv_rate`` on both
-     graphs (ns per item of B1, B2, X1-X3; X3 on B2's panel at blog beside
-     B2), then X1-X3 against their plain versions, each beside one PyTorch
+     graphs (ns per item of B1, B2, X1-X3; X1-X3 on B2's panel at blog,
+     each beside B2, and B2 - X2 as the panel's share), then X1-X3 against
+     their plain versions, at blog also in row tiles (X1's outputs
+     bit-equal, X2's and X3's on lane rows), each beside one PyTorch
      library call at blog (X1 a max embedding_bag, X2 a weighted sum bag,
      X3 a ones-CSR torch.sparse.mm), checked once against the plain version.
 The last two lines are the kernels' JSON summary (with each kernel's bound
@@ -628,9 +630,18 @@ def phase_rate_probe(dev, report):
     say(f"rate probe launches {launches}")
     for tag, res in report["rate_probe"]["graphs"].items():
         by = {r["kernel"]: r for r in res["rows"]}
-        b2, x3 = by["B2 fast f32"], by["X3 unroll"]
-        say(f"{tag}: X3 ({x3['design']}, twice B2's items in flight) {x3['ms']:.3f} ms beside "
-            f"B2 fast f32 ({b2['design']}) {b2['ms']:.3f} ms: X3/B2 {x3['ms'] / b2['ms']:.3f}")
+        b2 = by["B2 fast f32"]
+        for name, what in (("X1 gather only", "B2's reads, a max for the add"),
+                           ("X2 accumulate only", "B2's per-item work, no reads"),
+                           ("X3 unroll", "twice B2's items in flight")):
+            x = by[name]
+            say(f"{tag}: {name.split()[0]} ({x['design']}, {what}) {x['ms']:.3f} ms beside B2 "
+                f"fast f32 ({b2['design']}) {b2['ms']:.3f} ms: "
+                f"{name.split()[0]}/B2 {x['ms'] / b2['ms']:.3f}")
+        if b2["design"] == "panel":
+            share = b2["ms"] - by["X2 accumulate only"]["ms"]
+            say(f"{tag}: B2 - X2 = {share:.3f} ms, the panel's copy-in and reads "
+                f"({share / b2['ms']:.3f} of B2)")
 
     cases = []
     for tag in ("blog", "rmat"):
@@ -639,6 +650,11 @@ def phase_rate_probe(dev, report):
         gen = torch.Generator(device=dev).manual_seed(5)
         table = torch.rand((g.n_nodes, g.n_nodes), generator=gen, device=dev)
         buf = torch.rand((spmv_rate.N_BUF, g.n_nodes), generator=gen, device=dev)
+        rows_st = dataclasses.replace(stream, sell=None)
+        lane = np.arange(g.n_nodes + 1)
+        if stream.sell is not None:
+            lane = np.setdiff1d(lane, stream.sell.hub_rows.cpu().numpy())
+        lane = torch.as_tensor(lane, device=dev)
         for key, label, _ in RATE_KERNELS:
             fn = getattr(spmv_rate, key)
             plain_fn = getattr(spmv_rate, key + "_plain")
@@ -649,6 +665,13 @@ def phase_rate_probe(dev, report):
             plain = plain_fn(stream, arg)
             check(out.shape == (g.n_nodes + 1, g.n_nodes) and bool(torch.isfinite(out).all()),
                   f"{tag} {label}: shape or non-finite output")
+            check(torch.equal(out, fn(stream, arg)), f"{tag} {label}: two launches differ")
+            unequal_rows = None
+            if used == "panel":
+                # the row tiles on the same stream: a max is exact, and the
+                # panel sums a lane row's items in the row tiles' order
+                on = slice(None) if key == "gather_only" else lane
+                unequal_rows = int((out[on] != fn(rows_st, arg)[on]).sum().item())
 
             def within(got):
                 """(ok, max |got - plain|, bound) of an output against the plain
@@ -663,6 +686,9 @@ def phase_rate_probe(dev, report):
 
             ok, err, bound = within(out)
             ms = cuda_ms(lambda: fn(stream, arg))
+            ms_by_design = {used: ms}
+            if used == "panel":
+                ms_by_design["rows"] = cuda_ms(lambda: fn(rows_st, arg))
             plain_ms = cuda_ms(lambda: plain_fn(stream, arg), warmup=1, runs=3)
             lib_ms = lib_err = None
             if tag == "blog":
@@ -674,14 +700,20 @@ def phase_rate_probe(dev, report):
                                   f"(max |lib - plain| {lib_err:.3e}, bound {bound})")
                 del lib
             cases.append(dict(graph=tag, kernel=key, design=used, max_abs_err_plain=err,
-                              bound=bound, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              library_max_abs_err_plain=lib_err, items=stream.n_items,
+                              bound=bound, ms=ms, ms_by_design=ms_by_design, plain_ms=plain_ms,
+                              library_ms=lib_ms, library_max_abs_err_plain=lib_err,
+                              unequal_vs_row_tiles=unequal_rows, items=stream.n_items,
                               v=g.n_nodes))
-            say(f"{tag} {label} ({used}): err vs plain {err:.3e} (bound {bound}); "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+            say(f"{tag} {label} ({used}): err vs plain {err:.3e} (bound {bound}); kernel "
+                + ", ".join(f"{d} {t:.3f} ms" for d, t in ms_by_design.items())
+                + f", plain {plain_ms:.3f} ms"
                 + ("" if lib_ms is None else
-                   f", library call {lib_ms:.3f} ms (err vs plain {lib_err:.3e})"))
+                   f", library call {lib_ms:.3f} ms (err vs plain {lib_err:.3e})")
+                + ("" if unequal_rows is None else
+                   f"; {unequal_rows} elements unequal to the row tiles'"
+                   + (" (all rows)" if key == "gather_only" else " (lane rows)")))
             check(ok, f"{tag} {label}: kernel vs plain version outside {bound}")
+            check(unequal_rows in (None, 0), f"{tag} {label}: the panel and the row tiles differ")
             del out, plain
         del table, buf
         torch.cuda.empty_cache()
@@ -787,9 +819,10 @@ def main(argv=None) -> int:
         mine = [c for c in rate_cases if c["kernel"] == key]
         timed = next(c for c in mine if c["graph"] == "blog")
         work = bounds.rate_work(key, timed["items"], timed["v"], timed["v"], N_BUF)
-        summary.append(entry(label, RATE_SOURCE, replaces, key,
-                             [c["max_abs_err_plain"] for c in mine], timed, work,
-                             timed["library_ms"]))
+        x = entry(label, RATE_SOURCE, replaces, key, [c["max_abs_err_plain"] for c in mine],
+                  timed, work, timed["library_ms"])
+        x.update(design=timed["design"], ms_by_design=timed["ms_by_design"])
+        summary.append(x)
     report["kernels"] = summary
     if args.out:
         with open(args.out, "w") as f:

@@ -3,19 +3,21 @@
     python -m graphtpu_torch.bench.spmv_ab --old-csrc DIR [--out ab.json]
 
 ``DIR`` holds an earlier ``graphtpu_torch/kernels/csrc`` whose ``spmv.cu``
-has the row-tile entry points (``gt_spmv_kahan_f32(slots, wts, row_items,
-table, out, n_rows_out, c, seg_k, pin, scale, stream)`` and
-``gt_spmv_fast(slots, raw_wts, scales, row_items, table, out, n_rows_out, c,
-seg_k, pin, scale, mul, bf16, stream)``), for example a ``git archive`` of an
-earlier commit unpacked into a git-ignored directory.  The script builds it
-with nvcc and, at the shapes the main path gives the kernels (blog-shaped
-V = C = 10,496 and R-MAT V = C = 16,384, seed 0; f32 and bf16 tables, with
-and without the fused pin), and on the blog-shaped graph's other streams
+has today's entry points (``gt_spmv_kahan_f32(slots, wts, row_items, sell,
+table, out, v, c, seg_k, pin, scale, stream)`` and ``gt_spmv_fast(slots,
+raw_wts, scales, row_items, sell, table, out, v, c, seg_k, pin, scale, mul,
+bf16, stream)``, commit 4fb4c8d or later: a ``struct GtSell`` that is a
+prefix of today's), for example a ``git archive`` of an earlier commit
+unpacked into a git-ignored directory.  The script builds it with nvcc
+and, at the shapes the main path gives the kernels (blog-shaped V = C =
+10,496 and R-MAT V = C = 16,384, seed 0; f32 and bf16 tables, with and
+without the fused pin), and on the blog-shaped graph's other streams
 (seg-2 after an RCM relabel, as ``--relabel rcm --seg 2`` runs it, and
-random edge weights), times old, new, new, old with CUDA events (the median
-of 9 launches each) and holds the new output against the old one.  It
-counts the elements that differ on rows the new kernel sums one lane per
-row (expected 0: the same operations in the same order).
+random edge weights), runs both builds in the design the stream gives
+them (the column panel over its sliced layout, or row tiles), times old,
+new, new, old with CUDA events (the median of 9 launches each) and counts
+the elements where the new output differs from the old one (expected 0:
+the same operations in the same order).
 """
 
 from __future__ import annotations
@@ -61,8 +63,8 @@ def build_old(csrc: str, out_dir: str) -> ctypes.CDLL:
     _build.compile_library([os.path.join(csrc, "spmv.cu")], lib)
     old = ctypes.CDLL(lib)
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-    old.gt_spmv_kahan_f32.argtypes = [p, p, p, p, p, i64, i64, i32, i32, f32, p]
-    old.gt_spmv_fast.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32, f32, i32, i32, p]
+    old.gt_spmv_kahan_f32.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32, f32, p]
+    old.gt_spmv_fast.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, f32, i32, i32, p]
     return old
 
 
@@ -72,14 +74,17 @@ def old_spmv(old, stream, table, mode, table_scale):
     pin = table_scale is not None
     scale = ctypes.c_float(float(table_scale) if pin else 0.0)
     cu = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    sell = hub_acc = None  # held until the launch is enqueued
+    if stream.sell is not None:
+        sell, hub_acc = spmm.sell_launch_args(stream.sell, c, mode == "kahan", table.device)
     if mode == "kahan":
         rc = old.gt_spmv_kahan_f32(stream.slots.data_ptr(), stream.wts.data_ptr(),
-                                   stream.row_items.data_ptr(), table.data_ptr(),
-                                   out.data_ptr(), v + 1, c, stream.seg_k, int(pin), scale, cu)
+                                   stream.row_items.data_ptr(), sell, table.data_ptr(),
+                                   out.data_ptr(), v, c, stream.seg_k, int(pin), scale, cu)
     else:
         rc = old.gt_spmv_fast(stream.slots.data_ptr(), stream.raw_wts.data_ptr(),
-                              stream.scales.data_ptr(), stream.row_items.data_ptr(),
-                              table.data_ptr(), out.data_ptr(), v + 1, c, stream.seg_k,
+                              stream.scales.data_ptr(), stream.row_items.data_ptr(), sell,
+                              table.data_ptr(), out.data_ptr(), v, c, stream.seg_k,
                               int(pin), scale, int(not (stream.uniform and stream.seg_k == 1)),
                               int(table.dtype == torch.bfloat16), cu)
     if rc:
@@ -123,10 +128,6 @@ def main(argv=None) -> dict:
             v = stream.n_nodes
             gen = torch.Generator(device=dev).manual_seed(0)
             x = torch.rand((v, v), generator=gen, device=dev)
-            lane = np.arange(v + 1)
-            if stream.sell is not None:
-                lane = np.setdiff1d(lane, stream.sell.hub_rows.cpu().numpy())
-            lane = torch.as_tensor(lane, device=dev)
             for stag, mode, dtype, ts in CASES:
                 if stag != tag:
                     continue
@@ -135,7 +136,7 @@ def main(argv=None) -> dict:
                 old_out = old_spmv(old, stream, table, mode, ts)
                 torch.cuda.synchronize()
                 diff = (new_out.float() - old_out.float()).abs()
-                unequal = int((new_out[lane] != old_out[lane]).sum().item())
+                unequal = int((new_out != old_out).sum().item())
                 t = [cuda_ms(lambda: old_spmv(old, stream, table, mode, ts)),
                      cuda_ms(lambda: spmm.spmv(stream, table, mode, ts)),
                      cuda_ms(lambda: spmm.spmv(stream, table, mode, ts)),
@@ -143,12 +144,12 @@ def main(argv=None) -> dict:
                 r = dict(graph=tag, mode=mode, dtype=str(dtype).split(".")[-1],
                          pin=ts is not None, design=design, old_ms=[t[0], t[3]],
                          new_ms=[t[1], t[2]], max_abs_diff=diff.max().item(),
-                         unequal_lane_rows=unequal)
+                         unequal=unequal)
                 rows.append(r)
                 print(f"{tag} {mode} {r['dtype']} pin={r['pin']} ({design}): old "
                       f"{t[0]:.3f}/{t[3]:.3f} ms, new {t[1]:.3f}/{t[2]:.3f} ms; "
-                      f"max |new-old| {r['max_abs_diff']:.3e}, {unequal} unequal elements "
-                      f"on lane rows", flush=True)
+                      f"max |new-old| {r['max_abs_diff']:.3e}, {unequal} unequal elements",
+                      flush=True)
                 del new_out, old_out, diff, table
             del x
             torch.cuda.empty_cache()

@@ -20,17 +20,21 @@ bf16 tables) and three stripped variants of B2, the hand kernels of
 It prints ns per stream item and the rate of row reads for each, the
 median of 9 timed runs, and the design each kernel ran.  The streams are
 built on the card with their sliced layout where B2's column panel takes
-them (blog; not R-MAT).  B1, B2 and X3 run the design the stream gives
-them: the column panel at blog, where X3 is B2's panel kernel with 16
-items in flight instead of 8 and no row scale, so X3 beside B2 says
-whether more panel reads in flight move the panel; row tiles at R-MAT,
-where X3 keeps 8 items in flight a thread against B2's 4.  X1 and X2
-always take the row tiles apart (row reads alone, per-item work alone),
-so their rates explain the row tiles, not the panel.  Each wrapper runs
-its plain PyTorch version on a CPU tensor and launches its kernel on a
-CUDA tensor, or raises; the probe itself needs a card.  The TPU tool's
-ring-depth and block-size grid and its transpose timings are TPU staging
-and have no counterpart here.
+them (blog; not R-MAT), and every kernel runs the design the stream gives
+it (:func:`design`).  At blog that is B2's column panel: X1 is the panel
+with a max in place of the add (its reads alone), X2 the panel's launch,
+ring and walk with each item's term taken from a buffer in registers (its
+per-item work alone, no panel), X3 the panel with 16 items in flight
+instead of 8 and no row scale; so B2 − X2 is what the panel's copy-in and
+reads cost, X1 against B2 what its arithmetic costs, and X3 beside B2
+whether more reads in flight move it.  At R-MAT they run row tiles, a
+block per (output row, 1,024-column tile): X1 with 4 loads in flight a
+thread, X3 with 8, X2 with its buffer tile in registers.
+``dataclasses.replace(stream, sell=None)`` forces row tiles.  Each
+wrapper runs its plain PyTorch version on a CPU tensor and launches its
+kernel on a CUDA tensor, or raises; the probe itself needs a card.  The
+TPU tool's ring-depth and block-size grid and its transpose timings are
+TPU staging and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -98,9 +102,11 @@ def unroll8_plain(stream: SpmvStream, table: torch.Tensor) -> torch.Tensor:
 
 def design(name: str, stream: SpmvStream) -> str:
     """The design kernel ``name`` (a key of RATE_LAUNCHES) runs on
-    ``stream``: "panel" for X3 over a stream with a sliced layout, else
-    "rows"."""
-    return "panel" if name == "unroll8" and stream.sell is not None else "rows"
+    ``stream``: "panel" over a stream with a sliced layout, as B2 does,
+    else "rows"."""
+    if name not in RATE_LAUNCHES:
+        raise ValueError(f"unknown rate kernel {name!r}")
+    return "panel" if stream.sell is not None else "rows"
 
 
 def _launch(name: str, stream: SpmvStream, first: torch.Tensor, x: torch.Tensor):
@@ -108,7 +114,11 @@ def _launch(name: str, stream: SpmvStream, first: torch.Tensor, x: torch.Tensor)
 
     if not x.is_contiguous():
         raise ValueError("table and buffer must be contiguous")
-    for f in (first, stream.row_items):
+    lay = stream.sell
+    fields = (first, stream.row_items) + (() if lay is None else (
+        lay.slots, lay.lane_row, lay.lane_cnt, lay.lane_base, lay.unit_hub, lay.ss_chunks,
+        lay.hub_rows, lay.hub_piece, lay.row_wts, lay.row_scale))
+    for f in fields:
         if f.device != x.device or not f.is_contiguous():
             raise ValueError("stream tensors must be contiguous on the table's device")
     v, c = stream.n_nodes, x.shape[1]
@@ -117,16 +127,15 @@ def _launch(name: str, stream: SpmvStream, first: torch.Tensor, x: torch.Tensor)
         return out
     lib = _build.load()
     fn = getattr(lib, f"gt_rate_{name}")
-    args = (first.data_ptr(), stream.row_items.data_ptr())
-    hub_acc = None  # the panel's scratch, held until the launch is enqueued
-    if name == "unroll8":
-        sell = None
-        if design(name, stream) == "panel":
-            sell, hub_acc = sell_launch_args(stream.sell, c, False, x.device)
-        args += (sell,)
+    # the panel's layout and scratch, held until the launch is enqueued; X2
+    # weighs each item by its row's folded weight
+    sell = hub_acc = None
+    if design(name, stream) == "panel":
+        sell, hub_acc = sell_launch_args(lay, c, name == "accumulate_only", x.device)
     with torch.cuda.device(x.device):
         cu_stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        rc = fn(*args, x.data_ptr(), out.data_ptr(), v + 1, c, cu_stream)
+        rc = fn(first.data_ptr(), stream.row_items.data_ptr(), sell, x.data_ptr(),
+                out.data_ptr(), v + 1, c, cu_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: {_build.error_string(rc)}")
     RATE_LAUNCHES[name] += 1
@@ -142,13 +151,17 @@ def _dispatch(name, plain, stream, first, x):
 
 
 def gather_only(stream: SpmvStream, table: torch.Tensor) -> torch.Tensor:
-    """X1 over ``stream``: [>=V, C] f32 -> [V+1, C] f32."""
+    """X1 over ``stream``: [>=V, C] f32 -> [V+1, C] f32; on the card, B2's
+    column panel with a max where the stream has a sliced layout, else row
+    tiles."""
     _check(stream, table, stream.n_nodes)
     return _dispatch("gather_only", gather_only_plain, stream, stream.slots, table)
 
 
 def accumulate_only(stream: SpmvStream, buf: torch.Tensor) -> torch.Tensor:
-    """X2 over ``stream``: buf [16, C] f32 -> [V+1, C] f32."""
+    """X2 over ``stream``: buf [16, C] f32 -> [V+1, C] f32; on the card, B2's
+    panel launch reading no panel where the stream has a sliced layout,
+    else row tiles."""
     _check(stream, buf, N_BUF)
     return _dispatch("accumulate_only", accumulate_only_plain, stream, stream.wts, buf)
 

@@ -36,7 +36,8 @@ class GtSell(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "slots", "lane_row", "lane_cnt", "unit_hub", "ss_chunks", "hub_rows",
         "hub_piece", "row_w", "hub_acc")] + [
-        (n, ctypes.c_int64) for n in ("n_chunks", "n_ss", "n_hub", "n_pieces")]
+        (n, ctypes.c_int64) for n in ("n_chunks", "n_ss", "n_hub", "n_pieces")] + [
+        ("lane_base", ctypes.c_void_p)]
 
 
 class GtGather(ctypes.Structure):
@@ -132,12 +133,10 @@ def load() -> ctypes.CDLL:
     lib.gt_gather_rows_sum.argtypes = [p, p, p, i64, i32, p, i64, i64, i32, i64, i32,
                                        ctypes.POINTER(GtGather), p]
     lib.gt_gather_rows_sum.restype = ctypes.c_int
-    for name in ("gt_rate_gather_only", "gt_rate_accumulate_only"):
+    for name in ("gt_rate_gather_only", "gt_rate_accumulate_only", "gt_rate_unroll8"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i64, i64, p]
+        fn.argtypes = [p, p, sell, p, p, i64, i64, p]
         fn.restype = ctypes.c_int
-    lib.gt_rate_unroll8.argtypes = [p, p, sell, p, p, i64, i64, p]
-    lib.gt_rate_unroll8.restype = ctypes.c_int
     lib.gt_error_string.argtypes = [ctypes.c_int]
     lib.gt_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,4 +1,4 @@
-// Machinery shared by the column-panel kernels of csrc/ (B1/B2 and X3 in
+// Machinery shared by the column-panel kernels of csrc/ (B1/B2 and X1-X3 in
 // spmv.cu, B3 in gather.cu): a block of kPanelWarps consumer warps and one
 // producer warp; the producer feeds a ring of shared-memory stages with
 // bulk copies (TMA) under full and consumed barriers (mbarrier), while the
@@ -27,10 +27,21 @@ struct GtSell {
   int64_t n_ss;
   int64_t n_hub;
   int64_t n_pieces;
+  // [units * 32]: the stream index of each lane's first item (X2 only);
+  // fields are appended, so a build that predates one reads the same prefix
+  const int32_t* lane_base;
 };
 
-// X3 on the column panel (spmv.cu): out[V+1, C] f32 = raw, unweighted,
-// unscaled run sums over the stream's sliced layout, 16 items in flight.
+// The rate probe's kernels on the column panel (spmv.cu), each over the
+// stream's sliced layout into out[V+1, C] f32:
+// X1: each row's max over its items' table rows, B2's 8 items in flight.
+int sell_max_f32(const GtSell& L, const float* table, float* out, int64_t v, int64_t c,
+                 cudaStream_t stream);
+// X2: sum over each row's items t of row_w[row] * buf[t mod 16], buf [16, C]
+// f32, in B2's launch shape but reading no panel and no slot.
+int sell_buffer_sums_f32(const GtSell& L, const float* buf, float* out, int64_t v, int64_t c,
+                         cudaStream_t stream);
+// X3: raw, unweighted, unscaled run sums, 16 items in flight.
 int sell_raw_sums_f32(const GtSell& L, const float* table, float* out, int64_t v, int64_t c,
                       cudaStream_t stream);
 

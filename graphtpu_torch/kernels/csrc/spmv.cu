@@ -33,8 +33,11 @@
 // in 16 KB chunks by bulk copies (TMA) through a ring of three shared-
 // memory stages, under full and consumed barriers (csrc/panel.cuh).  Each
 // output row's slab segment is written once, with no atomics: the same bits
-// on every run.  The rate probe's X3 (csrc/spmv_rate.cu) runs this kernel
-// too, unscaled and with 16 items in flight (sell_raw_sums_f32).
+// on every run.  The rate probe (csrc/spmv_rate.cu) runs this kernel too:
+// X1 takes a max in place of the add (sell_max_f32), X2 keeps the launch,
+// ring and walk but reads no panel and no slot, adding each item's row
+// weight times a buffer row instead (sell_buffer_sums_f32), and X3 sums
+// unscaled with 16 items in flight (sell_raw_sums_f32).
 //
 // Row tiles (spmv_rows), for every other stream (seg-2/4, weighted, or V
 // past the panel): one block per (output row, 1,024-column tile), reading
@@ -43,17 +46,20 @@
 // a slab narrower than 16 bytes or several panels (larger V), was
 // measured slower than row tiles on an H100 (PERF.md) and is not built.
 //
-// What bounds the panel on this card: shared-memory wavefronts and
-// instruction issue, not device memory.  At V = C = 10,496 with 658,180
-// items the function needs 0.89 GB of table, output and stream traffic
-// (0.27 ms at 3.35 TB/s), but the blocks read 658,180 x 16 bytes of panel
-// rows per slab: 27.6 GB of shared-memory reads in f32, 0.93 ms at the 128
-// bytes per clock that each of the 132 SMs serves without conflicts.
-// Random rows put about 2.5 lanes of each 8-lane phase of a 16-byte load on
-// one bank group, so conflicts cost ~2.5x that (about 2.3 ms); B1's pinned
-// update issues ~30 instructions per (item, lane) besides.  bf16 slabs
-// carry 8 columns per 16-byte read: half the reads of f32.  The pin is a
-// template argument, so unpinned products issue none of its work.
+// What bounds the panel on this card: its walk and its shared-memory reads,
+// not device memory.  At V = C = 10,496 with 658,180 items the function
+// needs 0.89 GB of table, output and stream traffic (0.27 ms at 3.35 TB/s),
+// but the blocks read 658,180 x 16 bytes of panel rows per slab: 27.6 GB of
+// shared-memory reads in f32, 0.93 ms at the 128 bytes per clock that each
+// of the 132 SMs serves without conflicts (random rows put about 2.5 lanes
+// of each 8-lane phase of a 16-byte load on one bank group).  The rate
+// probe splits B2's unpinned panel on an H100 80GB HBM3 (PERF.md): X2, the
+// same launch, ring, walk and stores with each item's term in registers,
+// takes 1.35 ms of B2's 3.07, so the panel's copy-in and reads take ~1.7;
+// X1, a max in place of each add, takes as long as B2.  B1's pinned update
+// issues ~30 instructions per (item, lane) besides.  bf16 slabs carry 8
+// columns per 16-byte read: half the reads of f32.  The pin is a template
+// argument, so unpinned products issue none of its work.
 //
 // Rounding: every multiply and add in the item body uses the _rn
 // intrinsics, which nvcc never contracts into an FMA, so the Kahan update
@@ -227,9 +233,19 @@ __device__ __forceinline__ void kahan_merge(float& s, float& cp, float s2, float
   s = t;
 }
 
+// What a lane does with each of its items: add the item's panel row (B1,
+// B2, X3), take the max with it (X1), or add its row's weight times row
+// t mod 16 of a [16, C] f32 buffer, t the item's stream index, reading
+// neither the panel nor the slot (X2).  X2's products are the same in
+// every chunk of a row, so a lane forms them once per row: an item then
+// costs B2's unpinned arithmetic alone, a masked add per value.
+enum class Op { kSum, kMax, kBuf };
+constexpr int kBufRows = 16;                   // rows of X2's buffer (N_BUF)
+
 // Hub rows of one slab: each row's piece partials in piece order (TwoSum
-// for B1), then B2's row scale (SCALE); one consumer thread a row.
-template <typename T, bool KAHAN, bool SCALE>
+// for B1, a max for X1), then B2's row scale (SCALE); one consumer thread a
+// row.
+template <typename T, bool KAHAN, bool SCALE, Op OP>
 __device__ void hub_rows_out(const GtSell& L, T* __restrict__ out, int64_t col0, int64_t c,
                              bool vec_here) {
   constexpr int SC = kSlab / sizeof(T);
@@ -250,7 +266,7 @@ __device__ void hub_rows_out(const GtSell& L, T* __restrict__ out, int64_t col0,
         } else if (KAHAN) {
           kahan_merge(sh[e], ch_[e], s2, c2);
         } else {
-          sh[e] = __fadd_rn(sh[e], s2);
+          sh[e] = OP == Op::kMax ? fmaxf(sh[e], s2) : __fadd_rn(sh[e], s2);
         }
       }
     }
@@ -265,15 +281,22 @@ __device__ void hub_rows_out(const GtSell& L, T* __restrict__ out, int64_t col0,
 
 // The column panel over a uniform K == 1 stream: B1 weighs each item by its
 // row's folded weight, B2 sums unweighted and scales the row at the end
-// (SCALE), X3 sums unweighted and unscaled.  UNR items' panel rows are read
-// before they are summed.
-template <typename T, bool KAHAN, bool PIN, int UNR, bool SCALE>
+// (SCALE), X3 sums unweighted and unscaled, X1 takes the max (OP).  UNR
+// items' panel rows are read before they are summed.  X2 (Op::kBuf) reads
+// `table` as its [16, C] buffer and keeps each lane's 16 weighted buffer
+// rows in registers, so that its items touch no memory; UNR is then how
+// many of them run between two checks that a lane of the warp still has
+// one.
+template <typename T, bool KAHAN, bool PIN, int UNR, bool SCALE, Op OP = Op::kSum>
 __global__ void __launch_bounds__(kBlock, 1)
 spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int64_t v,
            int64_t c, float table_scale, int vec) {
   constexpr int SC = kSlab / sizeof(T);        // columns of the slab
   static_assert(kJb % UNR == 0, "a chunk's j-block splits into whole groups");
   static_assert(!(KAHAN && SCALE), "B1 folds the row scale into its weights");
+  static_assert(OP == Op::kSum || !(KAHAN || PIN || SCALE),
+                "X1 and X2 take no Kahan sums, pin or row scale");
+  static_assert(OP != Op::kBuf || sizeof(T) == 4, "X2's buffer is f32");
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // stage holds a chunk
@@ -294,28 +317,35 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
                            kChunkBytes, kChunkBytes, full, consumed);
     return;
   }
-  // the block's slab of every table row into the panel
-  for (int r = threadIdx.x; r < v; r += kWarps * 32) {
-    const T* src = table + (size_t)r * (size_t)c + col0;
-    unsigned char* dst = panel + r * kSlab;
-    if (vec_here) {
-      gt::cp_async16(dst, src);
-    } else if (col0 < c) {
-      T tmp[SC];
+  if constexpr (OP != Op::kBuf) {
+    // the block's slab of every table row into the panel
+    for (int r = threadIdx.x; r < v; r += kWarps * 32) {
+      const T* src = table + (size_t)r * (size_t)c + col0;
+      unsigned char* dst = panel + r * kSlab;
+      if (vec_here) {
+        gt::cp_async16(dst, src);
+      } else if (col0 < c) {
+        T tmp[SC];
 #pragma unroll
-      for (int e = 0; e < SC; ++e) {
-        if (col0 + e < c) tmp[e] = src[e];
-        else from_f32(0.f, tmp[e]);
+        for (int e = 0; e < SC; ++e) {
+          if (col0 + e < c) tmp[e] = src[e];
+          else from_f32(0.f, tmp[e]);
+        }
+        memcpy(dst, tmp, kSlab);
       }
-      memcpy(dst, tmp, kSlab);
     }
+    gt::cp_async_wait_all();
   }
-  gt::cp_async_wait_all();
   gt::consumers_sync();
 
   // chunks run super-slice by super-slice, j-block by j-block; this warp's
   // unit of the next super-slice is read one super-slice ahead
   float sum[SC], comp[SC];
+  // X2: lane l holds buffer row l mod 16 (read once), and p[jj] the term of
+  // item jj in every chunk of the lane's row
+  float mine[SC], p[OP == Op::kBuf ? kJb : 1][SC];
+  if constexpr (OP == Op::kBuf)
+    gt::load_cols(table + (size_t)(lane % kBufRows) * (size_t)c, col0, c, vec_here, mine);
   int ss = 0, jb = 0, nch = __ldg(L.ss_chunks);
   int row = __ldg(L.lane_row + warp * 32 + lane);
   int cnt = __ldg(L.lane_cnt + warp * 32 + lane);
@@ -331,48 +361,78 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
   for (int64_t ch = 0; ch < L.n_chunks; ++ch) {
     if (jb == 0) {
 #pragma unroll
-      for (int e = 0; e < SC; ++e) sum[e] = comp[e] = 0.f;
-    }
-    mbar_wait(&full[s], round & 1);
-    const uint16_t* sl =
-        reinterpret_cast<const uint16_t*>(ring + s * kChunkBytes) + warp * 32 * kJb;
-    const int n = cnt - jb * kJb;  // this lane's items in the chunk (if > 0)
-#pragma unroll 1
-    for (int g = 0; g < kJb; g += UNR) {
-      if (!__any_sync(0xffffffffu, g < n)) break;
-      // every position of the chunk holds a slot (pads: 0), so the loads
-      // need no branch; pads are masked out of the sums
-      int slot[UNR];
-      float x[UNR][SC];
+      for (int e = 0; e < SC; ++e) {
+        sum[e] = OP == Op::kMax ? -__int_as_float(0x7f800000) : 0.f;  // -inf for a max
+        comp[e] = 0.f;
+      }
+      if constexpr (OP == Op::kBuf) {
+        // item jj of this lane's j-block b is stream item base + step * (b *
+        // kJb + jj), and kJb = kBufRows, so its buffer row depends on jj
+        // alone; it comes from the lane that holds it (a load per lane
+        // would touch 16 lines a warp)
+        const int base = __ldg(L.lane_base + (ss * kWarps + warp) * 32 + lane);
+        const int step = hub >= 0 ? 32 : 1;
 #pragma unroll
-      for (int q = 0; q < UNR; ++q) slot[q] = sl[(g + q) * 32 + lane];
-#pragma unroll
-      for (int q = 0; q < UNR; ++q)
-        unpack<T>(*reinterpret_cast<const uint4*>(panel + slot[q] * kSlab), x[q]);
-#pragma unroll
-      for (int q = 0; q < UNR; ++q) {
-        const bool ok = g + q < n;
-        float val[SC];
-#pragma unroll
-        for (int e = 0; e < SC; ++e) val[e] = PIN ? __fmul_rn(table_scale, x[q][e]) : x[q][e];
-        // the pin's column lies in this slab for few items
-        const int diag = slot[q] - (int)col0;
-        if (PIN && (unsigned)diag < (unsigned)SC) {
+        for (int jj = 0; jj < kJb; ++jj) {
 #pragma unroll
           for (int e = 0; e < SC; ++e)
-            if (e == diag) val[e] = 1.f;
+            p[jj][e] = __fmul_rn(
+                rw, __shfl_sync(0xffffffffu, mine[e], (base + step * jj) % kBufRows));
         }
+      }
+    }
+    mbar_wait(&full[s], round & 1);
+    const int n = cnt - jb * kJb;  // this lane's items in the chunk (if > 0)
+    if constexpr (OP == Op::kBuf) {
 #pragma unroll
-        for (int e = 0; e < SC; ++e) {
-          if (KAHAN) {
-            // keeps long power-law rows at ~eps instead of O(d) eps
-            const float y = __fsub_rn(__fmul_rn(val[e], rw), comp[e]);
-            const float t = __fadd_rn(sum[e], y);
-            const float cn = __fsub_rn(__fsub_rn(t, sum[e]), y);
-            sum[e] = ok ? t : sum[e];
-            comp[e] = ok ? cn : comp[e];
-          } else {
-            sum[e] = ok ? __fadd_rn(sum[e], val[e]) : sum[e];
+      for (int jj = 0; jj < kJb; ++jj) {
+        if (jj % UNR == 0 && !__any_sync(0xffffffffu, jj < n)) break;
+        const bool ok = jj < n;
+#pragma unroll
+        for (int e = 0; e < SC; ++e) sum[e] = ok ? __fadd_rn(sum[e], p[jj][e]) : sum[e];
+      }
+    } else {
+      const uint16_t* sl =
+          reinterpret_cast<const uint16_t*>(ring + s * kChunkBytes) + warp * 32 * kJb;
+#pragma unroll 1
+      for (int g = 0; g < kJb; g += UNR) {
+        if (!__any_sync(0xffffffffu, g < n)) break;
+        // every position of the chunk holds a slot (pads: 0), so the loads
+        // need no branch; pads are masked out of the sums
+        int slot[UNR];
+        float x[UNR][SC];
+#pragma unroll
+        for (int q = 0; q < UNR; ++q) slot[q] = sl[(g + q) * 32 + lane];
+#pragma unroll
+        for (int q = 0; q < UNR; ++q)
+          unpack<T>(*reinterpret_cast<const uint4*>(panel + slot[q] * kSlab), x[q]);
+#pragma unroll
+        for (int q = 0; q < UNR; ++q) {
+          const bool ok = g + q < n;
+          float val[SC];
+#pragma unroll
+          for (int e = 0; e < SC; ++e) val[e] = PIN ? __fmul_rn(table_scale, x[q][e]) : x[q][e];
+          // the pin's column lies in this slab for few items
+          const int diag = slot[q] - (int)col0;
+          if (PIN && (unsigned)diag < (unsigned)SC) {
+#pragma unroll
+            for (int e = 0; e < SC; ++e)
+              if (e == diag) val[e] = 1.f;
+          }
+#pragma unroll
+          for (int e = 0; e < SC; ++e) {
+            if (KAHAN) {
+              // keeps long power-law rows at ~eps instead of O(d) eps
+              const float y = __fsub_rn(__fmul_rn(val[e], rw), comp[e]);
+              const float t = __fadd_rn(sum[e], y);
+              const float cn = __fsub_rn(__fsub_rn(t, sum[e]), y);
+              sum[e] = ok ? t : sum[e];
+              comp[e] = ok ? cn : comp[e];
+            } else if (OP == Op::kMax) {
+              sum[e] = ok ? fmaxf(sum[e], val[e]) : sum[e];
+            } else {
+              sum[e] = ok ? __fadd_rn(sum[e], val[e]) : sum[e];
+            }
           }
         }
       }
@@ -396,7 +456,7 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
             const float c2 = __shfl_down_sync(0xffffffffu, comp[e], off);
             if (lane < off) kahan_merge(sum[e], comp[e], s2, c2);
           } else if (lane < off) {
-            sum[e] = __fadd_rn(sum[e], s2);
+            sum[e] = OP == Op::kMax ? fmaxf(sum[e], s2) : __fadd_rn(sum[e], s2);
           }
         }
       }
@@ -416,6 +476,11 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
 #pragma unroll
         for (int e = 0; e < SC; ++e) sum[e] = __fmul_rn(sum[e], rw);
       }
+      if (OP == Op::kMax && cnt == 0) {
+        // a row with no items is 0, as the row tiles write it
+#pragma unroll
+        for (int e = 0; e < SC; ++e) sum[e] = 0.f;
+      }
       if (col0 < c) store_slab<T>(out + (size_t)row * (size_t)c + col0, col0, c, vec_here, sum);
     }
     // on to the next super-slice
@@ -433,14 +498,14 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
     nx_nch = __ldg(L.ss_chunks + nx);
   }
   gt::consumers_sync();
-  hub_rows_out<T, KAHAN, SCALE>(L, out, col0, c, vec_here);
+  hub_rows_out<T, KAHAN, SCALE, OP>(L, out, col0, c, vec_here);
 }
 
-template <typename T, bool KAHAN, bool PIN, int UNR, bool SCALE>
+template <typename T, bool KAHAN, bool PIN, int UNR, bool SCALE, Op OP = Op::kSum>
 int launch_panel(const GtSell& L, const T* table, T* out, int64_t v, int64_t c,
                  float table_scale, cudaStream_t stream) {
   constexpr int SC = kSlab / sizeof(T);
-  auto kernel = spmv_panel<T, KAHAN, PIN, UNR, SCALE>;
+  auto kernel = spmv_panel<T, KAHAN, PIN, UNR, SCALE, OP>;
   if (L.n_chunks <= 0 || L.n_ss <= 0 || (L.n_pieces > 0 && L.hub_acc == nullptr))
     return (int)cudaErrorInvalidValue;
   const int64_t smem = kBarrierBytes + kStages * (int64_t)kChunkBytes + v * kSlab;
@@ -484,6 +549,22 @@ int launch(const int32_t* slots, const float* wts, const float* scales,
 }
 
 }  // namespace
+
+// X1 on the panel: B2's reads, walk and 8 items in flight, a max for the add.
+int sell_max_f32(const GtSell& L, const float* table, float* out, int64_t v, int64_t c,
+                 cudaStream_t stream) {
+  if (v < 0 || c <= 0) return (int)cudaGetLastError();
+  return launch_panel<float, false, false, 8, false, Op::kMax>(L, table, out, v, c, 0.f, stream);
+}
+
+// X2 on the panel: B2's launch shape, shared memory, ring and walk; each item
+// adds row_w[row] * buf[t mod 16] from registers.
+int sell_buffer_sums_f32(const GtSell& L, const float* buf, float* out, int64_t v, int64_t c,
+                         cudaStream_t stream) {
+  if (v < 0 || c <= 0) return (int)cudaGetLastError();
+  if (L.lane_base == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_panel<float, false, false, 4, false, Op::kBuf>(L, buf, out, v, c, 0.f, stream);
+}
 
 // X3 on the panel: B2 with twice its items in flight (16 at f32), no row scale.
 int sell_raw_sums_f32(const GtSell& L, const float* table, float* out, int64_t v, int64_t c,

@@ -6,37 +6,45 @@
 //   X2  _vpu_only_kernel     (accumulation, no row reads)    -> gt_rate_accumulate_only
 //   X3  _fast_unroll_kernel  (B2 unrolled, raw sums)         -> gt_rate_unroll8
 //
-// X1 and X2, and X3 on a stream without a sliced layout, walk the item stream
-// as B2's row tiles do (csrc/spmv.cu): one block of 256 threads per (output
-// row r, tile of 1,024 columns), 4 columns per thread, r's items taken from
-// row_items[r] .. row_items[r+1], and write row r of an [n_rows_out, C] f32
-// output once.  Rows with no items are written as zeros.  X3 on a stream
-// with a sliced layout (a uniform seg-1 stream whose 16-byte slab fits, as
-// B2's) runs B2's column panel itself, a template instance of spmv_panel
-// with 16 items in flight where B2 keeps 8 and no row scale
-// (sell_raw_sums_f32 in spmv.cu); hub rows are summed lane-strided, so its
-// sums differ from the row tiles' in the last bits.
+// Each variant runs the design B2 runs on the same stream.  On a stream with
+// a sliced layout (a uniform seg-1 stream whose 16-byte slab fits, as B2's;
+// e.g. blog) that is B2's column panel (spmv_panel in spmv.cu): a block per
+// 16-byte column slab, the V table rows' slabs in shared memory, the stream's
+// 16-bit slots fed through the TMA ring and walked in SELL-32-sigma order.
+//   X1 is B2's panel with the arithmetic taken out: B2's reads and its 8
+//      items in flight, a max in place of the add, no weight or scale
+//      (sell_max_f32);
+//   X2 is B2's panel with the panel taken out: the same launch, shared
+//      memory, ring and walk, but each item adds row_w[row] * buf[t mod 16],
+//      formed once per row in registers, and reads neither the panel nor
+//      its slot (sell_buffer_sums_f32);
+//   X3 is B2's panel with 16 items in flight and no row scale
+//      (sell_raw_sums_f32).
+// Hub rows are combined lane-strided there, so X2's and X3's hub-row sums
+// differ from the row tiles' in the last bits (X1's max is exact).
+// Elsewhere (e.g. R-MAT) they run row tiles: one block of 256 threads per
+// (output row r, tile of 1,024 columns), 4 columns per thread, r's items
+// taken from row_items[r] .. row_items[r+1].  Rows with no items are
+// written as zeros.
 //
 // The TPU versions leave X1's and X2's outputs undefined, and on this card a
 // load whose value is never used is removed by the compiler, so each
 // variant here has an output that keeps all of its work live:
 //   X1  out[r] = max over r's items t of table[slots[t]]          (exact)
 //   X2  out[r] = sum over r's items t of wts[t] * buf[t mod 16]
-//       buf is a resident [16, C] f32 buffer that each thread holds in
-//       registers for its 4 columns: no table reads at all
+//       buf is a resident [16, C] buffer held in registers; no table reads
+//       (on the panel wts[t] is the row's folded weight row_w[r], the same
+//       value in a uniform stream)
 //   X3  out[r] = sum over r's items t of table[slots[t]]
 //       raw, unweighted and unscaled, with 8 items' loads in flight per
 //       thread in row tiles, where B2 keeps 4, and 16 a lane on the panel
 // Sums are taken in item order with the _rn intrinsics.
 //
-// What bounds them: X1 is B2's row traffic alone (one C-value row read per
-// item at a data-dependent address, no arithmetic on the read path but a
-// max); X2 is B2's per-item control and arithmetic alone (a weight load and
-// one multiply-add per value); X3 is B2's traffic with more loads in flight.
-// Set beside B1 and B2 on the same stream, their times say whether the
-// product is bound by row reads or by the work per item, and X3 on the
-// panel beside B2's panel whether more panel reads in flight move it (bank
-// conflicts bound it if not, latency if so).
+// What they measure: set beside B2 on the same stream, X1 is B2's reads (the
+// panel's copy-in and its shared-memory reads, or the row tiles' L2 reads)
+// with a max per value, X2 is B2's per-item control and arithmetic with no
+// reads, and X3 says whether more reads in flight move B2 (bank conflicts
+// or L2 request rate bound it if not, latency if so).
 //
 // Every entry point launches on the given stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().
@@ -147,17 +155,23 @@ int launch_reads(const int32_t* slots, const int64_t* row_items, const float* ta
 
 extern "C" {
 
-// X1: out[r, :] = max over r's items of table[slots[t], :]; table [>=V, C] f32.
-int gt_rate_gather_only(const int32_t* slots, const int64_t* row_items,
-                        const float* table, float* out, int64_t n_rows_out,
-                        int64_t c, cudaStream_t stream) {
+// X1: out[r, :] = max over r's items of table[slots[t], :]; on the column
+// panel over `sell` (n_rows_out = V + 1, table [>=V, C] contiguous) when it
+// is not null, else row tiles with 4 loads in flight.
+int gt_rate_gather_only(const int32_t* slots, const int64_t* row_items, const GtSell* sell,
+                        const float* table, float* out, int64_t n_rows_out, int64_t c,
+                        cudaStream_t stream) {
+  if (sell != nullptr) return sell_max_f32(*sell, table, out, n_rows_out - 1, c, stream);
   return launch_reads<4, true>(slots, row_items, table, out, n_rows_out, c, stream);
 }
 
-// X2: out[r, :] = sum over r's items of wts[t] * buf[t mod 16, :]; buf [16, C] f32.
-int gt_rate_accumulate_only(const float* wts, const int64_t* row_items,
-                            const float* buf, float* out, int64_t n_rows_out,
-                            int64_t c, cudaStream_t stream) {
+// X2: out[r, :] = sum over r's items of wts[t] * buf[t mod 16, :]; buf [16, C]
+// f32.  On the column panel over `sell` (its row_w the rows' folded weights,
+// its lane_base set) when it is not null, else row tiles.
+int gt_rate_accumulate_only(const float* wts, const int64_t* row_items, const GtSell* sell,
+                            const float* buf, float* out, int64_t n_rows_out, int64_t c,
+                            cudaStream_t stream) {
+  if (sell != nullptr) return sell_buffer_sums_f32(*sell, buf, out, n_rows_out - 1, c, stream);
   if (n_rows_out <= 0 || c <= 0) return (int)cudaGetLastError();
   int64_t tiles;
   if (int rc = check_shape(n_rows_out, c, &tiles)) return rc;

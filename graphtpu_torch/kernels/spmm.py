@@ -91,7 +91,10 @@ class SellLayout:
 
     ``item[p]`` is the stream item at position p (-1 for a pad) and
     ``slots[p]`` its slot (pads: 0).  ``lane_row``/``lane_cnt`` give each
-    lane its output row (-1 none) and item count; ``unit_hub[u]`` is a hub
+    lane its output row (-1 none) and item count, ``lane_base`` the stream
+    index of its first item (0 for a lane with none): item j of a lane is
+    ``lane_base + j`` (lane rows) or ``lane_base + 32·j`` (hub pieces).
+    ``unit_hub[u]`` is a hub
     unit's piece index, -1 for lane rows.  Hub row ``hub_rows[h]`` sums
     pieces ``hub_piece[h] .. hub_piece[h+1]`` in that order.
     ``row_wts[r]`` and ``row_scale[r]`` are row r's first folded weight
@@ -104,6 +107,7 @@ class SellLayout:
     item: torch.Tensor       # int32[NC * SELL_CHUNK]
     lane_row: torch.Tensor   # int32[NU * 32]
     lane_cnt: torch.Tensor   # int32[NU * 32]
+    lane_base: torch.Tensor  # int32[NU * 32]
     unit_hub: torch.Tensor   # int32[NU]
     ss_chunks: torch.Tensor  # int32[NSS]
     hub_rows: torch.Tensor   # int32[NH]
@@ -201,6 +205,7 @@ def build_sell_layout(stream: "SpmvStream", hub=SELL_HUB, sigma=SELL_SIGMA) -> S
         item=item.to(torch.int32),
         lane_row=d(u_row.reshape(-1), torch.int32),
         lane_cnt=d(u_cnt.reshape(-1), torch.int32),
+        lane_base=d(np.where(u_cnt > 0, u_base, 0).reshape(-1), torch.int32),
         unit_hub=d(u_hub, torch.int32),
         ss_chunks=d(ss_chunks, torch.int32),
         hub_rows=d(hub_ids, torch.int32),
@@ -561,8 +566,8 @@ def spmv(
 def sell_launch_args(lay: SellLayout, c: int, kahan: bool, device):
     """``(byref(GtSell), hub_acc)``: the arguments of a column-panel launch
     over ``lay`` at ``c`` columns and the scratch of its hub rows (None
-    without hub pieces), to be held until the launch is enqueued.  B1
-    (``kahan``) reads each row's folded weight, B2 and X3 its scale."""
+    without hub pieces), to be held until the launch is enqueued.  B1 and
+    X2 (``kahan``) read each row's folded weight, B2 and X3 its scale."""
     from graphtpu_torch.kernels import _build
 
     hub_acc = None
@@ -570,10 +575,11 @@ def sell_launch_args(lay: SellLayout, c: int, kahan: bool, device):
         pairs = 2 if kahan else 1  # (sum, compensation) or sum
         hub_acc = torch.empty(pairs * lay.n_pieces * c, dtype=torch.float32, device=device)
     args = _build.GtSell()
-    fields = (lay.slots, lay.lane_row, lay.lane_cnt, lay.unit_hub, lay.ss_chunks,
-              lay.hub_rows, lay.hub_piece, lay.row_wts if kahan else lay.row_scale)
-    for name, f in zip(("slots", "lane_row", "lane_cnt", "unit_hub", "ss_chunks",
-                        "hub_rows", "hub_piece", "row_w"), fields):
+    fields = (lay.slots, lay.lane_row, lay.lane_cnt, lay.lane_base, lay.unit_hub,
+              lay.ss_chunks, lay.hub_rows, lay.hub_piece,
+              lay.row_wts if kahan else lay.row_scale)
+    for name, f in zip(("slots", "lane_row", "lane_cnt", "lane_base", "unit_hub",
+                        "ss_chunks", "hub_rows", "hub_piece", "row_w"), fields):
         setattr(args, name, f.data_ptr())
     args.hub_acc = None if hub_acc is None else hub_acc.data_ptr()
     args.n_chunks, args.n_ss = lay.n_chunks, lay.ss_chunks.numel()

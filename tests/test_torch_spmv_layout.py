@@ -1,9 +1,11 @@
 """The sliced (SELL-32-σ) layout kernels B1/B2 walk, on the CPU: built from
 random item streams, it must hold every stream item exactly once in the
 order each lane walks, give every output row one lane (or, for hub rows, a
-warp), and sum to the float64 oracle."""
+warp), name each lane's first item, and sum to the float64 oracle."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -12,7 +14,8 @@ from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 import graphtpu_torch as gt
-from graphtpu_torch.kernels import spmm
+from graphtpu_torch.bench import generators
+from graphtpu_torch.kernels import _build, spmm
 
 torch.set_num_threads(1)
 
@@ -94,6 +97,7 @@ def test_layout_holds_the_stream(case):
     sel = real & lane_units
     assert np.array_equal(item[sel], row_items[pos_row[sel]] + j[sel])
     assert np.array_equal(pos_row[real], np.searchsorted(row_items, item[real], "right") - 1)
+    _assert_lane_base(lay)
 
     # lane counts and the row permutation: every row once, hub rows apart
     hubs = lay.hub_rows.numpy()
@@ -122,6 +126,59 @@ def test_layout_holds_the_stream(case):
     np.add.at(den, pos_row[ok], 1.0)
     got = np.where(den[:v, None] > 0, num[:v] / np.maximum(den[:v, None], 1e-300), 0.0)
     np.testing.assert_allclose(got, spmm.spmm_oracle(g, x), rtol=0, atol=1e-12)
+
+
+def _assert_lane_base(lay):
+    """Item j of a lane is lane_base + j (lane rows) or lane_base + 32·j
+    (hub pieces) at every non-pad position; lanes with no item have 0."""
+    unit, lane, j = _positions(lay)
+    item = lay.item.numpy()
+    base = lay.lane_base.numpy().reshape(-1, 32)
+    step = np.where(lay.unit_hub.numpy() >= 0, 32, 1)
+    real = item >= 0
+    assert np.array_equal(item[real], (base[unit, lane] + step[unit] * j)[real])
+    assert not base[lay.lane_cnt.numpy().reshape(-1, 32) == 0].any()
+
+
+def _star_plus_random(hub_degree=3 * 32 * spmm.SELL_HUB + 100, v=13_000):
+    """Random edges and one row of ``hub_degree`` > 32·SELL_HUB items, so
+    that it is cut into several hub pieces."""
+    rng = np.random.default_rng(7)
+    edges = rng.integers(1, v, size=(20_000, 2))
+    hub = np.stack([np.zeros(hub_degree, np.int64), 1 + rng.permutation(v - 1)[:hub_degree]], 1)
+    return gt.build_graph(np.concatenate([edges[edges[:, 0] != edges[:, 1]], hub]), n_nodes=v)
+
+
+@pytest.mark.parametrize("graph", ["blog", "multi_piece_hub"])
+def test_lane_base_gives_each_lanes_items(graph):
+    g = generators.blog_shaped_graph() if graph == "blog" else _star_plus_random()
+    lay = spmm.build_sell_layout(spmm.build_spmv_stream(g))
+    assert lay.lane_base.dtype == torch.int32
+    assert lay.lane_base.shape == lay.lane_row.shape
+    if graph == "multi_piece_hub":
+        assert lay.hub_piece[1].item() - lay.hub_piece[0].item() == 4
+    _assert_lane_base(lay)
+
+
+def test_launch_args_follow_the_kernels_struct():
+    """The ctypes mirror of ``struct GtSell`` names the header's fields in its
+    order, and ``sell_launch_args`` points each at the layout's tensor (B1
+    and X2 read the rows' folded weights, B2, X1 and X3 their scales)."""
+    header = (Path(spmm.__file__).parent / "csrc" / "panel.cuh").read_text()
+    body = header[header.index("struct GtSell {"):header.index("};", header.index("struct GtSell {"))]
+    names = re.findall(r"^\s+(?:const )?\w+\*? (\w+);", body, re.M)
+    assert names == [f for f, _ in _build.GtSell._fields_]
+    g = _graph(3, 60, 300, 8, False)
+    lay = spmm.build_sell_layout(_stream(g), 6, 16)
+    for kahan, w in ((True, lay.row_wts), (False, lay.row_scale)):
+        ref, hub_acc = spmm.sell_launch_args(lay, 5, kahan, "cpu")
+        args = ref._obj
+        for name in ("slots", "lane_row", "lane_cnt", "lane_base", "unit_hub", "ss_chunks",
+                     "hub_rows", "hub_piece"):
+            assert getattr(args, name) == getattr(lay, name).data_ptr()
+        assert args.row_w == w.data_ptr() and args.hub_acc == hub_acc.data_ptr()
+        assert hub_acc.numel() == (2 if kahan else 1) * lay.n_pieces * 5
+        assert (args.n_chunks, args.n_pieces) == (lay.n_chunks, lay.n_pieces)
 
 
 def test_compact_only_for_unweighted_single_rows():

@@ -3,6 +3,7 @@ X1-X3 against graphtpu's X3 (tools/exp_spmv_rate.py, interpret mode) and
 numpy forms of X1's and X2's stated outputs, the wrappers' dispatch rules
 and the probe's arguments."""
 
+import dataclasses
 import importlib.util
 import os
 
@@ -123,6 +124,18 @@ def test_wrappers_run_plain_on_cpu_without_counting_and_check_inputs():
         spmv_rate.unroll8(seg, x)
     with pytest.raises(RuntimeError, match="no unroll8 kernel"):
         spmv_rate.unroll8(ts, x.to("meta"))
+
+
+@pytest.mark.parametrize("name", sorted(spmv_rate.RATE_LAUNCHES))
+def test_design_follows_the_stream_layout(name):
+    """Every rate kernel runs B2's design: the column panel over a stream
+    with a sliced layout, row tiles without one."""
+    ts = _stream()
+    assert ts.sell is None and spmv_rate.design(name, ts) == "rows"
+    laid = dataclasses.replace(ts, sell=tspmm.build_sell_layout(ts))
+    assert spmv_rate.design(name, laid) == "panel"
+    with pytest.raises(ValueError, match="unknown rate kernel"):
+        spmv_rate.design(name + "_x", laid)
 
 
 def test_parse_args():

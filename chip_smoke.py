@@ -41,6 +41,24 @@ Phases (any failure raises and the run exits non-zero):
      bit-equal, X2's and X3's on lane rows), each beside one PyTorch
      library call at blog (X1 a max embedding_bag, X2 a weighted sum bag,
      X3 a ones-CSR torch.sparse.mm), checked once against the plain version.
+  9. walks (blog-shaped graph, its device edge set a bitmap; the V = 60,000
+     graph, a cuckoo set): every transition of ``simulate_walks`` an edge
+     (``edge_exists`` on the card) at p = q = 1 and p = 1, q = 2; next-hop
+     frequencies of both second-order modes within TV 0.02 of
+     ``node2vec_transition_probs`` over 200,000 draws at three (p, q);
+     hop rates (M hops/s, CUDA events and host clock, and the share of the
+     host clock the card was busy, from the profiler's kernel intervals)
+     at bench.py's shapes; one node2vec hop split into its row reads,
+     proposals, edge-set probes and panel arithmetic.
+ 10. SGNS on the blog walks at full width: ms per step (B = 8192, W = 10,
+     N = 5, D = 128) and peak memory; two runs bit-equal; a run resumed
+     from a mid-run checkpoint bit-equal to the uninterrupted one; the
+     two-clique quality check.
+ 11. ``python -m graphtpu_torch node2vec --p 1 --q 2`` at the reference
+     defaults in a subprocess (no --device): the .emb read back (V' rows
+     of 128 finite values) and its wall time split into walks, SGNS and the
+     file write.
+The new phases' numbers are printed as a ``{"paths": ...}`` line.
 The last two lines are the kernels' JSON summary (with each kernel's bound
 from graphtpu_torch/bench/bounds.py; B3's level-0 time excludes the cost its
 slab-major output moves to level 1, so its entry also gives levels 0 + 1
@@ -70,7 +88,7 @@ from graphtpu_torch.bench.generators import (
     rmat14_edges,
     rmat14_graph,
 )
-from graphtpu_torch.bench.timing import cuda_ms
+from graphtpu_torch.bench.timing import busy_ms, cuda_ms
 
 TOL_F32 = 1e-5        # f32 product vs plain version / float64 oracle, values <= 1
 TOL_B3 = 1e-6         # B3 vs its plain version (same operations: bit-equal expected)
@@ -721,6 +739,300 @@ def phase_rate_probe(dev, report):
     return launches, cases
 
 
+def walks_valid(g, walks, tag):
+    """Every transition of ``walks`` an edge (``edge_exists`` on the card),
+    -1 from the first dead step on; returns the number of transitions."""
+    from graphtpu_torch.kernels.sampling import edge_exists
+
+    a, b = walks[:, :-1], walks[:, 1:]
+    live = b >= 0
+    check(bool(edge_exists(g, a[live], b[live]).all()), f"{tag}: a transition is not an edge")
+    dead = (walks < 0).int().cummax(dim=1).values.bool()
+    check(bool((walks[dead] == -1).all()), f"{tag}: a walk goes on after a dead end")
+    return int(live.sum().item())
+
+
+def timed_call(fn, runs=3):
+    """(median CUDA-event ms, median host ms) of ``fn()`` after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    dev, host = [], []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+        dev.append(a.elapsed_time(b))
+    return float(np.median(dev)), float(np.median(host))
+
+
+def hop_rate(name, fn, hops, report):
+    """M hops/s of one walk call, and the share of its host time the card
+    was busy."""
+    ev_ms, host_ms = timed_call(fn)
+    busy = busy_ms(fn)
+    r = dict(hops=hops, events_ms=ev_ms, host_ms=host_ms,
+             mhops_per_s_events=hops / ev_ms / 1e3, mhops_per_s_host=hops / host_ms / 1e3,
+             busy_ms=busy, busy_share=None if busy is None else busy / host_ms)
+    report[name] = r
+    say(f"{name}: {hops:,} hops in {ev_ms:.3f} ms (CUDA events) / {host_ms:.3f} ms (host): "
+        f"{r['mhops_per_s_events']:.1f} / {r['mhops_per_s_host']:.1f} M hops/s; card busy "
+        + ("not measured (the profiler recorded no device interval)" if busy is None else
+           f"{busy:.3f} ms, {r['busy_share']:.3f} of the host time"))
+    return r
+
+
+def phase_walks(dev, report):
+    """Walk validity, second-order transition law, hop rates and one hop's
+    split; returns the blog p = 1, q = 2 corpus for phase 10."""
+    from graphtpu_torch.core.graph import padded_neighbors
+    from graphtpu_torch.kernels.edgeset import device_edge_set, edge_set_contains
+    from graphtpu_torch.kernels.sampling import row_spans
+    from graphtpu_torch.walks import node2vec as n2v
+    from graphtpu_torch.walks.walker import simulate_walks, uniform_walks
+
+    out = report.setdefault("walks", {})
+    g = blog_shaped_graph(device=dev)
+    t0 = time.perf_counter()
+    es = device_edge_set(g)
+    es_ms = 1e3 * (time.perf_counter() - t0)
+    gp = v60000_graph().to(dev)
+    t0 = time.perf_counter()
+    esp = device_edge_set(gp)
+    esp_ms = 1e3 * (time.perf_counter() - t0)
+    check(es.mode == "bitmap" and esp.mode == "cuckoo", f"edge sets {es.mode}, {esp.mode}")
+    out["edge_sets"] = dict(blog=dict(mode=es.mode, bytes=es.words.numel() * 4, build_ms=es_ms),
+                            v60000=dict(mode=esp.mode, slots=esp.table.numel(),
+                                        build_ms=esp_ms))
+    say(f"edge sets: blog bitmap {es.words.numel() * 4 / 1e6:.1f} MB built in {es_ms:.1f} ms; "
+        f"V = {V_PANELS} cuckoo, {esp.table.numel():,} slots, built in {esp_ms:.1f} ms (host, "
+        f"then copied)")
+
+    # every transition an edge
+    corpus = None
+    for tag, gg, (p, q), nw, wl in (("blog p=1 q=1", g, (1.0, 1.0), 2, 80),
+                                    ("blog p=1 q=2", g, (1.0, 2.0), 10, 80),
+                                    (f"V={V_PANELS} p=1 q=2 (cuckoo)", gp, (1.0, 2.0), 1, 40)):
+        walks = simulate_walks(gg, nw, wl, 11, p=p, q=q, device=dev)
+        n = walks_valid(gg, walks, tag)
+        check(walks.shape == (nw * int((gg.host[3] > 0).sum()), wl), f"{tag}: walk shape")
+        out.setdefault("valid", {})[tag] = dict(walks=int(walks.shape[0]), transitions=n)
+        say(f"{tag}: {walks.shape[0]:,} walks x {wl} nodes, all {n:,} transitions are edges")
+        if tag == "blog p=1 q=2":
+            corpus = walks
+
+    # the second-order transition law at one (prev, cur)
+    rp, col, _, deg = g.host
+    prev = int(np.argmax(deg))
+    nb = col[rp[prev]: rp[prev + 1]]
+    common = [len(np.intersect1d(col[rp[c]: rp[c + 1]], nb)) for c in nb]
+    cur = int(nb[int(np.argmax(common))])
+    nbrs, nwts = padded_neighbors(g)
+    draws = 200_000
+    prev_a = torch.full((draws,), prev, dtype=torch.int32, device=dev)
+    cur_a = torch.full((draws,), cur, dtype=torch.int32, device=dev)
+    tvs = {}
+    for p, q in ((0.25, 0.25), (4.0, 0.5), (1.0, 2.0)):
+        want = n2v.node2vec_transition_probs(g, prev, cur, p, q)
+        for mode in ("rejection", "exact"):
+            if mode == "exact":
+                nxt = n2v._second_order_step_exact(g, es, nbrs, nwts, prev_a, cur_a, 21,
+                                                   1 / p, 1 / q)
+            else:
+                nxt = n2v._second_order_step_rejection(g, None, es, prev_a, cur_a, 21, 1 / p,
+                                                       1 / q, n2v.default_max_trials(p, q),
+                                                       False)
+            emp = np.bincount(nxt.cpu().numpy(), minlength=g.n_nodes) / draws
+            tvs[f"p={p:g} q={q:g} {mode}"] = tv = 0.5 * float(np.abs(emp - want).sum())
+            check(tv < 0.02, f"transition law p={p} q={q} {mode}: TV {tv} >= 0.02")
+    out["transition_tv"] = dict(prev=prev, cur=cur, cur_degree=int(deg[cur]),
+                                triangles=int(max(common)), draws=draws, tv=tvs)
+    say(f"transition law at (prev {prev}, cur {cur} of degree {deg[cur]}, {max(common)} "
+        f"triangles), {draws:,} draws: TV " + ", ".join(f"{k} {v:.4f}" for k, v in tvs.items())
+        + " (bound 0.02)")
+
+    # hop rates at bench.py's shapes
+    nodes = np.flatnonzero(deg > 0).astype(np.int32)
+    starts = torch.from_numpy(np.random.default_rng(1).choice(nodes, size=65536)).to(dev)
+    starts2 = torch.from_numpy(np.random.default_rng(2).choice(nodes, size=32768)).to(dev)
+    hop_rate("uniform walks, B = 65,536 x 40 hops",
+             lambda: uniform_walks(g, starts, 40, 0, device=dev), 65536 * 40, out)
+    hop_rate("node2vec rejection p=1 q=2, B = 32,768 x 20 hops",
+             lambda: n2v.node2vec_walks(g, starts2, 20, 1.0, 2.0, 0, eset=es, device=dev),
+             32768 * 20, out)
+
+    # one node2vec hop split: cur's row reads, the proposal panel, the
+    # edge-set probes and the panel arithmetic, on a state mid-walk
+    w = n2v.node2vec_walks(g, starts2, 10, 1.0, 2.0, 3, eset=es, device=dev)
+    prev_s, cur_s = w[:, 9].contiguous(), w[:, 10].contiguous()
+    t = n2v.default_max_trials(1.0, 2.0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = row_spans(g, cur_s)
+    props = n2v.propose(g, None, cur_s, rows, t, gen, False)
+    is_tri = edge_set_contains(es, prev_s[:, None], props)
+    parts = {
+        "row reads": lambda: row_spans(g, cur_s),
+        "proposals": lambda: n2v.propose(g, None, cur_s, rows, t, gen, False),
+        "edge-set probes": lambda: edge_set_contains(es, prev_s[:, None], props),
+        "panel arithmetic": lambda: n2v.accept(props, prev_s, is_tri, 1.0, 0.5, gen),
+    }
+    parts["whole hop"] = lambda: n2v._second_order_step_rejection(g, None, es, prev_s, cur_s, 7,
+                                                                  1.0, 0.5, t, False)
+    split = {k: cuda_ms(f) for k, f in parts.items()}
+    busy = {k: busy_ms(f) for k, f in parts.items()}
+    hop, hop_busy = split.pop("whole hop"), busy.pop("whole hop")
+    out["hop_split"] = dict(batch=32768, trials=t, hop_ms=hop, hop_busy_ms=hop_busy,
+                            parts_ms=split, parts_busy_ms=busy)
+    say(f"one node2vec hop (B = 32,768, a one-shot panel of {t}), each part alone, CUDA-event "
+        f"ms / ms the card was busy: whole hop {hop:.4f} / "
+        + ("not measured" if hop_busy is None else f"{hop_busy:.4f}") + "; "
+        + ", ".join(f"{k} {split[k]:.4f} / " + ("not measured" if busy[k] is None else
+                                               f"{busy[k]:.4f}") for k in split))
+    del nbrs, prev_a, cur_a
+    return g, corpus
+
+
+def phase_sgns(dev, g, corpus, report):
+    """SGNS step time and memory, determinism, resume and quality."""
+    import graphtpu_torch.models.checkpoint as ckpt
+    from graphtpu_torch import build_graph
+    from graphtpu_torch.core.config import SGNSConfig
+    from graphtpu_torch.core.device import full_fp32
+    from graphtpu_torch.models import sgns
+    from graphtpu_torch.walks.walker import simulate_walks
+
+    out = report.setdefault("sgns", {})
+    v = g.n_nodes
+    cfg = SGNSConfig()
+    batch, steps = cfg.batch_size, 50
+    counts = sgns.corpus_counts(corpus, v)
+    neg_j, neg_q = sgns.build_negative_alias(counts)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cwalks, _ = sgns.subsample_and_compact(corpus, counts, cfg.subsample, gen)
+    perm = torch.randperm(corpus.numel(), generator=gen, device=dev)
+    params = (torch.rand((v, cfg.dim), generator=gen, device=dev) - 0.5) / cfg.dim, \
+        torch.zeros((v, cfg.dim), device=dev)
+
+    def step(i, params):
+        return sgns.batch_step(params, cwalks, perm[i * batch:(i + 1) * batch], cfg.window,
+                               neg_j, neg_q, (batch, cfg.negative), gen, 0.01, v)
+
+    def run(params):
+        for i in range(steps):
+            params = step(i, params)
+        return params
+
+    with full_fp32():
+        params = run(params)  # warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev_ms, host_ms = timed_call(lambda: run(params), runs=3)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        busy = busy_ms(lambda: step(0, params))
+        one_host = timed_call(lambda: step(0, params), runs=5)[1]
+    r = dict(batch=batch, window=cfg.window, negative=cfg.negative, dim=cfg.dim,
+             corpus_walks=int(corpus.shape[0]), ms_per_step_events=ev_ms / steps,
+             ms_per_step_host=host_ms / steps, peak_gb=peak_gb, busy_ms_one_step=busy,
+             busy_share_one_step=None if busy is None else busy / one_host)
+    out["step"] = r
+    say(f"SGNS step (B = {batch}, W = {cfg.window}, N = {cfg.negative} shared, D = {cfg.dim}; "
+        f"gather, negatives, grads, row sums, update): {r['ms_per_step_events']:.3f} ms "
+        f"(CUDA events) / {r['ms_per_step_host']:.3f} ms (host) per step over {steps}; card "
+        + ("busy not measured" if busy is None else
+           f"busy {busy:.3f} ms of a {one_host:.3f} ms step ({r['busy_share_one_step']:.3f})")
+        + f"; peak {peak_gb:.3f} GB above the {base / 1e9:.3f} GB held")
+    del params
+
+    # determinism and resume: 2 epochs over 20,480 walks, chunks of 50 steps
+    sub = corpus[:20480]
+    dcfg = SGNSConfig(epochs=2)
+    kw = dict(chunk_steps=50, device=dev)
+    t0 = time.perf_counter()
+    a0, a1 = sgns.train_sgns(sub, v, dcfg, **kw)
+    run_s = time.perf_counter() - t0
+    b0, b1 = sgns.train_sgns(sub, v, dcfg, **kw)
+    same = bool(np.array_equal(a0, b0) and np.array_equal(a1, b1))
+    saved, orig = [], ckpt.save_state
+
+    def capture(path, arrays, step=0, meta=None):
+        saved.append(({k: np.array(x) for k, x in arrays.items()}, step, dict(meta or {})))
+        orig(path, arrays, step=step, meta=meta)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save_state = capture
+        try:
+            sgns.train_sgns(sub, v, dcfg, checkpoint_path=os.path.join(tmp, "a.npz"),
+                            checkpoint_every=1, **kw)
+        finally:
+            ckpt.save_state = orig
+        mid = saved[len(saved) // 2 + 1]  # inside the second epoch
+        orig(os.path.join(tmp, "mid.npz"), mid[0], step=mid[1], meta=mid[2])
+        r0, r1 = sgns.train_sgns(sub, v, dcfg, checkpoint_path=os.path.join(tmp, "mid.npz"), **kw)
+    resumed = bool(np.array_equal(r0, a0) and np.array_equal(r1, a1))
+    steps_run = 2 * (sub.numel() // batch)
+    out["determinism"] = dict(walks=int(sub.shape[0]), steps=steps_run, chunks=len(saved),
+                              run_s=run_s, two_runs_bit_equal=same,
+                              resumed_from=mid[2], resume_bit_equal=resumed,
+                              max_abs_diff_resume=float(np.abs(r0 - a0).max()))
+    say(f"SGNS determinism: {steps_run} steps in {len(saved)} chunks ({run_s:.2f} s a run): two "
+        f"runs bit-equal {same}; resumed from {mid[2]} bit-equal {resumed} "
+        f"(max |diff| {out['determinism']['max_abs_diff_resume']:.3e})")
+    check(same, "two SGNS runs with one seed differ")
+    check(resumed, "a resumed SGNS run differs from the uninterrupted one")
+
+    # quality: two disjoint 8-cliques
+    edges = [[b + i, b + j] for b in (0, 8) for i in range(8) for j in range(i + 1, 8)]
+    cg = build_graph(np.array(edges), n_nodes=16)
+    cw = simulate_walks(cg, 30, 20, 0, device=dev)
+    e, _ = sgns.train_sgns(cw, 16, SGNSConfig(dim=16, window=4, epochs=10, batch_size=64,
+                                              subsample=0), device=dev)
+    e = e / np.linalg.norm(e, axis=1, keepdims=True)
+    sims = e @ e.T
+    intra = float(((sims[:8, :8].sum() - 8) / 56 + (sims[8:, 8:].sum() - 8) / 56) / 2)
+    inter = float(sims[:8, 8:].mean())
+    out["two_cliques"] = dict(intra=intra, inter=inter)
+    say(f"two cliques: mean cosine intra {intra:.4f}, inter {inter:.4f} (need intra > inter + 0.3)")
+    check(intra > inter + 0.3, f"two cliques: intra {intra} not above inter {inter} + 0.3")
+
+
+def phase_cli(tmp, report):
+    """``python -m graphtpu_torch node2vec`` at the reference defaults."""
+    from graphtpu_torch.io.embfile import read_emb
+    from graphtpu_torch.io.edgelist import write_edgelist
+
+    path = os.path.join(tmp, "blog_n2v.txt")
+    write_edgelist(path, blog_shaped_edges())
+    emb = os.path.join(tmp, "blog.emb")
+    argv = [sys.executable, "-m", "graphtpu_torch", "node2vec", "--input", path, "--output",
+            emb, "--p", "1", "--q", "2"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"node2vec CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    stages = {k: float(x.split()[0]) for k, x in
+              (part.split(" ", 1) for part in line[line.index("(") + 1:-1].split(", "))}
+    with open(emb) as f:
+        header = f.readline().split()
+    labels, vecs = read_emb(emb)
+    n_active = len(np.unique(blog_shaped_edges()))
+    check(header == [str(n_active), "128"], f"node2vec CLI: header {header}, want {n_active} 128")
+    check(vecs.shape == (n_active, 128) and bool(np.isfinite(vecs).all()),
+          f"node2vec CLI: rows {vecs.shape} or non-finite values")
+    report["cli"] = dict(argv=argv[2:], wall_s=wall, stages_s=stages, rows=int(vecs.shape[0]),
+                         dim=int(vecs.shape[1]))
+    say(f"node2vec CLI (p=1, q=2, defaults: 10 walks x 80, dim 128, window 10, 10 epochs): "
+        f"{wall:.2f} s wall in a subprocess; " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                                          stages.items())
+        + f"; file header {' '.join(header)}, all {vecs.size:,} values finite")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write a JSON report here")
@@ -780,6 +1092,18 @@ def main(argv=None) -> int:
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was never launched on its path")
 
+    say("== phase 9: walks (blog-shaped graph; V = 60,000 for the cuckoo edge set)")
+    blog_g, corpus = phase_walks(dev, report)
+
+    say("== phase 10: SGNS on the blog walks")
+    phase_sgns(dev, blog_g, corpus, report)
+    del blog_g, corpus
+    torch.cuda.empty_cache()
+
+    say("== phase 11: python -m graphtpu_torch node2vec")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli(tmp, report)
+
     from graphtpu_torch.bench import bounds
     from graphtpu_torch.bench.spmv_rate import N_BUF
 
@@ -827,6 +1151,7 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
+    print(json.dumps({"paths": {k: report[k] for k in ("walks", "sgns", "cli")}}))
     say(card_line())
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

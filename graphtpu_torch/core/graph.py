@@ -46,6 +46,10 @@ class Graph:
         return self.col.shape[0]
 
     @property
+    def is_weighted(self) -> bool:
+        return self.weight is not None
+
+    @property
     def device(self) -> torch.device:
         return self.col.device
 
@@ -194,6 +198,32 @@ def pad_graph_nodes(g: Graph, n_nodes: int) -> Graph:
     rp2 = np.concatenate([rp, np.full(n_nodes - v, rp[-1], rp.dtype)])
     deg2 = np.concatenate([deg, np.zeros(n_nodes - v, np.int32)])
     return graph_from_numpy(rp2, col, wts, deg2, device=g.device)
+
+
+def padded_neighbors(
+    g: Graph, pad_to: Optional[int] = None, fill: int = -1
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """[V, Dmax] padded neighbour (and weight) matrices on the graph's device.
+
+    Rows keep CSR (sorted) order; unused slots get ``fill``.  Built in numpy
+    from the host arrays.  O(V*Dmax) memory: the exact second-order step's
+    operand, for small graphs.
+    """
+    dmax = int(pad_to if pad_to is not None else max(g.max_degree, 1))
+    rp, col, w, deg = g.host
+    v = g.n_nodes
+    src = np.repeat(np.arange(v), deg)
+    pos = np.arange(len(src)) - np.repeat(rp[:-1].astype(np.int64), deg)
+    nbrs = np.full((v, dmax), fill, dtype=np.int32)
+    nbrs[src, pos] = col[: len(src)]
+    wts = None
+    if w is not None:
+        wts = np.zeros((v, dmax), dtype=np.float32)
+        wts[src, pos] = w[: len(src)]
+    return (
+        torch.from_numpy(nbrs).to(g.device),
+        None if wts is None else torch.from_numpy(wts).to(g.device),
+    )
 
 
 def dense_adjacency(g: Graph, dtype=torch.float32, device=None) -> torch.Tensor:

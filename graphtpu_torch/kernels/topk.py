@@ -3,7 +3,8 @@
 ``lax.top_k`` puts the lower index first among equal scores, and SimRank
 has many exact ties between structurally equal nodes; ``torch.topk``
 promises no order.  So both functions take a stable descending sort,
-which keeps equal scores in index order.
+which keeps equal scores in index order.  :func:`segment_rows_sum` is
+SGNS's row aggregation.
 """
 
 from __future__ import annotations
@@ -61,3 +62,25 @@ def merge_topk(
     idx = torch.cat([idx_a, idx_b], dim=1)
     mv, mi = _stable_topk(vals, k)
     return mv, torch.gather(idx, 1, mi)
+
+
+def segment_rows_sum(
+    idx: torch.Tensor, rows: torch.Tensor, n_segments: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sum [N, D] rows by segment id (counterpart of
+    ``graphtpu/kernels/topk.py:207-251``): (sums [n_segments, D], float32
+    counts [n_segments]); rows with idx < 0 are skipped.
+
+    The same bits on every run: a stable sort by id puts each segment's rows
+    together in their original order, and one sequential sum per segment
+    and column (``torch.segment_reduce``) adds them in that order.  No
+    float atomics, whose order changes from run to run (``index_add_`` on
+    a CUDA tensor), so a resumed SGNS run reproduces an uninterrupted one.
+    Skipped rows sort last, past the segments' total, and are never read
+    (``unsafe``: the lengths may sum to less than N, with no device sync).
+    """
+    safe = torch.where(idx >= 0, idx, n_segments).long()
+    order = torch.argsort(safe, stable=True)
+    lengths = torch.bincount(safe, minlength=n_segments + 1)[:n_segments]
+    sums = torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0, unsafe=True)
+    return sums, lengths.float()

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from graphtpu_torch.core.config import SimRankConfig, WeightedSimRankConfig
+from graphtpu_torch.core.device import full_fp32, resolve_device
 from graphtpu_torch.core.graph import DiGraph, Graph, dense_adjacency, row_normalized
 from graphtpu_torch.kernels.spmm import (
     build_reduction_tree,
@@ -32,16 +33,6 @@ from graphtpu_torch.kernels.spmm import (
     tree_spmm,
 )
 from graphtpu_torch.kernels.topk import topk_rows
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device``, by default ``cuda``.  Graphs are host-built data and say
-    nothing of where the work runs; a missing card raises, never a quiet
-    move to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev}: no CUDA device is available")
-    return dev
 
 
 def _simrank_iterate(w: torch.Tensor, c: float, iterations: int) -> torch.Tensor:
@@ -72,13 +63,8 @@ def exact_simrank(
     if not weighted and g.weight is not None:
         a = (a > 0).to(torch.float32)
     w = row_normalized(a).to(dtype)
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with full_fp32():
         return _simrank_iterate(w, cfg.c, cfg.iterations)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 class _StageClock:

@@ -128,6 +128,8 @@ def test_package_imports_neither_jax_nor_graphtpu():
         "import graphtpu_torch.kernels.spmm, graphtpu_torch.kernels._build\n"
         "import graphtpu_torch.core.convert, graphtpu_torch.core.reorder\n"
         "import graphtpu_torch.bench.generators, graphtpu_torch.io.simfile\n"
+        "import graphtpu_torch.pipelines, graphtpu_torch.walks.node2vec\n"
+        "import graphtpu_torch.models.sgns, graphtpu_torch.eval.f1, graphtpu_torch.io.matfile\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'graphtpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"

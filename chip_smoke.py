@@ -58,7 +58,25 @@ Phases (any failure raises and the run exits non-zero):
      defaults in a subprocess (no --device): the .emb read back (V' rows
      of 128 finite values) and its wall time split into walks, SGNS and the
      file write.
-The new phases' numbers are printed as a ``{"paths": ...}`` line.
+ 12. the Monte-Carlo engines on the card: the reuse top-k (sort-based)
+     against the dense scatter on the same walks at blog width within 1e-5;
+     TopSim full enumeration on the card against the CPU within 1e-6; two
+     UniWalk runs with one seed on 256 blog sources bit-equal; top-20
+     precision and NDCG of UniWalk and TopSim (sample 10,000, step 3) on
+     R-MAT scale 11 against exact SimRank, each at least graphtpu's figure
+     less 0.03; the flagship's shape (SAMPLE 10,000, TIMES 4, STEP 5) over
+     1,024 blog sources in two windows of 512, stopped after the first and
+     resumed, every source once; a UniWalk tile's hop and item rates at the
+     CLI defaults with its parts, busy share and peak memory; a TopSim
+     tile's time, busy share and peak memory.
+ 13. ``python -m graphtpu_torch uniwalk`` and ``topsim`` at the defaults on
+     the blog-shaped edge file in subprocesses (walls split into read,
+     engine and write; one row per node in both twin files, valid ids,
+     finite positive descending scores, no dropped mass), then ``sweep
+     --algorithm uniwalk --samples 1000 10000`` on R-MAT scale 11 (the
+     second precision at least the first less 0.02).
+Phases 9-13 print their numbers as a ``{"paths": ...}`` line (12-13 under
+``mc``).
 The last two lines are the kernels' JSON summary (with each kernel's bound
 from graphtpu_torch/bench/bounds.py; B3's level-0 time excludes the cost its
 slab-major output moves to level 1, so its entry also gives levels 0 + 1
@@ -95,6 +113,17 @@ TOL_B3 = 1e-6         # B3 vs its plain version (same operations: bit-equal expe
 TOL_RATE = 1e-5       # X2/X3 vs plain, relative to the row's sum of |terms|
 TOL_SIM_F32 = 2e-5    # SimRank scores, f32 modes, vs the dense fp32 engine
 TOL_SIM_BF16 = 1e-2   # SimRank scores, fast16, vs the dense fp32 engine
+TOL_MC_PARITY = 1e-5  # reuse top-k (sort, float64 run totals) vs the dense scatter oracle
+TOL_MC_ENUM = 1e-6    # TopSim enumerate, card vs CPU (the same float32 operations)
+# graphtpu's top-20 precision and NDCG on R-MAT scale 11 (V = 2,048, all
+# sources; the gold is dense fp32 SimRank, 30 iterations, top 1,000), from
+# graphtpu.bench.sweep's sweep_uniwalk and sweep_topsim at sample 10,000,
+# step 3 and their default tiles and keys, run by graphtpu on a CPU
+GRAPHTPU_RMAT11 = {
+    "uniwalk": {"precision": 0.9744140625000025, "ndcg": 1.0188382310640378},
+    "topsim": {"precision": 0.9762939453125024, "ndcg": 1.0088449591525102},
+}
+QUALITY_MARGIN = 0.03  # the port's figures may fall this far below graphtpu's
 C_RAGGED = 10_313
 HUB_DEGREES = (20_000, 11_000)  # row tiles; the column panel (V <= 11,448)
 V_PANELS, C_PANELS = 60_000, 256  # a V past one block's shared memory
@@ -1033,6 +1062,292 @@ def phase_cli(tmp, report):
         + f"; file header {' '.join(header)}, all {vecs.size:,} values finite")
 
 
+def memory_peak_gb(fn):
+    """(result, peak GB allocated above what was held before) of ``fn()``."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def ranked_close(vals, idx, truth, tol):
+    """Top-k (vals, idx) against a dense truth: the values are truth's sorted
+    rows within tol, and each id's true score within tol of the score at
+    its position (ids may differ only among near-ties).  Returns the
+    largest value error."""
+    order = np.argsort(-truth, axis=1, kind="stable")[:, : vals.shape[1]]
+    want = np.take_along_axis(truth, order, 1)
+    err = float(np.abs(vals - want).max())
+    ids_ok = np.abs(np.take_along_axis(truth, idx.clip(min=0), 1) - want) <= tol
+    return err, bool(err <= tol and (ids_ok | (idx == order)).all())
+
+
+def reuse_window(g, cfg, sources, key):
+    """One flagship tile: SAMPLE/TIMES reuse walks per source, the flat item
+    stream, per-source sample counts and the per-source top-k, as
+    ``uniwalk_simrank_reuse_topk`` accumulates them."""
+    from graphtpu_torch.kernels.topk import pair_topk_by_source
+    from graphtpu_torch.simrank.uniwalk import _reuse_stream
+    from graphtpu_torch.walks.walker import uniform_walks
+
+    times = cfg.reuse_times
+    src = torch.from_numpy(np.asarray(sources, np.int32)).to(g.device)
+    starts = torch.repeat_interleave(src, cfg.sample // times)
+    walks = uniform_walks(g, starts, 2 * cfg.step + times - 1, key, device=g.device)
+    srcs, tgts, vals, counts = _reuse_stream(g, cfg, walks)
+    del walks
+    v, i = pair_topk_by_source(srcs, tgts, vals, src, cfg.topk, counts=counts)
+    return v.cpu().numpy(), i.cpu().numpy()
+
+
+def phase_mc(dev, report):
+    """The Monte-Carlo engines on the card: parity, determinism, quality
+    against exact SimRank on R-MAT scale 11, the flagship's window shape
+    with a resume, and UniWalk/TopSim tile rates, busy share and memory."""
+    from graphtpu_torch.bench.generators import rmat_graph
+    from graphtpu_torch import build_graph
+    from graphtpu_torch.bench.sweep import gold_standard, sweep_topsim, sweep_uniwalk
+    from graphtpu_torch.core.config import TopSimConfig, UniWalkConfig
+    from graphtpu_torch.dist.windows import read_sweep_results, windowed_topk_sweep
+    from graphtpu_torch.simrank import topsim as ts
+    from graphtpu_torch.simrank import uniwalk as uw
+    from graphtpu_torch.walks.walker import uniform_walks
+
+    out = report.setdefault("mc", {})
+    g = blog_shaped_graph(device=dev)
+    v = g.n_nodes
+
+    # parity: the sort-based reuse top-k against the dense scatter oracle,
+    # fed the same walks at blog width
+    rcfg = UniWalkConfig(sample=400, step=5, reuse_times=4, topk=20)
+    starts = torch.repeat_interleave(torch.arange(v, dtype=torch.int32, device=dev), 100)
+    walks = uniform_walks(g, starts, 2 * 5 + 3, 21, device=dev)
+    rv, ri = uw.uniwalk_simrank_reuse_topk(g, rcfg, walks=walks, device=dev)
+    dense = uw.uniwalk_simrank_reuse(g, rcfg, walks=walks, device=dev)
+    err, ok = ranked_close(rv, ri, dense, TOL_MC_PARITY)
+    n_items = int(walks.shape[0]) * 4 * 5
+    del walks, dense
+    out["reuse_parity"] = dict(v=v, walks=int(starts.numel()), items=n_items, max_abs_err=err)
+    say(f"reuse top-k (sort-based) against the dense scatter at blog ({starts.numel():,} walks, "
+        f"{n_items:,} items): max |err| {err:.3e} (bound {TOL_MC_PARITY:g}), ids agree "
+        f"{ok}")
+    check(ok, f"reuse top-k and the dense oracle differ: {err}")
+    torch.cuda.empty_cache()
+
+    # parity: full enumeration has no randomness, card against CPU
+    rng = np.random.default_rng(6)
+    ring = [[i, (i + 1) % 60] for i in range(60)]
+    chords = [[int(a), int(b)] for a, b in rng.integers(0, 60, (40, 2)) if a != b]
+    eg = build_graph(np.array(ring + chords), n_nodes=60)
+    check(eg.max_degree <= 7, f"enumerate graph max degree {eg.max_degree}")
+    ecfg = TopSimConfig(step=3, sample=10.0, topk=10, source_tile=8, enumerate_all=True)
+    esrc = np.arange(0, 60, 4, dtype=np.int32)
+    e_cpu = ts.topsim_simrank(eg, ecfg, sources=esrc, dense=True, device="cpu")
+    e_card = ts.topsim_simrank(eg, ecfg, sources=esrc, dense=True, device=dev)
+    err = float(np.abs(e_card - e_cpu).max())
+    out["enumerate_parity"] = dict(max_degree=eg.max_degree, slots=ts.frontier_capacity(eg, ecfg),
+                                   sources=len(esrc), max_abs_err=err)
+    say(f"TopSim enumerate, step 3, max degree {eg.max_degree} "
+        f"({ts.frontier_capacity(eg, ecfg):,} slots): card against CPU max |err| {err:.3e} "
+        f"(bound {TOL_MC_ENUM:g})")
+    check(err <= TOL_MC_ENUM, f"enumerate on the card differs from the CPU: {err}")
+
+    # determinism: two runs with one seed, 256 blog sources
+    ucfg = UniWalkConfig()
+    src256 = np.arange(256, dtype=np.int32)
+    a = uw.uniwalk_simrank(g, ucfg, key=5, sources=src256, device=dev)
+    b = uw.uniwalk_simrank(g, ucfg, key=5, sources=src256, device=dev)
+    same = bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+    out["determinism"] = dict(sources=256, sample=ucfg.sample, step=ucfg.step, bit_equal=same)
+    say(f"UniWalk twice with one seed (256 blog sources, sample {ucfg.sample}, step "
+        f"{ucfg.step}): bit-equal {same}")
+    check(same, "two UniWalk runs with one seed differ")
+
+    # quality against exact SimRank on R-MAT scale 11
+    rg = build_graph(rmat_graph(scale=11, n_edges=41_000, seed=0), n_nodes=2048)
+    t0 = time.perf_counter()
+    gold = gold_standard(rg, device=dev)
+    gold_s = time.perf_counter() - t0
+    quality = dict(v=rg.n_nodes, edges=rg.n_edges, gold_s=gold_s)
+    for name, run in (("uniwalk", sweep_uniwalk), ("topsim", sweep_topsim)):
+        r = run(rg, gold, samples=[10000], step=3, topk=20, device=dev)[0]
+        ref = GRAPHTPU_RMAT11[name]
+        quality[name] = dict(precision=r.precision, ndcg=r.ndcg, seconds=r.seconds,
+                             graphtpu=ref)
+        say(f"R-MAT 11, {name} (sample 10,000, step 3, all 2,048 sources, top 20): "
+            f"precision {r.precision:.4f} (graphtpu {ref['precision']:.4f}), NDCG "
+            f"{r.ndcg:.4f} (graphtpu {ref['ndcg']:.4f}); {r.seconds:.2f} s")
+        for m in ("precision", "ndcg"):
+            check(getattr(r, m) >= ref[m] - QUALITY_MARGIN,
+                  f"{name} {m} {getattr(r, m)} below graphtpu's {ref[m]} - {QUALITY_MARGIN}")
+    out["quality_rmat11"] = quality
+
+    # the flagship's shape: two windows of 512 blog sources, stopped after
+    # the first and resumed
+    fcfg = UniWalkConfig(sample=10_000, step=5, reuse_times=4, topk=20)
+    win_s, calls = [], []
+
+    def tile(sources, key):
+        if len(calls) == 1 and not resumed:
+            raise KeyboardInterrupt  # the job is killed before window 2
+        calls.append(int(sources[0]))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = reuse_window(g, fcfg, sources, key)
+        win_s.append(time.perf_counter() - t)
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        resumed = False
+        try:
+            windowed_topk_sweep(tile, 1024, tmp, window=512, key=3)
+            check(False, "the first sweep was not stopped")
+        except KeyboardInterrupt:
+            pass
+        resumed = True
+        (_, peak) = memory_peak_gb(lambda: windowed_topk_sweep(tile, 1024, tmp, window=512,
+                                                               key=3))
+        merged = read_sweep_results(tmp)
+    check(calls == [0, 512], f"windows ran {calls}")
+    check(sorted(merged) == list(range(1024)), "a source is missing or repeated after resume")
+    ok_rows = all(all(0 <= i < v and i != s and 0 < x for i, x in p) for s, p in merged.items())
+    check(ok_rows, "a flagship row holds an invalid neighbour or score")
+    per = 512 * (fcfg.sample // 4)
+    out["flagship_window"] = dict(sources=1024, window=512, walks_per_window=per,
+                                  hops_per_window=per * (2 * 5 + 3),
+                                  items_per_window=per * 4 * 5, s_per_window=win_s,
+                                  peak_gb_second_window=peak)
+    say(f"flagship shape (SAMPLE {fcfg.sample:,}, TIMES 4, STEP 5): 1,024 blog sources in "
+        f"windows of 512, stopped after the first and resumed: every source once; "
+        f"{per:,} walks x {2 * 5 + 3} hops, {per * 20:,} items a window; s per window "
+        + ", ".join(f"{s:.3f}" for s in win_s) + f"; peak {peak:.3f} GB (second window)")
+
+    # rates at the CLI defaults: one UniWalk tile (256 x 10,000 walks of 10
+    # hops) and its parts; one TopSim tile (32 sources, 20,008 slots)
+    key = 11
+    src = torch.arange(ucfg.source_tile, dtype=torch.int32, device=dev)
+    tile_fn = lambda: uw.uniwalk_tile_topk(g, src, key, ucfg)  # noqa: E731
+    (_, uw_peak) = memory_peak_gb(tile_fn)
+    ev_ms, host_ms = timed_call(tile_fn)
+    busy = busy_ms(tile_fn)
+    walkers = ucfg.source_tile * ucfg.sample
+    hops, items = walkers * 2 * ucfg.step, walkers * ucfg.step
+    walks_t = uw._tile_walks(g, src, key, ucfg.sample, ucfg.step)
+    tg_, tv_ = uw._tile_items(g.deg, walks_t, ucfg.step, ucfg.c, ucfg.sample)
+    from graphtpu_torch.kernels.topk import segment_topk
+
+    parts = {"walks": cuda_ms(lambda: uw._tile_walks(g, src, key, ucfg.sample, ucfg.step)),
+             "items": cuda_ms(lambda: uw._tile_items(g.deg, walks_t, ucfg.step, ucfg.c,
+                                                     ucfg.sample)),
+             "segment_topk": cuda_ms(lambda: segment_topk(tg_, tv_, ucfg.topk, v))}
+    del walks_t, tg_, tv_
+    r = dict(tile=ucfg.source_tile, sample=ucfg.sample, step=ucfg.step, hops=hops, items=items,
+             events_ms=ev_ms, host_ms=host_ms, mhops_per_s_events=hops / ev_ms / 1e3,
+             mhops_per_s_host=hops / host_ms / 1e3, mitems_per_s_events=items / ev_ms / 1e3,
+             mitems_per_s_host=items / host_ms / 1e3, busy_ms=busy,
+             busy_share=None if busy is None else busy / host_ms, parts_ms=parts,
+             peak_gb=uw_peak)
+    out["uniwalk_tile"] = r
+    say(f"UniWalk tile at the CLI defaults ({ucfg.source_tile} sources x {ucfg.sample:,} walks "
+        f"x {2 * ucfg.step} hops): "
+        f"{ev_ms:.3f} ms (CUDA events) / {host_ms:.3f} ms (host): "
+        f"{r['mhops_per_s_events']:.1f} / {r['mhops_per_s_host']:.1f} M hops/s, "
+        f"{r['mitems_per_s_events']:.1f} / {r['mitems_per_s_host']:.1f} M items/s; card busy "
+        + ("not measured" if busy is None else f"{busy:.3f} ms ({r['busy_share']:.3f})")
+        + "; parts alone (ms): " + ", ".join(f"{k} {x:.3f}" for k, x in parts.items())
+        + f"; peak {uw_peak:.3f} GB")
+
+    tcfg = TopSimConfig()
+    cap = ts.frontier_capacity(g, tcfg)
+    tsrc = torch.arange(tcfg.source_tile, dtype=torch.int32, device=dev)
+
+    def ts_tile():
+        targets, vals, lost = ts.topsim_tile_items(g, tsrc, key, tcfg, cap)
+        return segment_topk(targets, vals, tcfg.topk, v), lost
+
+    ((_, lost), ts_peak) = memory_peak_gb(ts_tile)
+    ev_ms, host_ms = timed_call(ts_tile)
+    busy = busy_ms(ts_tile)
+    out["topsim_tile"] = dict(tile=tcfg.source_tile, sample=tcfg.sample, step=tcfg.step,
+                              slots=cap, events_ms=ev_ms, host_ms=host_ms, busy_ms=busy,
+                              busy_share=None if busy is None else busy / host_ms,
+                              peak_gb=ts_peak, dropped_mass=float(lost.sum()))
+    say(f"TopSim tile at the CLI defaults ({tcfg.source_tile} sources, sample {tcfg.sample:g}, "
+        f"step {tcfg.step}, {cap:,} slots): "
+        f"{ev_ms:.3f} ms (CUDA events) / {host_ms:.3f} ms (host) per tile; card busy "
+        + ("not measured" if busy is None else f"{busy:.3f} ms ({busy / host_ms:.3f})")
+        + f"; peak {ts_peak:.3f} GB; dropped mass {float(lost.sum()):g}")
+    check(float(lost.sum()) == 0.0, "TopSim dropped mass at its default capacity")
+
+
+def run_cli(argv, timeout=600):
+    """(wall s, stdout) of ``python -m graphtpu_torch <argv>`` in a subprocess."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "graphtpu_torch", *argv],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{argv[0]} CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    return wall, proc.stdout
+
+
+def check_topk_files(out, n, k, tag):
+    """Both twin files: one row per node, ids valid and not the source,
+    scores finite, positive and descending.  Returns the rows' mean length."""
+    from graphtpu_torch.io.simfile import read_sim_file, read_topk_ids
+
+    sims, ids = read_sim_file(out + ".sim.txt"), read_topk_ids(out)
+    check(sorted(sims) == sorted(ids) == list(range(n)), f"{tag}: rows are not 0..{n - 1}")
+    for s, pairs in sims.items():
+        sc = [x for _, x in pairs]
+        check([i for i, _ in pairs] == ids[s] and len(pairs) <= k, f"{tag}: row {s} twin files")
+        check(all(0 <= i < n and i != s for i, _ in pairs), f"{tag}: row {s} ids")
+        check(all(np.isfinite(x) and x > 0 for x in sc) and sc == sorted(sc, reverse=True),
+              f"{tag}: row {s} scores")
+    return float(np.mean([len(p) for p in sims.values()]))
+
+
+def phase_mc_cli(tmp, report):
+    """``python -m graphtpu_torch uniwalk`` and ``topsim`` at the defaults on
+    the blog-shaped edge file, then ``sweep`` on R-MAT scale 11."""
+    from graphtpu_torch.bench.generators import rmat_graph
+    from graphtpu_torch.io.edgelist import write_edgelist
+
+    out = report.setdefault("mc_cli", {})
+    path = os.path.join(tmp, "blog_mc.txt")
+    edges = blog_shaped_edges()
+    write_edgelist(path, edges)
+    n = int(edges.max()) + 1
+    for cmd in ("uniwalk", "topsim"):
+        res = os.path.join(tmp, f"{cmd}.txt")
+        wall, stdout = run_cli([cmd, "--input", path, "--output", res])
+        line = stdout.strip().splitlines()[-1]
+        stages = dict(part.rsplit(" ", 1) for part in
+                      line[line.index(") (") + 3:-1].replace(" s", "").split(", "))
+        stages = {k: float(x) for k, x in stages.items()}
+        width = check_topk_files(res, n, 20, cmd)
+        out[cmd] = dict(wall_s=wall, stages_s=stages, rows=n, mean_row_len=width)
+        say(f"{cmd} CLI (defaults) on the blog edge file ({n:,} nodes): {wall:.2f} s wall in a "
+            f"subprocess; " + ", ".join(f"{k} {x:g}" + ("" if k == "dropped mass" else " s")
+                                         for k, x in stages.items())
+            + f"; {n:,} rows of {width:.2f} neighbours on average")
+        if cmd == "topsim":
+            check(stages["dropped mass"] == 0.0, "topsim CLI dropped mass")
+    rpath = os.path.join(tmp, "rmat11.txt")
+    write_edgelist(rpath, rmat_graph(scale=11, n_edges=41_000, seed=0))
+    wall, stdout = run_cli(["sweep", "--input", rpath, "--log", os.path.join(tmp, "sweep.log"),
+                            "--algorithm", "uniwalk", "--samples", "1000", "10000"])
+    lines = stdout.strip().splitlines()
+    check(len(lines) == 2, f"sweep printed {lines}")
+    prec = [float(ln.split("precision=")[1].split()[0]) for ln in lines]
+    check(prec[1] >= prec[0] - 0.02, f"sweep precision fell from {prec[0]} to {prec[1]}")
+    out["sweep"] = dict(wall_s=wall, lines=lines)
+    say(f"sweep CLI (R-MAT 11, uniwalk, samples 1,000 and 10,000): {wall:.2f} s wall; "
+        + " | ".join(lines))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write a JSON report here")
@@ -1104,6 +1419,14 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(tmp, report)
 
+    say("== phase 12: Monte-Carlo SimRank engines (UniWalk, TopSim, reuse windows)")
+    phase_mc(dev, report)
+    torch.cuda.empty_cache()
+
+    say("== phase 13: python -m graphtpu_torch uniwalk, topsim and sweep")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_mc_cli(tmp, report)
+
     from graphtpu_torch.bench import bounds
     from graphtpu_torch.bench.spmv_rate import N_BUF
 
@@ -1151,7 +1474,9 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    print(json.dumps({"paths": {k: report[k] for k in ("walks", "sgns", "cli")}}))
+    paths = {k: report[k] for k in ("walks", "sgns", "cli")}
+    paths["mc"] = dict(report["mc"], cli=report["mc_cli"])
+    print(json.dumps({"paths": paths}))
     say(card_line())
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

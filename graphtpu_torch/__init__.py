@@ -5,15 +5,21 @@ Each module sits opposite its ``graphtpu`` counterpart:
             conversion, devices, named random streams
   io/       edge-list, ``.sim.txt``, ``.emb`` and ``.mat`` readers and writers
   kernels/  sparse product plans (item streams, reduction trees), the hand
-            CUDA kernels (csrc/), top-k and segment sums, neighbour
-            sampling, edge-membership sets
+            CUDA kernels (csrc/), top-k, segment sums and the sort-based
+            and bounded top-k accumulators, neighbour sampling,
+            edge-membership sets
   walks/    first- and second-order (node2vec) random walks
   models/   SGNS (skip-gram with negative sampling), checkpoints
-  eval/     TopKRanker micro/macro-F1
-  simrank/  exact SimRank, dense and sparse (stream or tree)
+  eval/     TopKRanker micro/macro-F1, top-k precision and NDCG
+  simrank/  exact SimRank, dense and sparse (stream or tree); the
+            Monte-Carlo engines: UniWalk, TopSim, double walks,
+            meeting-probability estimators and TopSim_Dev
+  dist/     source windows with a durable cursor
+  utils/    logs, step metrics, profiler traces
   pipelines node2vec: walks -> SGNS -> ``.emb``
   bench/    synthetic graph generators, the SpMV item-rate probe, the
-            embedding path's profile
+            embedding path's and the engines' profiles, walk
+            diagnostics, gold-standard sweeps
 This package imports neither ``jax`` nor ``graphtpu``.
 """
 

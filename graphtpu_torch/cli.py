@@ -1,9 +1,12 @@
-"""Command-line interface: ``python -m graphtpu_torch {simrank,node2vec} ...``.
+"""Command-line interface: ``python -m graphtpu_torch
+{simrank,node2vec,uniwalk,topsim,sweep} ...``.
 
-The flags and defaults of ``graphtpu``'s ``simrank`` and ``node2vec``
-subcommands, plus ``--device`` (default ``cuda``; a missing card is an
-error, never a quiet move to the CPU) and, for ``simrank``, ``--n-nodes``
-(default: the largest id + 1).
+The flags and defaults of ``graphtpu``'s subcommands of the same names,
+plus ``--device`` (default ``cuda``; a missing card is an error, never a
+quiet move to the CPU); ``simrank`` adds ``--n-nodes`` (default: the
+largest id + 1) and ``uniwalk``/``topsim``/``sweep`` add ``--seed`` (the
+random streams' key, default 0).  ``node2vec``, ``uniwalk`` and ``topsim``
+print their wall time split into stages.
 """
 
 from __future__ import annotations
@@ -71,14 +74,48 @@ def build_parser() -> argparse.ArgumentParser:
         "--n-nodes", type=int, default=None,
         help="node count (default: largest id + 1); extra ids are isolated",
     )
+
+    uw = sub.add_parser("uniwalk", help="single-walk MC SimRank")
+    uw.add_argument("--input", required=True)
+    uw.add_argument("--output", required=True)
+    uw.add_argument("--sample", type=int, default=10000)
+    uw.add_argument("--step", type=int, default=5)
+    uw.add_argument("--topk", type=int, default=20)
+    uw.add_argument("--delimiter", default=None)
+
+    ts = sub.add_parser("topsim", help="TopSim deterministic spreading")
+    ts.add_argument("--input", required=True)
+    ts.add_argument("--output", required=True)
+    ts.add_argument("--sample", type=float, default=10000.0)
+    ts.add_argument("--step", type=int, default=3)
+    ts.add_argument("--topk", type=int, default=20)
+    ts.add_argument("--delimiter", default=None)
+    ts.add_argument(
+        "--engine", default="sample", choices=["sample", "enumerate"],
+        help="budget-splitting (TopSim_singleSample) or full path "
+             "enumeration (TopSim_Enumerate.java:101-129; exponential)",
+    )
+    ts.add_argument(
+        "--frontier-capacity", type=int, default=0,
+        help="walker slots per source (0 = auto bound)",
+    )
+
+    sw = sub.add_parser("sweep", help="gold-standard precision sweep")
+    sw.add_argument("--input", required=True)
+    sw.add_argument("--log", required=True)
+    sw.add_argument("--algorithm", choices=["uniwalk", "topsim"], default="uniwalk")
+    sw.add_argument("--samples", type=int, nargs="+", default=None)
+    sw.add_argument("--delimiter", default=None)
+    for sp in (uw, ts, sw):
+        sp.add_argument("--device", default="cuda", help="torch device (default cuda)")
+        sp.add_argument("--seed", type=int, default=0, help="random streams' key")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.cmd == "node2vec":
-        return node2vec_main(args)
-    return simrank_main(args)
+    return {"node2vec": node2vec_main, "simrank": simrank_main, "uniwalk": mc_main,
+            "topsim": mc_main, "sweep": sweep_main}[args.cmd](args)
 
 
 def node2vec_main(args) -> int:
@@ -160,6 +197,73 @@ def simrank_main(args) -> int:
         idx = order[idx[inv_rows]].astype(np.int32)
     write_topk_files(args.output, idx, vals)
     print(f"wrote {args.output}(.sim.txt)")
+    return 0
+
+
+def mc_main(args) -> int:
+    """``uniwalk`` and ``topsim``: top-k files of every node of the graph."""
+    import time
+
+    from graphtpu_torch.core.config import TopSimConfig, UniWalkConfig
+    from graphtpu_torch.core.device import resolve_device
+    from graphtpu_torch.core.graph import read_edgelist_graph
+    from graphtpu_torch.io.simfile import write_topk_files
+
+    device = resolve_device(args.device)
+    t0 = time.perf_counter()
+    g = read_edgelist_graph(args.input, delimiter=args.delimiter)
+    t1 = time.perf_counter()
+    note = ""
+    if args.cmd == "uniwalk":
+        from graphtpu_torch.simrank.uniwalk import uniwalk_simrank
+
+        vals, idx = uniwalk_simrank(
+            g, UniWalkConfig(sample=args.sample, step=args.step, topk=args.topk),
+            key=args.seed, device=device,
+        )
+    else:
+        from graphtpu_torch.simrank.topsim import topsim_simrank
+
+        stats = {}
+        vals, idx = topsim_simrank(
+            g,
+            TopSimConfig(
+                sample=args.sample, step=args.step, topk=args.topk,
+                enumerate_all=(args.engine == "enumerate"),
+                frontier_capacity=args.frontier_capacity,
+            ),
+            key=args.seed, device=device, stats=stats,
+        )
+        note = f", dropped mass {stats['dropped_mass']:g}"
+    t2 = time.perf_counter()
+    write_topk_files(args.output, idx, vals)
+    t3 = time.perf_counter()
+    print(f"wrote {args.output}(.sim.txt) (read {t1 - t0:.3f} s, engine {t2 - t1:.3f} s, "
+          f"write {t3 - t2:.3f} s{note})")
+    return 0
+
+
+def sweep_main(args) -> int:
+    from graphtpu_torch.bench.sweep import (
+        REFERENCE_SAMPLE_GRID,
+        gold_standard,
+        sweep_topsim,
+        sweep_uniwalk,
+    )
+    from graphtpu_torch.core.device import resolve_device
+    from graphtpu_torch.core.graph import read_edgelist_graph
+    from graphtpu_torch.utils.logging import Log
+
+    device = resolve_device(args.device)
+    g = read_edgelist_graph(args.input, delimiter=args.delimiter)
+    gold = gold_standard(g, device=device)
+    samples = args.samples or REFERENCE_SAMPLE_GRID
+    run = sweep_uniwalk if args.algorithm == "uniwalk" else sweep_topsim
+    with Log(args.log) as log:
+        res = run(g, gold, samples=samples, log=log, key=args.seed, device=device)
+    for r in res:
+        print(f"{r.algorithm} sample={r.sample}: precision={r.precision:.4f} "
+              f"ndcg={r.ndcg:.4f} ({r.seconds:.1f}s)")
     return 0
 
 

@@ -239,6 +239,14 @@ def dense_adjacency(g: Graph, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.as_tensor(a, device=device or g.device).to(dtype)
 
 
+def column_normalized(a: torch.Tensor) -> torch.Tensor:
+    """W = A D^-1: columns sum to 1 where the in-degree is > 0; zero columns
+    stay zero."""
+    colsum = a.sum(dim=0, keepdim=True)
+    safe = torch.where(colsum > 0, colsum, torch.ones_like(colsum))
+    return torch.where(colsum > 0, a / safe, torch.zeros_like(a))
+
+
 def row_normalized(a: torch.Tensor) -> torch.Tensor:
     """P with P[i, u] = a[i, u] / sum_u a[i, u]; zero rows stay zero."""
     rowsum = a.sum(dim=1, keepdim=True)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive graphtpu_torch's main path once on an NVIDIA GPU and check it.
+"""Drive graphtpu_torch's paths once on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--out report.json]
 
 Phases (any failure raises and the run exits non-zero):
   1. device: require CUDA; print the card's name and power limit.
-  2. build: compile the hand kernels from graphtpu_torch/kernels/csrc.
+  2. build: compile the hand kernels from graphtpu_torch/kernels/csrc, and
+     the C++ parser and generator from graphtpu_torch/native.
   3. kernels: kernels B1 (Kahan) and B2 (fast) against their plain PyTorch
      version and the float64 oracle on the blog-shaped stream (V = C =
      10,496, the column-panel design), plus seg-2 (row tiles), ragged and
@@ -75,7 +76,39 @@ Phases (any failure raises and the run exits non-zero):
      finite positive descending scores, no dropped mass), then ``sweep
      --algorithm uniwalk --samples 1000 10000`` on R-MAT scale 11 (the
      second precision at least the first less 0.02).
-Phases 9-13 print their numbers as a ``{"paths": ...}`` line (12-13 under
+ 14. DeepSim on the blog-shaped edge file: ``python -m graphtpu_torch
+     simrank --engine spmm --mode kahan --iterations 3 --c 0.6 --topk 20``
+     (kernel B1; its launches as the subprocess prints them, its top-20
+     file against the dense float32 engine at V = 10,240) and ``deepsim
+     --steps 2000`` at the reference's widths in subprocesses (no --device):
+     the .emb read back (V rows of 128 finite values), the wall split into
+     read, walks, train and write; in process ``lookup_sim`` on the card
+     against a dictionary over 10,000 pairs, exactly, ``train_deepsim``'s
+     wall per step over 2,000 steps with the mean loss of the last 100
+     below that of the first 100, ``Trainer.step``'s time (CUDA events and
+     host clock), device intervals, busy share and peak memory, and two
+     seeded 200-step runs bit-equal.
+ 15. SDNE: the reference net [784, 400, 100, 300, 784] on the card against a
+     float64 numpy oracle of the reference's formulas (activations within
+     2e-4 of max(1, |ref|), loss terms at 1e-4, KL at 1e-3); the step at the
+     blog shape (time, peak memory) and ``train_sdne``'s wall per step;
+     ``sdne`` at its defaults on the blog edge file in a subprocess, the
+     .emb read back.
+ 16. Laplacian Eigenmaps: ``le`` on the swiss roll (2,000 points, k = 10,
+     t = 15), on the blog .sim.txt and on R-MAT scale 11's (written by the
+     simrank CLI, kernel B1, held as in 14), in
+     subprocesses: every kept eigenpair's residual in float64 below 1e-3,
+     every kept eigenvalue above 1e-5, the wall and the ``eigh`` alone; at
+     R-MAT 11 the card's float32 spectrum against scipy's float64 ``eigh``
+     within 1e-4.
+ 17. support modules: BFS distances from 64 blog sources on the card equal
+     scipy's unweighted shortest paths; the weight sums and variances of a
+     weighted blog graph within 1e-6 of numpy float64 and bit-equal run to
+     run; the C++ parser's read of the blog edge file equal to the numpy
+     reader's, both timed; ``generate --kind massive`` (the C++ generator)
+     writing 2,000,000 distinct in-range bipartite edges; and
+     ``load_graph_cached``'s second touch equal to its first, both timed.
+Phases 9-17 print their numbers as a ``{"paths": ...}`` line (12-13 under
 ``mc``).
 The last two lines are the kernels' JSON summary (with each kernel's bound
 from graphtpu_torch/bench/bounds.py; B3's level-0 time excludes the cost its
@@ -90,6 +123,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -106,7 +140,7 @@ from graphtpu_torch.bench.generators import (
     rmat14_edges,
     rmat14_graph,
 )
-from graphtpu_torch.bench.timing import busy_ms, cuda_ms
+from graphtpu_torch.bench.timing import busy_ms, cuda_ms, device_profile
 
 TOL_F32 = 1e-5        # f32 product vs plain version / float64 oracle, values <= 1
 TOL_B3 = 1e-6         # B3 vs its plain version (same operations: bit-equal expected)
@@ -115,6 +149,13 @@ TOL_SIM_F32 = 2e-5    # SimRank scores, f32 modes, vs the dense fp32 engine
 TOL_SIM_BF16 = 1e-2   # SimRank scores, fast16, vs the dense fp32 engine
 TOL_MC_PARITY = 1e-5  # reuse top-k (sort, float64 run totals) vs the dense scatter oracle
 TOL_MC_ENUM = 1e-6    # TopSim enumerate, card vs CPU (the same float32 operations)
+TOL_SDNE_ACT = 2e-4   # SDNE activations vs the float64 oracle, of max(1, |ref|)
+TOL_LE_RESIDUAL = 1e-3  # LE: ||(D - W)y - lambda D y|| / ||D y|| of each kept pair, float64
+TOL_LE_EIGH = 1e-4    # LE: the float32 spectrum on the card vs scipy's float64 eigh
+TOL_STATS = 1e-6      # weight sums and variances vs numpy float64, of the largest
+DEEPSIM_STEPS = 2000  # the smoke's DeepSim run (the CLI's default is the reference's 50,000)
+SDNE_STEPS = 500      # train_sdne timed in process (the CLI runs its default 2,000)
+MASSIVE = (200_000, 200_000, 10)  # generate --kind massive: left, right, average degree
 # graphtpu's top-20 precision and NDCG on R-MAT scale 11 (V = 2,048, all
 # sources; the gold is dense fp32 SimRank, 30 iterations, top 1,000), from
 # graphtpu.bench.sweep's sweep_uniwalk and sweep_topsim at sample 10,000,
@@ -505,12 +546,29 @@ def phase_tree_kernel(dev, report):
     return results
 
 
+def check_sim_file(sim_path, dense_top, tol, tag):
+    """A top-20 ``.sim.txt`` against the dense engine's top-20 scores
+    ``dense_top`` [V, 20]: every row there, finite, within ``tol`` (plus the
+    file's printed rounding).  Returns (the file's rows, max |err|)."""
+    from graphtpu_torch.io.simfile import read_sim_file
+
+    n_nodes = len(dense_top)
+    sims = read_sim_file(sim_path)
+    check(sorted(sims) == list(range(n_nodes)), f"{tag}: rows in file")
+    scores = np.array([[s for _, s in sims[r]] for r in range(n_nodes)])
+    check(scores.shape == (n_nodes, 20) and np.isfinite(scores).all(),
+          f"{tag}: file scores shape {scores.shape}")
+    file_err = float(np.abs(scores - dense_top).max())
+    check(file_err <= tol + 5e-7, f"{tag}: file top-20 scores vs dense {file_err}")
+    return sims, file_err
+
+
 def run_main_path(dev, path, n_nodes, modes, report, tag):
     """CLI runs over one edge file; returns each kernel's launches."""
     from graphtpu_torch import read_edgelist_graph
     from graphtpu_torch.cli import main as cli_main
     from graphtpu_torch.core.config import SimRankConfig
-    from graphtpu_torch.io.simfile import read_sim_file, read_topk_ids
+    from graphtpu_torch.io.simfile import read_topk_ids
     from graphtpu_torch.kernels import spmm
     from graphtpu_torch.kernels.topk import topk_rows
     from graphtpu_torch.simrank.exact import exact_simrank, exact_simrank_spmm
@@ -540,16 +598,10 @@ def run_main_path(dev, path, n_nodes, modes, report, tag):
         want = {k: (2 * cfg.iterations if k == kernel else 0) for k in rise}
         check(rise == want, f"{tag} {mode}: launches {rise}, expected {want}")
 
-        sims = read_sim_file(out + ".sim.txt")
+        tol = TOL_SIM_BF16 if mode == "fast16" else TOL_SIM_F32
+        sims, file_err = check_sim_file(out + ".sim.txt", dense_top, tol, f"{tag} {mode}")
         ids[mode] = read_topk_ids(out)
         top[mode] = np.array([sims[r][0][1] for r in range(n_nodes)])
-        check(sorted(sims) == list(range(n_nodes)), f"{tag} {mode}: rows in file")
-        scores = np.array([[s for _, s in sims[r]] for r in range(n_nodes)])
-        check(scores.shape == (n_nodes, 20) and np.isfinite(scores).all(),
-              f"{tag} {mode}: file scores shape {scores.shape}")
-        tol = TOL_SIM_BF16 if mode == "fast16" else TOL_SIM_F32
-        file_err = float(np.abs(scores - dense_top).max())
-        check(file_err <= tol + 5e-7, f"{tag} {mode}: file top-20 scores vs dense {file_err}")
 
         stages = {}
         dtype = torch.bfloat16 if mode == "fast16" else torch.float32
@@ -1348,6 +1400,466 @@ def phase_mc_cli(tmp, report):
         + " | ".join(lines))
 
 
+def simrank_cli_checked(dev, path, out, tag):
+    """``simrank --engine spmm --mode kahan`` (kernel B1) on ``path`` in a
+    subprocess, as a user runs it, with no ``--n-nodes`` and no
+    ``--device``: its launches, counted from 0 in that process and printed
+    on its last line, and its top-20 file against the dense float32 engine
+    on the same graph.  Returns (wall s, launches, file max |err|)."""
+    from graphtpu_torch import read_edgelist_graph
+    from graphtpu_torch.core.config import SimRankConfig
+    from graphtpu_torch.kernels.topk import topk_rows
+    from graphtpu_torch.simrank.exact import exact_simrank
+
+    wall, stdout = run_cli(["simrank", "--input", path, "--output", out, "--engine", "spmm",
+                            "--mode", "kahan", "--iterations", str(ITERATIONS), "--c", "0.6",
+                            "--topk", "20"])
+    line = stdout.strip().splitlines()[-1]
+    launched = {k: int(x) for k, x in re.findall(r"(\w+) (\d+)", line.split("launches:")[1])}
+    check(launched == {"kahan": 2 * ITERATIONS, "fast": 0},
+          f"simrank CLI ({tag}): kernel launches {launched}")
+    g = read_edgelist_graph(path)
+    dense = exact_simrank(g, SimRankConfig(iterations=ITERATIONS, c=0.6), device=dev)
+    dense_top = topk_rows(dense, 20)[0].cpu().numpy()
+    del dense
+    torch.cuda.empty_cache()
+    _, err = check_sim_file(out + ".sim.txt", dense_top, TOL_SIM_F32, f"simrank CLI ({tag})")
+    return wall, launched, err
+
+
+def stages_of(stdout):
+    """{stage: seconds} from a CLI's last line, ``... (a 1.0 s, b 2.0 s)``."""
+    line = stdout.strip().splitlines()[-1]
+    return {k: float(x) for k, x in re.findall(r"(\w+) ([\d.]+) s\b", line)}
+
+
+def phase_deepsim(dev, tmp, report):
+    """The DeepSim path on the blog edge file: ``simrank`` (kernel B1, its
+    file held against the dense engine) and ``deepsim`` in subprocesses,
+    ``lookup_sim`` against a dictionary, then in process ``train_deepsim``'s
+    wall per step and the loss's descent, ``Trainer.step``'s time, launches,
+    busy share and memory, and two seeded runs.  Returns the .sim.txt
+    path."""
+    from graphtpu_torch.core.config import DeepSimConfig
+    from graphtpu_torch.core.device import full_fp32
+    from graphtpu_torch.core.graph import read_edgelist_graph
+    from graphtpu_torch.core.prng import key_for
+    from graphtpu_torch.io.edgelist import write_edgelist
+    from graphtpu_torch.io.embfile import read_emb
+    from graphtpu_torch.models import deepsim as ds
+    from graphtpu_torch.pipelines_deepsim import read_simrank
+    from graphtpu_torch.walks.walker import simulate_walks
+
+    out = report.setdefault("deepsim", {})
+    path = os.path.join(tmp, "blog_ds.txt")
+    edges = blog_shaped_edges()
+    write_edgelist(path, edges)
+    n = int(edges.max()) + 1
+    sr = os.path.join(tmp, "blog_sr")
+    wall, launched, sr_err = simrank_cli_checked(dev, path, sr, "blog, for DeepSim")
+    emb = os.path.join(tmp, "blog_ds.emb")
+    wall2, stdout2 = run_cli(["deepsim", "--input", path, "--simrank-path", sr + ".sim.txt",
+                              "--emb-output", emb, "--steps", str(DEEPSIM_STEPS)])
+    stages = stages_of(stdout2)
+    with open(emb) as f:
+        header = f.readline().split()
+    _, vecs = read_emb(emb)
+    check(header == [str(n), "128"] and vecs.shape == (n, 128) and bool(np.isfinite(vecs).all()),
+          f"deepsim CLI: header {header}, rows {vecs.shape}")
+    n_active = len(np.unique(edges))
+    out["cli"] = dict(simrank_wall_s=wall, simrank_launches=launched,
+                      simrank_file_err_vs_dense=sr_err, wall_s=wall2,
+                      steps=DEEPSIM_STEPS, stages_s=stages, rows=int(vecs.shape[0]),
+                      active_rows=n_active)
+    say(f"simrank CLI (spmm kahan, 3 iterations, C = 0.6, top 20, V = {n:,}) {wall:.2f} s "
+        f"wall, kernel launches {launched}, file top-20 vs the dense engine {sr_err:.3e} "
+        f"(bound {TOL_SIM_F32:g}); deepsim CLI ({DEEPSIM_STEPS} steps, dim 128, window 10, "
+        f"minibatch 128, walks 10 x 80) {wall2:.2f} s wall in a subprocess; "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+        + f"; .emb {' '.join(header)}, all {vecs.size:,} values finite")
+
+    # lookup_sim on the card against a dictionary lookup, exactly
+    sims = read_simrank(sr + ".sim.txt")
+    table = ds.build_sim_table(sims, n, device=dev)
+    rng = np.random.default_rng(3)
+    src = rng.integers(0, n, 10_000)
+    dst = rng.integers(0, n, 10_000)
+    hit = rng.random(10_000) < 0.5  # half of the pairs from the row's own list
+    for i in np.flatnonzero(hit):
+        if sims[src[i]]:
+            dst[i] = sims[src[i]][rng.integers(len(sims[src[i]]))][0]
+    want = np.array([dict(sims[s]).get(d, min((v for _, v in sims[s]), default=0.0))
+                     for s, d in zip(src, dst)], np.float32)
+    got = ds.lookup_sim(table, torch.from_numpy(src).to(dev),
+                        torch.from_numpy(dst.astype(np.int32)[:, None]).to(dev))[:, 0]
+    hits = sum(d in dict(sims[s]) for s, d in zip(src, dst))
+    check(np.array_equal(got.cpu().numpy(), want), "lookup_sim on the card differs from the dict")
+    out["lookup"] = dict(pairs=10_000, hits=int(hits), equal=True)
+    say(f"lookup_sim on the card against a dictionary: 10,000 pairs ({hits:,} in the top-20 "
+        f"lists), all equal")
+
+    # the entry point at full width: train_deepsim's own wall per step
+    g = read_edgelist_graph(path)
+    walks = simulate_walks(g, 10, 80, key_for(0, 0), device=dev)
+    cfg = DeepSimConfig()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds.train_deepsim(walks, table, n, cfg, key=6, steps=DEEPSIM_STEPS, device=dev, losses=losses)
+    train_s = time.perf_counter() - t0  # ends with the embedding's copy to the host
+    first, last = float(np.mean(losses[:100])), float(np.mean(losses[-100:]))
+    out["train_deepsim"] = dict(steps=DEEPSIM_STEPS, wall_s=train_s,
+                                ms_per_step=train_s / DEEPSIM_STEPS * 1e3,
+                                cli_train_ms_per_step=stages["train"] / DEEPSIM_STEPS * 1e3)
+    out["loss"] = dict(steps=DEEPSIM_STEPS, first_100_mean=first, last_100_mean=last)
+    say(f"train_deepsim (V = {n:,}, B = 128, window 10, dim 128), {DEEPSIM_STEPS} steps in this "
+        f"process: {train_s:.3f} s, {train_s / DEEPSIM_STEPS * 1e3:.3f} ms a step (host clock, "
+        f"synchronised; the deepsim CLI's train stage "
+        f"{stages['train'] / DEEPSIM_STEPS * 1e3:.3f} ms a step); mean loss of the first 100 "
+        f"steps {first:.4f}, of the last 100 {last:.4f}")
+    check(last < first, f"DeepSim loss did not fall: {first} -> {last}")
+
+    # its step (the same Trainer.step) in parts: time, launches, busy share, memory
+    trainer = ds.Trainer(walks, table, ds.init_params(cfg, n, key_for(0, 2), dev), cfg,
+                         key_for(0, 3), dev)
+
+    def run(steps=50):
+        for _ in range(steps):
+            trainer.step()
+
+    with full_fp32():
+        run()
+        _, peak_gb = memory_peak_gb(run)
+        ev_ms, host_ms = timed_call(run, runs=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(DEEPSIM_STEPS)
+        torch.cuda.synchronize()
+        long_ms = (time.perf_counter() - t0) * 1e3
+        busy, kernels = device_profile(trainer.step)
+        one_host = timed_call(trainer.step, runs=5)[1]
+    r = dict(v=n, walks=list(walks.shape), minibatch=cfg.minibatch, dim=cfg.dim,
+             window=cfg.window, ms_per_step_events=ev_ms / 50, ms_per_step_host=host_ms / 50,
+             ms_per_step_host_unbroken=long_ms / DEEPSIM_STEPS,
+             device_intervals_per_step=kernels, busy_ms_one_step=busy,
+             busy_share_one_step=None if busy is None else busy / one_host, peak_gb=peak_gb)
+    out["step"] = r
+    say(f"DeepSim Trainer.step (draws, window labels, gather, [128 x {n:,}] logits, softmax CE, "
+        f"backward, Adam): {r['ms_per_step_events']:.3f} ms (CUDA events) / "
+        f"{r['ms_per_step_host']:.3f} ms (host) per step over runs of 50, "
+        f"{r['ms_per_step_host_unbroken']:.3f} ms (host) over one run of {DEEPSIM_STEPS}; "
+        f"{kernels} device intervals a step; card "
+        + ("busy not measured" if busy is None else
+           f"busy {busy:.3f} ms of a {one_host:.3f} ms step ({r['busy_share_one_step']:.3f})")
+        + f"; peak {peak_gb:.3f} GB above what was held")
+    del trainer
+
+    # seeded runs
+    t0 = time.perf_counter()
+    a = ds.train_deepsim(walks, table, n, cfg, key=5, steps=200, device=dev)
+    run_s = time.perf_counter() - t0
+    b = ds.train_deepsim(walks, table, n, cfg, key=5, steps=200, device=dev)
+    same = bool(np.array_equal(a, b))
+    out["determinism"] = dict(steps=200, run_s=run_s, two_runs_bit_equal=same)
+    say(f"DeepSim: two 200-step runs with one seed bit-equal {same} ({run_s:.2f} s a run)")
+    check(same, "two seeded DeepSim runs differ")
+    return sr + ".sim.txt"
+
+
+def sdne_oracle(params, x, minibatch, p1=0.005):
+    """Literal numpy float64 transcription of the reference graph's
+    formulas (SDNE/SDNE.py:88-122)."""
+    def l2(a):
+        return np.sum(np.square(a)) / 2.0  # tf.nn.l2_loss
+
+    (w1, b1), (w2, b2), (w3, b3), (w4, b4) = [
+        (np.asarray(w, np.float64), np.asarray(b, np.float64)) for (w, b) in params]
+    x = np.asarray(x, np.float64)
+    hidden1 = np.maximum(x @ w1 + b1, 0.0)            # SDNE.py:88
+    answer = hidden1 @ w2 + b2                        # SDNE.py:95
+    hidden2 = np.maximum(answer, 0.0)                 # SDNE.py:89
+    hidden3 = np.maximum(hidden2 @ w3 + b3, 0.0)      # SDNE.py:90
+    y = hidden3 @ w4 + b4                             # SDNE.py:94
+    recon = np.mean(l2(y - x) / (1.0 * minibatch))    # :104
+    reg1 = sum(l2(a) for pair in [(w1, b1), (w2, b2), (w3, b3), (w4, b4)] for a in pair)
+    sumq = np.mean(hidden2)                           # :115
+    reg2 = p1 * np.log(p1 / (sumq + 1e-8)) + (1.0 - p1) * np.log(
+        (1.0 - p1) / (1.0 - sumq + 1e-8))             # :116
+    return {"hidden1": hidden1, "answer": answer, "hidden2": hidden2, "hidden3": hidden3,
+            "y": y, "recon": recon, "reg1": reg1, "reg2": reg2,
+            "total": recon + 1e-1 * reg1 + 1e-1 * reg2}
+
+
+def phase_sdne(dev, tmp, report):
+    """SDNE: the reference net on the card against the float64 oracle, the
+    step at the blog shape, and the ``sdne`` CLI on the blog edge file."""
+    from graphtpu_torch.core.config import SDNEConfig
+    from graphtpu_torch.core.device import full_fp32
+    from graphtpu_torch.core.graph import dense_adjacency, read_edgelist_graph
+    from graphtpu_torch.core.prng import key_for
+    from graphtpu_torch.io.embfile import read_emb
+    from graphtpu_torch.models import sdne
+
+    out = report.setdefault("sdne", {})
+    cfg = SDNEConfig()
+    params = sdne.init_params(cfg, key_for(0, 0), dev)
+    x = torch.from_numpy(np.random.default_rng(0).random((100, 784), dtype=np.float32)).to(dev)
+    with torch.no_grad(), full_fp32():
+        acts = sdne.forward(params, x)
+        total, terms = sdne.loss_fn(params, x, cfg)
+    ref = sdne_oracle([(w.cpu().numpy(), b.cpu().numpy()) for w, b in params], x.cpu().numpy(),
+                      cfg.minibatch, cfg.sparsity_p)
+    errs = {}
+    for name in ("hidden1", "answer", "hidden2", "hidden3", "y"):
+        scale = max(1.0, float(np.abs(ref[name]).max()))
+        errs[name] = float(np.abs(acts[name].double().cpu().numpy() - ref[name]).max()) / scale
+        check(errs[name] <= TOL_SDNE_ACT, f"SDNE {name}: {errs[name]} > {TOL_SDNE_ACT}")
+    terms = dict(terms, total=total)
+    for name, tol in (("recon", 1e-4), ("reg1", 1e-4), ("reg2", 1e-3), ("total", 1e-4)):
+        errs[name] = abs(terms[name].item() - ref[name]) / abs(ref[name])
+        check(errs[name] <= tol, f"SDNE {name}: relative error {errs[name]} > {tol}")
+    out["reference_net"] = dict(units=list(cfg.units), batch=100, rel_errors=errs)
+    say("SDNE reference net [784, 400, 100, 300, 784] on the card against the float64 oracle: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (activations / max(1, |ref|) <= {TOL_SDNE_ACT:g}; terms relative <= 1e-4, "
+          "KL 1e-3)")
+
+    # the step at the blog shape (the CLI's input: rows of the dense adjacency)
+    path = os.path.join(tmp, "blog_ds.txt")
+    g = read_edgelist_graph(path)
+    adj = dense_adjacency(g, device=dev)
+    v = adj.shape[0]
+    bcfg = SDNEConfig(units=(v, 400, 100, 300, v))
+    init = sdne.init_params(bcfg, key_for(0, 1), dev)
+    trainer = sdne.Trainer(adj, init, bcfg, dev)
+
+    def run(steps=50):
+        for _ in range(steps):
+            trainer.step()
+
+    with full_fp32():
+        run()
+        _, peak_gb = memory_peak_gb(run)
+        ev_ms, host_ms = timed_call(run, runs=3)
+    del trainer
+    # the entry point in this process: train_sdne's own wall per step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sdne.train_sdne(adj, bcfg, steps=SDNE_STEPS, params=init, device=dev)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) / SDNE_STEPS * 1e3
+    del init, adj
+    emb = os.path.join(tmp, "blog_sdne.emb")
+    wall, stdout = run_cli(["sdne", "--input", path, "--output", emb])
+    stages = stages_of(stdout)
+    with open(emb) as f:
+        header = f.readline().split()
+    _, vecs = read_emb(emb)
+    check(header == [str(v), "100"] and vecs.shape == (v, 100) and bool(np.isfinite(vecs).all()),
+          f"sdne CLI: header {header}, rows {vecs.shape}")
+    out["step"] = dict(units=list(bcfg.units), minibatch=100, ms_per_step_events=ev_ms / 50,
+                       ms_per_step_host=host_ms / 50, peak_gb=peak_gb)
+    out["train_sdne"] = dict(steps=SDNE_STEPS, ms_per_step=train_ms,
+                             cli_train_ms_per_step=stages["train"] / 2000 * 1e3)
+    out["cli"] = dict(wall_s=wall, steps=2000, stages_s=stages, rows=v, dim=100)
+    say(f"SDNE Trainer.step at blog (units [{v:,}, 400, 100, 300, {v:,}], minibatch 100): "
+        f"{ev_ms / 50:.3f} ms (CUDA events) / {host_ms / 50:.3f} ms (host) per step over 50; "
+        f"train_sdne in this process {train_ms:.3f} ms a step over {SDNE_STEPS} (host clock, "
+        f"synchronised); peak {peak_gb:.3f} GB above the adjacency; sdne CLI (2,000 steps) "
+        f"{wall:.2f} s wall ({stages['train'] / 2000 * 1e3:.3f} ms a train step), "
+        + ", ".join(f"{k} {x:.3f} s" for k, x in stages.items())
+        + f"; .emb {' '.join(header)}, all finite")
+
+
+def le_residuals(w, y, evals, guard):
+    """max over kept eigenpairs of ||(D - W)y - lambda D y|| / ||D y||, in
+    float64 on the host."""
+    w = np.asarray(w, np.float64)
+    d = w.sum(axis=1) + guard
+    res = []
+    for lam, col in zip(evals, np.asarray(y, np.float64).T):
+        dy = d * col
+        res.append(float(np.linalg.norm(dy - w @ col - lam * dy) / np.linalg.norm(dy)))
+    return res
+
+
+def phase_le(dev, tmp, blog_sims, report):
+    """Laplacian Eigenmaps: the ``le`` CLI on the swiss roll, the blog
+    ``.sim.txt`` and R-MAT scale 11's, each kept eigenpair's residual, and
+    R-MAT's spectrum against scipy's float64 ``eigh``."""
+    import scipy.linalg
+
+    from graphtpu_torch.bench.generators import rmat_graph
+    from graphtpu_torch.io.edgelist import write_edgelist
+    from graphtpu_torch.io.simfile import read_sim_file
+    from graphtpu_torch.models import lapeigen as le
+
+    out = report.setdefault("le", {})
+    rpath = os.path.join(tmp, "rmat11_le.txt")
+    write_edgelist(rpath, rmat_graph(scale=11, n_edges=41_000, seed=0))
+    rsr = os.path.join(tmp, "rmat11_sr")
+    _, launched, sr_err = simrank_cli_checked(dev, rpath, rsr, "R-MAT 11, for LE")
+    out["rmat11_simrank"] = dict(launches=launched, file_err_vs_dense=sr_err)
+    say(f"simrank CLI on R-MAT 11: kernel launches {launched}, file top-20 vs the dense engine "
+        f"{sr_err:.3e} (bound {TOL_SIM_F32:g})")
+    cases = (("swiss roll", None), ("blog", blog_sims), ("rmat11", rsr + ".sim.txt"))
+    for tag, sim_path in cases:
+        npy = os.path.join(tmp, f"le_{tag.replace(' ', '_')}.npy")
+        argv = ["le", "--output", npy] + ([] if sim_path is None else ["--input", sim_path])
+        wall, stdout = run_cli(argv)
+        line = stdout.strip().splitlines()[-1]
+        evals = [float(e) for e in line.split("eigenvalues ")[1].split(";")[0].split()]
+        stages = stages_of(stdout)
+        y = np.load(npy)
+        if sim_path is None:
+            pts = torch.from_numpy(le.make_swiss_roll(2000)).to(dev)
+            w, guard = le.knn_heat_affinity(pts, 10, 15.0).cpu().numpy(), 0.0
+        else:
+            sims = read_sim_file(sim_path)
+            nn = max(max(sims), max(d for ps in sims.values() for d, _ in ps)) + 1
+            w, guard = le.sim_dict_affinity(sims, nn), 1e-6
+        res = le_residuals(w, y, evals, guard)
+        row = dict(n=int(w.shape[0]), kept_eigenvalues=evals, residuals=res, wall_s=wall,
+                   stages_s=stages)
+        check(len(evals) == 2 and min(evals) > 1e-5 and y.shape == (w.shape[0], 2)
+              and bool(np.isfinite(y).all()), f"le {tag}: eigenvalues {evals}, Y {y.shape}")
+        check(max(res) < TOL_LE_RESIDUAL, f"le {tag}: residuals {res}")
+        if tag == "blog":
+            # the smallest eigenvalues in float64 (LAPACK on the host): is the
+            # first kept pair the component's zero, lifted by float32 rounding?
+            d64 = w.astype(np.float64).sum(axis=1) + guard
+            di = 1.0 / np.sqrt(d64)
+            t0 = time.perf_counter()
+            low = scipy.linalg.eigh(np.eye(len(d64)) - di[:, None] * w * di[None, :],
+                                    eigvals_only=True, subset_by_index=[0, 3], driver="evr")
+            row.update(smallest_f64=[float(x) for x in low],
+                       f64_subset_s=time.perf_counter() - t0)
+        if tag == "rmat11":
+            wt = torch.from_numpy(w).to(dev)
+            lsym, _ = le.normalized_laplacian(wt, guard)
+            spec = torch.linalg.eigh(lsym)[0].cpu().numpy()
+            ms = cuda_ms(lambda: torch.linalg.eigh(lsym), warmup=1, runs=3)
+            d64 = w.astype(np.float64).sum(axis=1) + guard
+            di = np.where(d64 > 0, 1.0 / np.sqrt(np.maximum(d64, 1e-30)), 0.0)
+            ref = scipy.linalg.eigh(np.eye(len(d64)) - di[:, None] * w * di[None, :],
+                                    eigvals_only=True)
+            spec_err = float(np.abs(spec - ref).max())
+            kept = spec[spec > 1e-5][:2]
+            kept_err = float(np.abs(np.asarray(evals) - ref[spec > 1e-5][:2]).max())
+            row.update(spectrum_max_abs_err_vs_scipy_f64=spec_err, kept_vs_scipy=kept_err,
+                       zero_eigenvalues_f64=int((ref < 1e-9).sum()),
+                       near_floor_f32=[float(x) for x in spec[(spec > -1e-4) & (spec < 1e-4)]],
+                       eigh_cuda_ms=ms)
+            check(np.allclose(kept, evals, rtol=0, atol=1e-6),
+                  f"le rmat11: the CLI kept {evals}, the spectrum {kept}")
+            check(spec_err <= TOL_LE_EIGH, f"le rmat11: spectrum vs scipy {spec_err}")
+            check(kept_err <= TOL_LE_EIGH, f"le rmat11: kept vs scipy {kept_err}")
+        out[tag] = row
+        say(f"le {tag} (n = {w.shape[0]:,}): {wall:.2f} s wall in a subprocess, "
+            + ", ".join(f"{k} {x:.3f} s" for k, x in stages.items())
+            + f"; kept eigenvalues {evals}; residuals {[f'{r:.2e}' for r in res]} "
+              f"(bound {TOL_LE_RESIDUAL:g})"
+            + ("" if tag != "blog" else f"; the 4 smallest eigenvalues in float64 "
+               f"{[f'{x:.3e}' for x in row['smallest_f64']]} (reported)")
+            + ("" if tag != "rmat11" else
+               f"; spectrum vs scipy float64 max |err| {row['spectrum_max_abs_err_vs_scipy_f64']:.2e},"
+               f" kept {row['kept_vs_scipy']:.2e} (bound {TOL_LE_EIGH:g}); "
+               f"{row['zero_eigenvalues_f64']} zero eigenvalues in float64; eigh alone "
+               f"{ms:.1f} ms (CUDA events)"))
+
+
+def phase_support(dev, tmp, report):
+    """BFS, weight statistics, the C++ parser, the C++ generator and the CSR
+    cache."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import shortest_path
+
+    from graphtpu_torch import build_graph, load_graph_cached
+    from graphtpu_torch.core import stats
+    from graphtpu_torch.core.traversal import bfs_distances
+    from graphtpu_torch.io.edgelist import read_edgelist, read_edgelist_numpy
+    from graphtpu_torch.native import load
+
+    out = report.setdefault("support", {})
+    edges = blog_shaped_edges()
+    g = build_graph(edges, n_nodes=BLOG_NODES, device=dev)
+    rp, col, _, _ = g.host
+    src = np.random.default_rng(9).choice(BLOG_NODES, 64, replace=False).astype(np.int32)
+    t0 = time.perf_counter()
+    got = bfs_distances(g, src, device=dev)
+    bfs_s = time.perf_counter() - t0
+    a = sp.csr_matrix((np.ones(len(col)), col, rp), shape=(BLOG_NODES, BLOG_NODES))
+    ref = shortest_path(a, unweighted=True, indices=src)
+    want = np.where(np.isinf(ref), -1, ref).astype(np.int32)
+    check(np.array_equal(got, want), "BFS distances differ from scipy's")
+    out["bfs"] = dict(sources=64, seconds=bfs_s, max_dist=int(got.max()),
+                      unreachable=int((got < 0).sum()))
+    say(f"BFS from 64 blog sources on the card: {bfs_s:.3f} s, equal to scipy's shortest_path "
+        f"(max distance {got.max()}, {int((got < 0).sum()):,} unreachable pairs)")
+
+    wts = np.random.default_rng(10).uniform(0.1, 1.1, len(edges)).astype(np.float32)
+    gw = build_graph(edges, wts, n_nodes=BLOG_NODES, device=dev)
+    rp, _, w, deg = gw.host
+    seg = np.repeat(np.arange(BLOG_NODES), deg)
+    s1 = np.bincount(seg, w.astype(np.float64), BLOG_NODES)
+    s2 = np.bincount(seg, w.astype(np.float64) ** 2, BLOG_NODES)
+    d = np.maximum(deg, 1)
+    var = np.where(deg > 0, s2 / d - (s1 / d) ** 2, 0.0)
+    errs = {}
+    for name, fn, ref in (("out_weight_sums", stats.out_weight_sums, s1),
+                          ("out_weight_variance", stats.out_weight_variance, var)):
+        x1, x2 = fn(gw).cpu().numpy(), fn(gw).cpu().numpy()
+        errs[name] = float(np.abs(x1 - ref).max() / np.abs(ref).max())
+        check(np.array_equal(x1, x2), f"{name}: two runs differ")
+        check(errs[name] <= TOL_STATS, f"{name}: {errs[name]} > {TOL_STATS}")
+    out["stats"] = dict(rel_errors=errs, bit_equal=True)
+    say("weight statistics on the weighted blog graph against numpy float64: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (bound {TOL_STATS:g} of the "
+        "largest), two runs bit-equal")
+
+    path = os.path.join(tmp, "blog_ds.txt")
+    load()  # built by the CLIs' reads; bound here, so the timing is the parse alone
+    t0 = time.perf_counter()
+    cpp = read_edgelist(path)
+    cpp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    npy = read_edgelist_numpy(path)
+    np_s = time.perf_counter() - t0
+    check(np.array_equal(cpp[0], npy[0]) and cpp[1] is None and npy[1] is None,
+          "the C++ parser and the numpy reader disagree on the blog file")
+    out["parser"] = dict(edges=int(len(cpp[0])), cpp_s=cpp_s, numpy_s=np_s)
+    say(f"blog edge file ({len(cpp[0]):,} lines): C++ parser {cpp_s * 1e3:.1f} ms, numpy reader "
+        f"{np_s * 1e3:.1f} ms (host), the same edges")
+
+    mpath = os.path.join(tmp, "massive.txt")
+    nl, nr, deg_avg = MASSIVE
+    wall, stdout = run_cli(["generate", "--output", mpath, "--kind", "massive", "--nodes",
+                            str(nl), "--right", str(nr), "--avg-degree", str(deg_avg)])
+    target = (nl + nr) * deg_avg // 2
+    check(stdout.strip().endswith(f": {target} edges"), f"generate: {stdout.strip()}")
+    t0 = time.perf_counter()
+    me, _ = read_edgelist(mpath)
+    mread_s = time.perf_counter() - t0
+    keys = np.unique(me[:, 0] * (nl + nr) + me[:, 1])
+    check(len(me) == target == len(keys), f"generate: {len(me)} lines, {len(keys)} distinct")
+    check(me[:, 0].min() >= 0 and me[:, 0].max() < nl and me[:, 1].min() >= nl
+          and me[:, 1].max() < nl + nr, "generate: ids out of range")
+    t0 = time.perf_counter()
+    first = load_graph_cached(mpath, n_nodes=nl + nr)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = load_graph_cached(mpath, n_nodes=nl + nr)
+    second_s = time.perf_counter() - t0
+    check(all(np.array_equal(x, y) for x, y in zip(first.host, second.host) if x is not None),
+          "load_graph_cached: the second touch differs from the first")
+    out["generate"] = dict(n_left=nl, n_right=nr, edges=target, wall_s=wall, read_s=mread_s)
+    out["csr_cache"] = dict(slots=int(first.n_edges), first_s=first_s, second_s=second_s)
+    say(f"generate --kind massive (C++): {target:,} distinct bipartite edges on {nl:,} + {nr:,} "
+        f"nodes in {wall:.2f} s wall, read back in {mread_s:.2f} s; load_graph_cached "
+        f"({first.n_edges:,} slots): first touch {first_s:.2f} s, second {second_s:.2f} s, "
+        "the same CSR")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write a JSON report here")
@@ -1372,6 +1884,13 @@ def main(argv=None) -> int:
     say(f"built {_build.library_path().name} from {_build.CSRC} in {build_s:.1f} s; "
         f"ptxas: {regs}")
     report["build_s"] = build_s
+    from graphtpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load()
+    report["native_build_s"] = time.perf_counter() - t0
+    say(f"built {native.library_path().name} (g++, the C++ parser and generator) in "
+        f"{report['native_build_s']:.1f} s")
 
     say("== phase 3: kernels B1, B2 against their plain version")
     cases, blog_items = phase_kernels(dev, report)
@@ -1427,6 +1946,19 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_mc_cli(tmp, report)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        say("== phase 14: DeepSim (simrank --engine spmm, then deepsim)")
+        blog_sims = phase_deepsim(dev, tmp, report)
+        torch.cuda.empty_cache()
+        say("== phase 15: SDNE")
+        phase_sdne(dev, tmp, report)
+        torch.cuda.empty_cache()
+        say("== phase 16: Laplacian Eigenmaps")
+        phase_le(dev, tmp, blog_sims, report)
+        torch.cuda.empty_cache()
+        say("== phase 17: BFS, weight statistics, the C++ parser and generator, the CSR cache")
+        phase_support(dev, tmp, report)
+
     from graphtpu_torch.bench import bounds
     from graphtpu_torch.bench.spmv_rate import N_BUF
 
@@ -1476,6 +2008,7 @@ def main(argv=None) -> int:
             json.dump(report, f, indent=1)
     paths = {k: report[k] for k in ("walks", "sgns", "cli")}
     paths["mc"] = dict(report["mc"], cli=report["mc_cli"])
+    paths.update({k: report[k] for k in ("deepsim", "sdne", "le", "support")})
     print(json.dumps({"paths": paths}))
     say(card_line())
     print(json.dumps({"kernels": summary}))

@@ -1,9 +1,10 @@
 """Synthetic graph generators (numpy, deterministic given a seed).
 
-The three generators the port's checks need, with the semantics of
-``graphtpu/bench/generators.py``: uniform random pairs, bipartite, and
-R-MAT power-law graphs; and the two graphs the port's checks run at full
-width, :func:`blog_shaped_graph` and :func:`rmat14_graph`.
+The generators of ``graphtpu/bench/generators.py``, with its semantics:
+uniform random pairs, bipartite, directed and R-MAT power-law graphs, and
+the streamed, deduplicated bipartite writer for huge V; and the two graphs
+the port's checks run at full width, :func:`blog_shaped_graph` and
+:func:`rmat14_graph`.
 """
 
 from __future__ import annotations
@@ -44,6 +45,15 @@ def bipartite_random_graph(
     return np.stack([src, dst], axis=1)
 
 
+def directed_random_graph(n_nodes: int, avg_degree: int, seed: int = 0) -> np.ndarray:
+    """n*avg_degree directed pairs with uniform endpoints, self-loops
+    skipped."""
+    rng = np.random.default_rng(seed)
+    m = n_nodes * avg_degree
+    edges = rng.integers(0, n_nodes, size=(int(m * 1.1), 2), dtype=np.int64)
+    return edges[edges[:, 0] != edges[:, 1]][:m]
+
+
 def rmat_graph(
     scale: int,
     n_edges: int,
@@ -70,6 +80,45 @@ def rmat_graph(
         dst = dst + (1 << scale)
     keep = src != dst
     return np.stack([src[keep], dst[keep]], axis=1)
+
+
+def massive_bipartite_graph(
+    n_left: int,
+    n_right: int,
+    avg_degree: int,
+    out_path: str,
+    seed: int = 0,
+    chunk: int = 2_000_000,
+    use_native: bool = True,
+) -> int:
+    """Stream (n_left + n_right) * avg_degree / 2 distinct bipartite edges
+    to ``out_path`` (right ids offset by n_left; ``GraphGeneratorBf``'s
+    role); returns the edges written.  ``use_native`` picks the
+    multithreaded C++ generator with Bloom dedup
+    (:func:`graphtpu_torch.native.generate_graph`), else the exact numpy
+    dedup by a rolling sorted key set, ``chunk`` draws at a time, which
+    gives graphtpu's file for the same seed."""
+    target = (n_left + n_right) * avg_degree // 2
+    if use_native:
+        from graphtpu_torch.native import generate_graph
+
+        return generate_graph(out_path, "bipartite", n_left, n_right, target, seed=seed)
+    rng = np.random.default_rng(seed)
+    seen = np.empty(0, dtype=np.uint64)
+    written = 0
+    with open(out_path, "w") as f:
+        while written < target:
+            m = min(chunk, target - written + chunk // 4)
+            src = rng.integers(0, n_left, size=m, dtype=np.uint64)
+            dst = rng.integers(0, n_right, size=m, dtype=np.uint64)
+            key_u = np.unique(src * np.uint64(n_right) + dst)
+            fresh = key_u[~np.isin(key_u, seen, assume_unique=True)][: target - written]
+            seen = np.union1d(seen, fresh)
+            s = (fresh // np.uint64(n_right)).astype(np.int64)
+            d = (fresh % np.uint64(n_right)).astype(np.int64) + n_left
+            f.writelines(f"{a} {b}\n" for a, b in zip(s, d))
+            written += len(fresh)
+    return written
 
 
 BLOG_NODES = 10_496

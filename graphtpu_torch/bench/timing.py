@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,13 +39,22 @@ def busy_ms_of(events) -> float:
     return (total + hi - lo) / 1e3
 
 
-def busy_ms(fn) -> Optional[float]:
-    """ms the card was busy during one call of ``fn`` (the profiler's
-    device intervals), or None where the profiler records none."""
+def device_profile(fn) -> Tuple[Optional[float], int]:
+    """(ms the card was busy, device intervals: kernels and copies) during
+    one call of ``fn``, from the profiler; the ms are None where the
+    profiler records no device interval."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ms = busy_ms_of(prof.events())
-    return ms if ms > 0 else None
+    events = prof.events()
+    ms = busy_ms_of(events)
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in events)
+    return (ms if ms > 0 else None), n
+
+
+def busy_ms(fn) -> Optional[float]:
+    """ms the card was busy during one call of ``fn`` (the profiler's
+    device intervals), or None where the profiler records none."""
+    return device_profile(fn)[0]

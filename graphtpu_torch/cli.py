@@ -1,12 +1,14 @@
 """Command-line interface: ``python -m graphtpu_torch
-{simrank,node2vec,uniwalk,topsim,sweep} ...``.
+{simrank,node2vec,uniwalk,topsim,sweep,deepsim,sdne,le,generate} ...``.
 
 The flags and defaults of ``graphtpu``'s subcommands of the same names,
 plus ``--device`` (default ``cuda``; a missing card is an error, never a
-quiet move to the CPU); ``simrank`` adds ``--n-nodes`` (default: the
-largest id + 1) and ``uniwalk``/``topsim``/``sweep`` add ``--seed`` (the
-random streams' key, default 0).  ``node2vec``, ``uniwalk`` and ``topsim``
-print their wall time split into stages.
+quiet move to the CPU) on all but ``generate``; ``simrank`` adds
+``--n-nodes`` (default: the largest id + 1) and
+``uniwalk``/``topsim``/``sweep``/``deepsim`` add ``--seed`` (the random
+streams' key, default 0).  ``node2vec``, ``uniwalk``, ``topsim``,
+``deepsim``, ``sdne`` and ``le`` print their wall time split into stages;
+``simrank --engine spmm`` prints its hand kernels' launches.
 """
 
 from __future__ import annotations
@@ -106,16 +108,64 @@ def build_parser() -> argparse.ArgumentParser:
     sw.add_argument("--algorithm", choices=["uniwalk", "topsim"], default="uniwalk")
     sw.add_argument("--samples", type=int, nargs="+", default=None)
     sw.add_argument("--delimiter", default=None)
-    for sp in (uw, ts, sw):
+
+    ds = sub.add_parser("deepsim", help="DeepSim AE over .sim.txt targets")
+    ds.add_argument("--input", required=True)
+    ds.add_argument("--simrank-path", required=True)
+    ds.add_argument("--emb-output", required=True)
+    ds.add_argument("--dimensions", type=int, default=128)
+    ds.add_argument("--window-size", type=int, default=10)
+    ds.add_argument("--vertex-num", type=int, default=0,
+                    help="node count (default: the largest id + 1)")
+    ds.add_argument("--steps", type=int, default=50000)
+    ds.add_argument("--walks-cache", default=None)
+    ds.add_argument("--delimiter", default=None)
+    for sp in (uw, ts, sw, ds):
         sp.add_argument("--device", default="cuda", help="torch device (default cuda)")
         sp.add_argument("--seed", type=int, default=0, help="random streams' key")
+
+    gen = sub.add_parser("generate", help="synthetic graph -> edge list")
+    gen.add_argument("--output", required=True)
+    gen.add_argument("--kind", choices=["uniform", "bipartite", "directed", "rmat", "massive"],
+                     default="uniform")
+    gen.add_argument("--nodes", type=int, default=10000, help="V (left side for bipartite)")
+    gen.add_argument("--right", type=int, default=0, help="right-side V for bipartite/massive")
+    gen.add_argument("--avg-degree", type=int, default=10)
+    gen.add_argument("--scale", type=int, default=14, help="rmat: V = 2^scale")
+    gen.add_argument("--edges", type=int, default=0, help="rmat: edge count")
+    gen.add_argument("--seed", type=int, default=0)
+
+    sd = sub.add_parser("sdne", help="SDNE sparse autoencoder -> embeddings")
+    sd.add_argument("--input", required=True,
+                    help="edge list; rows of the adjacency are the AE inputs")
+    sd.add_argument("--output", required=True, help=".emb output")
+    sd.add_argument("--steps", type=int, default=2000)
+    sd.add_argument("--hidden", type=int, nargs="+", default=None,
+                    help="encoder widths, e.g. 400 100 (reference MNIST net)")
+    sd.add_argument("--delimiter", default=None)
+    sd.add_argument("--device", default="cuda", help="torch device (default cuda)")
+
+    le = sub.add_parser("le", help="Laplacian Eigenmaps embedding")
+    le.add_argument("--input", default=None,
+                    help=".sim.txt top-k file (simRank.py flow); omit for the swiss-roll demo")
+    le.add_argument("--output", required=True, help=".npy 2-d embedding (and .png if --plot)")
+    le.add_argument("--nodes", type=int, default=0)
+    le.add_argument("--plot", action="store_true", help="also write a PNG (needs matplotlib)")
+    le.add_argument("--k", type=int, default=10)
+    le.add_argument("--t", type=float, default=15.0)
+    le.add_argument("--device", default="cuda", help="torch device (default cuda)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     return {"node2vec": node2vec_main, "simrank": simrank_main, "uniwalk": mc_main,
-            "topsim": mc_main, "sweep": sweep_main}[args.cmd](args)
+            "topsim": mc_main, "sweep": sweep_main, "deepsim": deepsim_main,
+            "generate": generate_main, "sdne": sdne_main, "le": le_main}[args.cmd](args)
+
+
+def _stages(times: dict) -> str:
+    return ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
 
 
 def node2vec_main(args) -> int:
@@ -146,8 +196,7 @@ def node2vec_main(args) -> int:
                                 epochs=args.iter, subsample=args.subsample, seed=args.seed),
             seed=args.seed, output=out, device=device, stage_times=times,
         )
-        print(f"wrote {out} ("
-              + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()) + ")")
+        print(f"wrote {out} ({_stages(times)})")
     return 0
 
 
@@ -156,10 +205,12 @@ def simrank_main(args) -> int:
     from graphtpu_torch.core.device import resolve_device
     from graphtpu_torch.core.graph import read_edgelist_graph
     from graphtpu_torch.io.simfile import write_topk_files
+    from graphtpu_torch.kernels.spmm import SPMV_LAUNCHES
     from graphtpu_torch.kernels.topk import topk_rows
     from graphtpu_torch.simrank.exact import exact_simrank, exact_simrank_spmm
 
     device = resolve_device(args.device)
+    launched = dict(SPMV_LAUNCHES)
     g = read_edgelist_graph(
         args.input, delimiter=args.delimiter, weighted=args.weighted,
         n_nodes=args.n_nodes,
@@ -196,7 +247,11 @@ def simrank_main(args) -> int:
         vals = vals[inv_rows]
         idx = order[idx[inv_rows]].astype(np.int32)
     write_topk_files(args.output, idx, vals)
-    print(f"wrote {args.output}(.sim.txt)")
+    note = ""
+    if args.engine == "spmm":
+        note = " (kernel launches: " + ", ".join(
+            f"{k} {SPMV_LAUNCHES[k] - launched[k]}" for k in SPMV_LAUNCHES) + ")"
+    print(f"wrote {args.output}(.sim.txt){note}")
     return 0
 
 
@@ -264,6 +319,126 @@ def sweep_main(args) -> int:
     for r in res:
         print(f"{r.algorithm} sample={r.sample}: precision={r.precision:.4f} "
               f"ndcg={r.ndcg:.4f} ({r.seconds:.1f}s)")
+    return 0
+
+
+def deepsim_main(args) -> int:
+    import time
+
+    from graphtpu_torch.core.config import DeepSimConfig, WalkConfig
+    from graphtpu_torch.core.device import resolve_device
+    from graphtpu_torch.core.graph import read_edgelist_graph
+    from graphtpu_torch.io.embfile import write_emb
+    from graphtpu_torch.pipelines_deepsim import deepsim_pipeline
+
+    device = resolve_device(args.device)
+    t0 = time.perf_counter()
+    g = read_edgelist_graph(args.input, delimiter=args.delimiter,
+                            n_nodes=args.vertex_num or None)
+    t_graph = time.perf_counter() - t0
+    times = {}
+    emb = deepsim_pipeline(
+        g, simrank_path=args.simrank_path,
+        cfg=DeepSimConfig(dim=args.dimensions, window=args.window_size),
+        walk_cfg=WalkConfig(), walks_cache=args.walks_cache, seed=args.seed,
+        steps=args.steps, device=device, stage_times=times,
+    )
+    times["read"] += t_graph  # the edge file and the sim file
+    t0 = time.perf_counter()
+    write_emb(args.emb_output, emb)
+    times["write"] = time.perf_counter() - t0
+    print(f"wrote {args.emb_output} ({_stages(times)})")
+    return 0
+
+
+def generate_main(args) -> int:
+    from graphtpu_torch.bench import generators as gen
+
+    if args.kind == "massive":
+        n = gen.massive_bipartite_graph(args.nodes, args.right or args.nodes, args.avg_degree,
+                                        args.output, seed=args.seed)
+        print(f"wrote {args.output}: {n} edges")
+        return 0
+    if args.kind == "uniform":
+        edges = gen.uniform_random_graph(args.nodes, args.avg_degree, args.seed)
+    elif args.kind == "bipartite":
+        edges = gen.bipartite_random_graph(args.nodes, args.right or args.nodes,
+                                           args.avg_degree, args.seed)
+    elif args.kind == "directed":
+        edges = gen.directed_random_graph(args.nodes, args.avg_degree, args.seed)
+    else:  # rmat
+        m = args.edges or (1 << args.scale) * args.avg_degree // 2
+        edges = gen.rmat_graph(args.scale, m, seed=args.seed)
+    np.savetxt(args.output, edges, fmt="%d")
+    print(f"wrote {args.output}: {len(edges)} edges")
+    return 0
+
+
+def sdne_main(args) -> int:
+    import time
+
+    from graphtpu_torch.core.config import SDNEConfig
+    from graphtpu_torch.core.device import resolve_device
+    from graphtpu_torch.core.graph import dense_adjacency, read_edgelist_graph
+    from graphtpu_torch.io.embfile import write_emb
+    from graphtpu_torch.models.sdne import train_sdne
+
+    device = resolve_device(args.device)
+    t0 = time.perf_counter()
+    g = read_edgelist_graph(args.input, delimiter=args.delimiter)
+    x = dense_adjacency(g, device=device)
+    times = {"read": time.perf_counter() - t0}
+    v = x.shape[1]
+    units = [v, *args.hidden, v] if args.hidden else [v, 400, 100, 300, v]
+    t0 = time.perf_counter()
+    _, embed = train_sdne(x, SDNEConfig(units=tuple(units)), steps=args.steps,
+                          log_every=max(args.steps // 10, 1), device=device)
+    emb = embed(x)
+    times["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_emb(args.output, emb)
+    times["write"] = time.perf_counter() - t0
+    print(f"wrote {args.output} ({_stages(times)})")
+    return 0
+
+
+def le_main(args) -> int:
+    import time
+
+    from graphtpu_torch.core.config import LEConfig
+    from graphtpu_torch.core.device import resolve_device
+    from graphtpu_torch.models.lapeigen import (
+        le_embed_points,
+        le_embed_sim_dict,
+        make_swiss_roll,
+    )
+
+    device = resolve_device(args.device)
+    cfg = LEConfig(k_neighbors=args.k, heat_t=args.t)
+    times = {}
+    t0 = time.perf_counter()
+    if args.input:
+        from graphtpu_torch.io.simfile import read_sim_file
+
+        sims = read_sim_file(args.input)
+        n = args.nodes or (
+            max(max(s for s in sims), max(d for ps in sims.values() for d, _ in ps)) + 1)
+        y, evals = le_embed_sim_dict(sims, n, cfg, device=device, stage_times=times)
+    else:
+        y, evals = le_embed_points(make_swiss_roll(2000), cfg, device=device, stage_times=times)
+    times = {"embed": time.perf_counter() - t0, **times}
+    t0 = time.perf_counter()
+    np.save(args.output, y)
+    times["write"] = time.perf_counter() - t0
+    out = args.output if args.output.endswith(".npy") else f"{args.output}.npy"
+    print(f"wrote {out} (eigenvalues {' '.join(repr(float(e)) for e in evals)}; "
+          f"{_stages(times)})")
+    if args.plot:
+        from graphtpu_torch.viz import plot_embedding_2d
+
+        png = args.output.rsplit(".npy", 1)[0] + ".png"
+        plot_embedding_2d(y, png)
+        print(f"wrote {png}")
     return 0
 
 

@@ -12,6 +12,7 @@ from so plan builders (:mod:`graphtpu_torch.kernels.spmm`,
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -185,6 +186,37 @@ def read_edgelist_graph(
         edges, wts, n_nodes=n_nodes, directed=directed, dedup=dedup,
         device=device,
     )
+
+
+def load_graph_cached(
+    path: str,
+    n_nodes: Optional[int] = None,
+    weighted: bool = False,
+    delimiter: Optional[str] = None,
+    device="cpu",
+) -> Graph:
+    """:func:`read_edgelist_graph` with a CSR ``.csr.npz`` sidecar beside the
+    edge file.  The first touch parses and sorts the edge list (minutes at
+    10M vertices) and saves the finished CSR, written to a temporary file
+    and renamed; later touches load it, unless the edge file is newer.
+    The sidecar holds graphtpu's keys (``row_ptr``, ``col``, ``deg``,
+    ``weight`` if weighted), so one written by either package loads in the
+    other."""
+    npz = path + ".csr.npz"
+    if os.path.exists(npz) and os.path.getmtime(npz) >= os.path.getmtime(path):
+        with np.load(npz) as z:
+            w = z["weight"] if "weight" in z.files else None
+            return graph_from_numpy(z["row_ptr"], z["col"], w, z["deg"], device=device)
+    g = read_edgelist_graph(path, delimiter=delimiter, weighted=weighted, n_nodes=n_nodes,
+                            device=device)
+    rp, col, w, deg = g.host
+    arrs = dict(row_ptr=rp, col=col, deg=deg)
+    if w is not None:
+        arrs["weight"] = w
+    tmp = npz + ".tmp.npz"
+    np.savez(tmp, **arrs)
+    os.replace(tmp, npz)
+    return g
 
 
 def pad_graph_nodes(g: Graph, n_nodes: int) -> Graph:

@@ -1,7 +1,11 @@
-"""Edge-list text parsing (numpy).
+"""Edge-list text parsing.
 
-Whitespace- or comma-separated ``src dst [weight]`` lines; the delimiter
-is sniffed from the first line when not given.
+Whitespace- or comma-separated ``src dst [weight]`` lines.
+:func:`read_edgelist` parses with the C++ tokenizer of
+:mod:`graphtpu_torch.native`, which reads each line on its own;
+:func:`read_edgelist_numpy`, its plain version, sniffs the delimiter and
+the column count from the first line.  The two agree on every format the
+repository writes.
 """
 
 from __future__ import annotations
@@ -22,7 +26,18 @@ def _sniff_delimiter(line: str) -> Optional[str]:
 def read_edgelist(
     path: str, delimiter: Optional[str] = None
 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-    """Return (edges int64[E,2], weights float32[E] or None)."""
+    """Return (edges int64[E,2], weights float32[E] or None), parsed by the
+    C++ tokenizer (:func:`graphtpu_torch.native.parse_edgelist`)."""
+    from graphtpu_torch.native import parse_edgelist
+
+    return parse_edgelist(path, delimiter)
+
+
+def read_edgelist_numpy(
+    path: str, delimiter: Optional[str] = None
+) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """:func:`read_edgelist` in numpy: the delimiter (when not given) and
+    the column count come from the first line."""
     with open(path, "r") as f:
         first = f.readline()
     if not first.strip():

@@ -108,7 +108,28 @@ Phases (any failure raises and the run exits non-zero):
      reader's, both timed; ``generate --kind massive`` (the C++ generator)
      writing 2,000,000 distinct in-range bipartite edges; and
      ``load_graph_cached``'s second touch equal to its first, both timed.
-Phases 9-17 print their numbers as a ``{"paths": ...}`` line (12-13 under
+ 18. dist (blog-shaped graph, 3 iterations): 4 gloo ranks sharing the card,
+     then 1 NCCL rank, each running the 1-D ring (f32, bf16), SUMMA (2x2;
+     1x1 on one rank) and the dense form, every rank's block against the
+     single-device tree path (dense: the dense engine) on its device within
+     1e-6 (bf16: 4 bf16 ulps of the tree path's bf16 run); B3 launched in
+     every rank; B3 on each rank's local tree (ring f32, bf16; SUMMA) over
+     the first block it multiplies and a seeded block of that shape and
+     dtype within 1e-6 of its plain version; per iteration the time split into B3, the wire and the
+     transposes, the plan's ms and peak memory per rank; node2vec walks
+     (40,960 x 10 hops, p = 1, q = 2) every transition an edge; reuse
+     UniWalk on 1,024 sources' injected walks and TopSim on 1,024 sources
+     in the even-split regime, each within 1e-5 of the single-device
+     engine; one ``train_sgns_dp`` epoch within 1e-5 of ``train_sgns``.
+ 19. the 10M flagship (``graphtpu_torch/bench/flagship.py``: V =
+     10,000,000, average degree 8, SAMPLE 10,000, TIMES 4, STEP 5, tiles of
+     2,048, windows of 4,096): generate, load (parse and CSR, then the
+     cached CSR), two windows stopped by the window budget, a resumed run
+     for the third; every source once; each row of the part files the
+     float top-k the run computed (ids equal, scores within the 6-decimal
+     rounding, every kept score above 0), empty just where the source has
+     no edge; s per tile, G hops/s, peak memory.
+Phases 9-19 print their numbers as a ``{"paths": ...}`` line (12-13 under
 ``mc``).
 The last two lines are the kernels' JSON summary (with each kernel's bound
 from graphtpu_torch/bench/bounds.py; B3's level-0 time excludes the cost its
@@ -141,6 +162,7 @@ from graphtpu_torch.bench.generators import (
     rmat14_graph,
 )
 from graphtpu_torch.bench.timing import busy_ms, cuda_ms, device_profile
+from graphtpu_torch.bench.timing import card as card_line
 
 TOL_F32 = 1e-5        # f32 product vs plain version / float64 oracle, values <= 1
 TOL_B3 = 1e-6         # B3 vs its plain version (same operations: bit-equal expected)
@@ -149,6 +171,7 @@ TOL_SIM_F32 = 2e-5    # SimRank scores, f32 modes, vs the dense fp32 engine
 TOL_SIM_BF16 = 1e-2   # SimRank scores, fast16, vs the dense fp32 engine
 TOL_MC_PARITY = 1e-5  # reuse top-k (sort, float64 run totals) vs the dense scatter oracle
 TOL_MC_ENUM = 1e-6    # TopSim enumerate, card vs CPU (the same float32 operations)
+TOL_F32_DIST = 1e-6   # sharded f32 SimRank vs the single-device tree path / dense engine
 TOL_SDNE_ACT = 2e-4   # SDNE activations vs the float64 oracle, of max(1, |ref|)
 TOL_LE_RESIDUAL = 1e-3  # LE: ||(D - W)y - lambda D y|| / ||D y|| of each kept pair, float64
 TOL_LE_EIGH = 1e-4    # LE: the float32 spectrum on the card vs scipy's float64 eigh
@@ -191,14 +214,6 @@ def say(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"FAILED: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout
-    return out.strip().splitlines()[0]
 
 
 def bf16_ulp(a: torch.Tensor) -> torch.Tensor:
@@ -1860,6 +1875,344 @@ def phase_support(dev, tmp, report):
         "the same CSR")
 
 
+DIST_RANKS = 4           # phase 18: gloo ranks sharing the card
+DIST_SOURCES = 1024      # reuse UniWalk and TopSim sources
+DIST_WALKS = 10          # node2vec hops of the distributed walks (4 per non-isolated node)
+TOL_DIST_BF16_ULPS = 4   # the bf16 ring vs the tree path's bf16 run (tests/test_torch_dist_cuda.py)
+TOL_SGNS_DP = 1e-5       # train_sgns_dp vs train_sgns on the same batches
+FLAGSHIP = dict(v=10_000_000, avg_deg=8, sample=10_000, times=4, stop_v=3 * 4096,
+                window=4096, tile=2048)
+
+
+def tensor_max(x: torch.Tensor) -> float:
+    """The largest entry, 0 for an empty tensor (a rank's block past V)."""
+    return float(x.max()) if x.numel() else 0.0
+
+
+def bf16_ulps(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest |got - ref| in bf16 ulps of ref (ref == 0 must be exact)."""
+    d = (got.float() - ref.float()).abs().double()
+    ulp = bf16_ulp(ref.float())
+    return tensor_max(torch.where(ref != 0, d / ulp.clamp(min=1e-300), d * 1e30))
+
+
+def tree_plain(tree, x):
+    """``tree_spmm(tree, x)`` by the plain version of B3, level by level."""
+    from graphtpu_torch.kernels import spmm
+
+    last = len(tree.levels) - 1
+    for k in range(last + 1):
+        sl, w = tree.levels[k], tree.weights[k]
+        if k == last:
+            sl, w = sl[: tree.n_nodes], w[: tree.n_nodes]
+        x = spmm.gather_rows_sum_plain(sl, w, x)
+    return x
+
+
+def b3_at_rank(it, seed):
+    """B3 at the shapes a sharded product gives it on this rank: the rank's
+    local tree through ``tree_spmm`` against the plain chain on the same
+    tree, over the first block the ring multiplies (``it.init()``) and a
+    seeded block of its shape and dtype; (max |err|, unequal elements)."""
+    from graphtpu_torch.kernels import spmm
+
+    first = it.init()
+    gen = torch.Generator(device=first.device).manual_seed(seed)
+    rand = torch.rand(first.shape, generator=gen, device=first.device).to(first.dtype)
+    err, unequal = 0.0, 0
+    for x in (first, rand):
+        got, want = spmm.tree_spmm(it.tree, x), tree_plain(it.tree, x)
+        err = max(err, tensor_max((got - want).abs()))
+        unequal += int((got != want).sum())
+    return err, unequal
+
+
+def _dist_rank(device):
+    """Phase 18 on one rank: every dist form on the blog-shaped graph, each
+    checked on this rank's device against the single-device path; returns
+    (rank 0) the numbers of every rank."""
+    import torch.distributed as dist
+
+    from graphtpu_torch.core.config import SGNSConfig, SimRankConfig, TopSimConfig, UniWalkConfig
+    from graphtpu_torch.dist import mesh as dm
+    from graphtpu_torch.dist.node2vec_dist import distributed_node2vec_walks
+    from graphtpu_torch.dist.sgns_dp import train_sgns_dp
+    from graphtpu_torch.dist.sharded_graph import shard_graph
+    from graphtpu_torch.dist.simrank_sharded import sharded_exact_simrank
+    from graphtpu_torch.dist.spmm_sharded import make_sharded_iter, sharded_simrank_spmm
+    from graphtpu_torch.dist.spmm_summa import make_summa_iter, summa_simrank_spmm
+    from graphtpu_torch.dist.topsim_dist import distributed_topsim_simrank
+    from graphtpu_torch.dist.uniwalk_dist import distributed_uniwalk_simrank_reuse
+    from graphtpu_torch.kernels import spmm
+    from graphtpu_torch.kernels.sampling import edge_exists
+    from graphtpu_torch.models.sgns import train_sgns
+    from graphtpu_torch.simrank.exact import exact_simrank, exact_simrank_spmm
+    from graphtpu_torch.simrank.topsim import topsim_simrank
+    from graphtpu_torch.simrank.uniwalk import uniwalk_simrank_reuse_topk
+    from graphtpu_torch.walks.walker import uniform_walks
+
+    n = dist.get_world_size()
+    mesh = dm.make_1d_mesh(device=device)
+    dev, grp = mesh.device, mesh.groups["data"]
+    grid = dm.make_2d_mesh(2, 2, device=device) if n == 4 else dm.make_2d_mesh(1, 1, device=device)
+    g = blog_shaped_graph()
+    v = g.n_nodes
+    cfg = SimRankConfig(iterations=ITERATIONS)
+    out = {"backend": mesh.backend, "ranks": n, "grid": list(grid.shape)}
+
+    def everyone(row):
+        return dm.all_gather(torch.tensor(row, dtype=torch.float64, device=dev), grp).cpu().numpy()
+
+    forms = {
+        "ring_f32": lambda st: sharded_simrank_spmm(g, mesh, cfg, stage_times=st),
+        "ring_bf16": lambda st: sharded_simrank_spmm(g, mesh, cfg, dtype=torch.bfloat16,
+                                                     stage_times=st),
+        "summa_f32": lambda st: summa_simrank_spmm(g, grid, cfg, stage_times=st),
+        "dense": lambda st: sharded_exact_simrank(g, mesh, cfg, stage_times=st),
+    }
+    blocks, rows = {}, {}
+    for name, fn in forms.items():
+        st = {}
+        dist.barrier()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        spmm.GATHER_LAUNCHES["gather_rows_sum"] = 0
+        t0 = time.perf_counter()
+        blocks[name] = fn(st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = spmm.GATHER_LAUNCHES["gather_rows_sum"]
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        per = [st.get(k, 0.0) / cfg.iterations for k in ("b3", "wire", "local")]
+        rows[name] = [(1e3 * wall - st["plan"]) / cfg.iterations,
+                      st.get("matmul", 0.0) / cfg.iterations if name == "dense" else per[0],
+                      per[1], per[2], launches, peak, st["plan"]]
+    # the single-device references on this rank's device, one at a time
+    refs = {"ring_f32": lambda: exact_simrank_spmm(g, cfg, impl="tree", device=dev),
+            "ring_bf16": lambda: exact_simrank_spmm(g, cfg, impl="tree", dtype=torch.bfloat16,
+                                                    device=dev),
+            "dense": lambda: exact_simrank(g, cfg, device=dev)}
+    refs["summa_f32"] = refs["ring_f32"]
+    # B3 on this rank's local tree and blocks, against its plain version
+    # (after the counts were read: these launches are not the path's)
+    iters = {"ring_f32": lambda: make_sharded_iter(g, mesh, cfg),
+             "ring_bf16": lambda: make_sharded_iter(g, mesh, cfg, dtype=torch.bfloat16),
+             "summa_f32": lambda: make_summa_iter(g, grid, cfg)}
+    for name in forms:
+        ref = refs[name]()
+        b = blocks.pop(name)
+        r = ref[b.row_lo: b.row_lo + b.values.shape[0], b.col_lo: b.col_lo + b.values.shape[1]]
+        err = (bf16_ulps(b.values, r) if name == "ring_bf16"
+               else tensor_max((b.values.float() - r.float()).abs()))
+        del ref, r, b
+        b3 = b3_at_rank(iters[name](), 7 + mesh.rank) if name in iters else (0.0, 0)
+        torch.cuda.empty_cache()
+        out[name] = everyone(rows[name] + [err, *b3])  # [rank, DIST_COLS]
+
+    # distributed node2vec walks (p = 1, q = 2), every transition an edge
+    sg = shard_graph(g, n, mesh=mesh)
+    live = np.nonzero(g.host[3] > 0)[0].astype(np.int32)
+    starts = np.tile(live, 4)
+    t0 = time.perf_counter()
+    wl = distributed_node2vec_walks(sg, len(starts), DIST_WALKS, 1.0, 2.0, 11, mesh, starts=starts)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    walks = dm.gather_rows(wl, grp)
+    gd = g.to(dev)
+    a, b = walks[:, :-1], walks[:, 1:]
+    bad = ((b >= 0) & ~edge_exists(gd, a, b)).sum().item()
+    out["node2vec"] = dict(walkers=len(starts), hops=DIST_WALKS, s=walk_s, bad=bad,
+                           dead=float((walks < 0).float().mean()))
+
+    # reuse UniWalk on injected walks from 1,024 sources, against the
+    # single-device reuse top-k on the same walks
+    rcfg = UniWalkConfig(sample=2000, step=5, reuse_times=4, topk=20)
+    src = torch.arange(DIST_SOURCES, dtype=torch.int32, device=dev)
+    rw = uniform_walks(gd, torch.repeat_interleave(src, rcfg.sample // 4), 2 * 5 + 3, 17,
+                       device=dev)
+    t0 = time.perf_counter()
+    dv, di = distributed_uniwalk_simrank_reuse(sg, mesh, rcfg, walks=rw)
+    reuse_s = time.perf_counter() - t0
+    sv, si = uniwalk_simrank_reuse_topk(gd, rcfg, walks=rw, device=dev)
+    tie = (np.abs(sv - np.roll(sv, 1, 1)) <= TOL_MC_PARITY) | (np.abs(sv - np.roll(sv, -1, 1))
+                                                               <= TOL_MC_PARITY)
+    out["reuse"] = dict(sources=DIST_SOURCES, walks=int(rw.shape[0]), s=reuse_s,
+                        max_abs_err=float(np.abs(dv - sv).max()),
+                        ids_ok=bool(((di == si) | tie).all()))
+    del rw
+
+    # TopSim over the partitioned CSR on 1,024 sources in the even-split
+    # regime (mass >= degree at every expansion: no sampling), against the
+    # single-device engine's dense rows
+    tcfg = TopSimConfig(sample=1e5, step=1, topk=20, source_tile=32, frontier_capacity=16384)
+    sources = np.arange(DIST_SOURCES, dtype=np.int32)
+    t0 = time.perf_counter()
+    tv, ti = distributed_topsim_simrank(sg, mesh, tcfg, key=19, sources=sources,
+                                        device_capacity=1 << 20)
+    topsim_s = time.perf_counter() - t0
+    dense = topsim_simrank(gd, tcfg, key=19, sources=sources, dense=True, device=dev)
+    err, ok = ranked_close(tv, ti, dense, TOL_MC_PARITY)
+    out["topsim"] = dict(sources=DIST_SOURCES, s=topsim_s, max_abs_err=err, ok=ok)
+    del dense
+
+    # one data-parallel SGNS epoch on the gathered walks, against one card
+    scfg = SGNSConfig(epochs=1)
+    t0 = time.perf_counter()
+    d0, d1 = train_sgns_dp(walks, v, mesh, scfg)
+    sgns_s = time.perf_counter() - t0
+    s0, s1 = train_sgns(walks, v, scfg, device=dev)
+    out["sgns"] = dict(s=sgns_s, slots=int(walks.numel()),
+                       max_abs_err=float(max(np.abs(d0 - s0).max(), np.abs(d1 - s1).max())),
+                       finite=bool(np.isfinite(d0).all()))
+    return out
+
+
+DIST_COLS = ("iter_ms", "local_product_ms", "wire_ms", "transpose_ms", "b3_launches", "peak_gb",
+             "plan_ms", "err", "b3_vs_plain", "b3_unequal")
+
+
+def phase_dist(dev, report):
+    """dist on the card: DIST_RANKS gloo ranks, then one NCCL rank; returns
+    B3's launches over every rank's sharded products and B3's largest
+    error against its plain version at those products' shapes."""
+    from graphtpu_torch.dist.mesh import spawn
+
+    card = card_line()
+    out = report.setdefault("dist", {"card": card})
+    total, b3_err = 0, 0.0
+    for n, backend in ((DIST_RANKS, "gloo"), (1, "nccl")):
+        t0 = time.perf_counter()
+        res = spawn(_dist_rank, n, backend, "cuda", timeout=600)
+        wall = time.perf_counter() - t0
+        tag = f"{n} {backend} rank{'s' if n > 1 else ''}"
+        run = {"wall_s": wall, "backend": res["backend"], "grid": res["grid"]}
+        for name in ("ring_f32", "ring_bf16", "summa_f32", "dense"):
+            per = res[name]
+            rec = {c: per[:, k].tolist() for k, c in enumerate(DIST_COLS)}
+            run[name] = rec
+            launches = per[:, 4]
+            err = float(per[:, 7].max())
+            bf16 = name == "ring_bf16"
+            say(f"dist {tag}, {name}{' ' + 'x'.join(map(str, res['grid'])) if 'summa' in name else ''}"
+                f" ({card}): per iteration {per[:, 0].mean():.2f} ms (ranks' mean; "
+                f"{'matmuls' if name == 'dense' else 'B3'} {per[:, 1].mean():.2f}, wire "
+                f"{per[:, 2].mean():.2f}, transposes {per[:, 3].mean():.2f}; the plan before it "
+                f"{per[:, 6].mean():.1f} ms); B3 launches per rank "
+                f"{launches.astype(int).tolist()}; peak GB per rank "
+                + ", ".join(f"{x:.3f}" for x in per[:, 5])
+                + f"; vs the single-device {'dense engine' if name == 'dense' else 'tree path'} "
+                + (f"{err:.2f} bf16 ulps (bound {TOL_DIST_BF16_ULPS})" if bf16
+                   else f"{err:.3e} (bound {TOL_F32_DIST:g})"))
+            if name == "dense":
+                check(err <= TOL_F32_DIST, f"dist {tag} dense: {err}")
+                continue
+            plain_err = float(per[:, 8].max())
+            say(f"dist {tag}, {name}: B3 on each rank's local tree, over its first block and a "
+                f"seeded one of that shape, vs the plain version {plain_err:.3e} (bound "
+                f"{TOL_B3:g}); unequal elements per rank {per[:, 9].astype(int).tolist()}")
+            check(plain_err <= TOL_B3, f"dist {tag} {name}: B3 vs plain {plain_err} > {TOL_B3}")
+            b3_err = max(b3_err, plain_err)
+            check((launches > 0).all(), f"dist {tag} {name}: B3 not launched in every rank")
+            check(err <= (TOL_DIST_BF16_ULPS if bf16 else TOL_F32_DIST), f"dist {tag} {name}: {err}")
+            total += int(launches.sum())
+        nv, ru, ts, sg = res["node2vec"], res["reuse"], res["topsim"], res["sgns"]
+        say(f"dist {tag} ({card}): node2vec p=1 q=2 {nv['walkers']:,} walkers x {nv['hops']} hops "
+            f"{nv['s']:.2f} s, {nv['bad']} non-edges, dead share {nv['dead']:.4f}; reuse UniWalk "
+            f"{ru['sources']:,} sources ({ru['walks']:,} walks) {ru['s']:.2f} s, vs one card "
+            f"{ru['max_abs_err']:.2e}; TopSim (even splits) {ts['sources']:,} sources "
+            f"{ts['s']:.2f} s, vs one card's dense rows {ts['max_abs_err']:.2e}; SGNS epoch "
+            f"{sg['s']:.2f} s ({sg['slots']:,} slots), vs one card {sg['max_abs_err']:.2e}; "
+            f"spawn to end {wall:.1f} s")
+        check(nv["bad"] == 0, f"dist {tag}: {nv['bad']} walk transitions are not edges")
+        check(nv["dead"] == 0.0, f"dist {tag}: walkers died on a graph with no dead end")
+        check(ru["max_abs_err"] <= TOL_MC_PARITY and ru["ids_ok"], f"dist {tag}: reuse vs one card")
+        check(ts["ok"], f"dist {tag}: TopSim vs one card {ts['max_abs_err']}")
+        check(sg["finite"] and sg["max_abs_err"] <= TOL_SGNS_DP, f"dist {tag}: SGNS vs one card")
+        run.update(node2vec=nv, reuse=ru, topsim=ts, sgns=sg)
+        out[f"{backend}_{n}"] = run
+    return total, b3_err
+
+
+def phase_flagship(dev, tmp, report):
+    """The 10M flagship: two windows stopped by the window budget, then a
+    resumed run for the third; every source once."""
+    from graphtpu_torch.bench.flagship import run_flagship
+    from graphtpu_torch.dist import windows
+
+    card = card_line()
+    kw = dict(FLAGSHIP, graph_path=os.path.join(tmp, "g.txt"), out_dir=os.path.join(tmp, "out"),
+              device=dev, log=lambda m: say(f"  {m}"))
+    # keep the float top-k each window computes beside the 6-decimal part
+    # files (run_flagship looks the sweep up when it is called)
+    computed, sweep = {}, windows.windowed_topk_sweep
+
+    def recording_sweep(compute_tile, *a, **k):
+        def tile(sources, key):
+            vals, idx = compute_tile(sources, key)
+            computed.update(zip(sources.tolist(), zip(vals, idx)))
+            return vals, idx
+        return sweep(tile, *a, **k)
+
+    windows.windowed_topk_sweep = recording_sweep
+    try:
+        first = run_flagship(**kw, window_budget=2)
+        check(not first["complete"] and first["windows_done"] == 2,
+              "flagship: not stopped after 2")
+        second = run_flagship(**kw)
+    finally:
+        windows.windowed_topk_sweep = sweep
+    check(second["complete"] and second["windows_done"] == 1, "flagship: the resume did not end")
+    merged = windows.read_sweep_results(kw["out_dir"])
+    n = FLAGSHIP["stop_v"]
+    check(sorted(merged) == list(range(n)) and sorted(computed) == list(range(n)),
+          "flagship: a source is missing or repeated")
+    v = FLAGSHIP["v"]
+    with np.load(kw["graph_path"] + ".csr.npz") as z:
+        deg, row_ptr, col = z["deg"], z["row_ptr"], z["col"]
+    bad, kept, stars = [], [], 0
+    for s, p in merged.items():
+        vals, idx = computed[s]
+        keep = idx >= 0
+        x = vals[keep].astype(np.float64)
+        # a walk from s meets another node at an even step unless s has no
+        # edge or every neighbour's only neighbour is s (an isolated star,
+        # or an isolated edge): there the exact SimRank row is empty too
+        nbrs = col[row_ptr[s]: row_ptr[s + 1]]
+        reach = bool((deg[nbrs] > 1).any())
+        stars += not reach
+        ok = (bool(p) == reach and [i for i, _ in p] == idx[keep].tolist()
+              and all(0 <= i < v and i != s for i, _ in p)
+              and bool(np.all(x > 0) and np.all(np.diff(x) <= 0))
+              and all(abs(f - y) <= 5e-7 + 1e-12 for (_, f), y in zip(p, x)))
+        kept.append(x)
+        if not ok:
+            bad.append((s, int(deg[s]), deg[nbrs[:4]].tolist(), p[:4],
+                        list(zip(idx[:4].tolist(), vals[:4].tolist()))))
+    kept = np.concatenate(kept)
+    faults = "".join(f"\n  source {s} (degree {d}, first neighbours' degrees {nd}): file {p}, "
+                     f"computed {c}" for s, d, nd, p, c in bad[:5])
+    say(f"flagship rows: {len(kept):,} scores kept, the smallest {kept.min():.3e}; "
+        f"{int((kept < 5e-7).sum())} print as 0.000000; sources with no node at an even step "
+        f"(no edge, or an isolated star) {stars}; rows at fault {len(bad)}" + faults)
+    check(not bad, "flagship: a row differs from the computed top-k, is empty where a walk "
+          "reaches another node at an even step (or not empty where none does), or holds an "
+          "invalid neighbour or a score not above 0" + faults)
+    tiles = first["tile_s"] + second["tile_s"]
+    hops_tile = FLAGSHIP["tile"] * (FLAGSHIP["sample"] // FLAGSHIP["times"]) * (2 * 5 + 3)
+    rec = dict(card=card, generate_s=first["generate_s"], load_first_s=first["load_s"],
+               load_cached_s=second["load_s"], tile_s=tiles, slots=first["slots"],
+               hops_per_tile=hops_tile, g_hops_per_s=hops_tile * len(tiles) / sum(tiles) / 1e9,
+               peak_gb=max(first["peak_gb"] or 0.0, second["peak_gb"] or 0.0), windows=3, sources=n)
+    report["flagship"] = rec
+    say(f"flagship V={v:,} ({rec['slots']:,} slots; {card}): generate {rec['generate_s']:.1f} s, "
+        f"load {rec['load_first_s']:.1f} s (parse and CSR), cached {rec['load_cached_s']:.2f} s; "
+        f"{len(tiles)} tiles of {FLAGSHIP['tile']:,} sources x {FLAGSHIP['sample'] // FLAGSHIP['times']:,} walks x 13 hops: s per tile "
+        + ", ".join(f"{t:.3f}" for t in tiles) + f"; {rec['g_hops_per_s']:.3f} G hops/s; peak "
+        f"{rec['peak_gb']:.2f} GB; 2 windows, stopped, resumed for the third: {n:,} sources "
+        "once each")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write a JSON report here")
@@ -1959,6 +2312,16 @@ def main(argv=None) -> int:
         say("== phase 17: BFS, weight statistics, the C++ parser and generator, the CSR cache")
         phase_support(dev, tmp, report)
 
+    say(f"== phase 18: dist ({DIST_RANKS} gloo ranks on the card, then 1 NCCL rank; blog-shaped)")
+    dist_launches, dist_b3_err = phase_dist(dev, report)
+    launches["gather"] += dist_launches
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        say("== phase 19: the 10M flagship (generate, load, 2 windows, stop, resume the third)")
+        phase_flagship(dev, tmp, report)
+    torch.cuda.empty_cache()
+
     from graphtpu_torch.bench import bounds
     from graphtpu_torch.bench.spmv_rate import N_BUF
 
@@ -1983,7 +2346,8 @@ def main(argv=None) -> int:
     t0 = report["tree_level0"]
     b3 = entry(
         "gather_rows_sum (B3)", "graphtpu_torch/kernels/csrc/gather.cu",
-        "graphtpu/kernels/spmm.py:851", "gather", [c["max_abs_err_plain"] for c in tree_cases],
+        "graphtpu/kernels/spmm.py:851", "gather",
+        [c["max_abs_err_plain"] for c in tree_cases] + [dist_b3_err],
         level0, bounds.gather_work(t0["real_rows"], t0["width"], t0["c"], t0["table_rows"], 4),
         level0["library_ms"])
     # `ms` is level 0 alone, whose panel stores slab-major; level 1 pays for
@@ -2008,7 +2372,7 @@ def main(argv=None) -> int:
             json.dump(report, f, indent=1)
     paths = {k: report[k] for k in ("walks", "sgns", "cli")}
     paths["mc"] = dict(report["mc"], cli=report["mc_cli"])
-    paths.update({k: report[k] for k in ("deepsim", "sdne", "le", "support")})
+    paths.update({k: report[k] for k in ("deepsim", "sdne", "le", "support", "dist", "flagship")})
     print(json.dumps({"paths": paths}))
     say(card_line())
     print(json.dumps({"kernels": summary}))

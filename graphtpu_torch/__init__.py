@@ -19,14 +19,20 @@ Each module sits opposite its ``graphtpu`` counterpart:
   simrank/  exact SimRank, dense and sparse (stream or tree); the
             Monte-Carlo engines: UniWalk, TopSim, double walks,
             meeting-probability estimators and TopSim_Dev
-  dist/     source windows with a durable cursor
+  dist/     multi-rank programs on torch.distributed: meshes and a local
+            launcher, the partitioned CSR, sharded exact SimRank (dense,
+            the 1-D ring and 2-D SUMMA on kernel B3), the frontier
+            exchange with partitioned-graph walks, UniWalk, TopSim and
+            node2vec, data-parallel SGNS, source windows with a durable
+            cursor
   utils/    logs, step metrics, profiler traces
   pipelines node2vec: walks -> SGNS -> ``.emb``
   pipelines_deepsim  DeepSim: ``.sim.txt`` + walks -> autoencoder -> W1
   viz       PNG plots of the LE flows (matplotlib, imported when used)
+  dryrun    every dist entry point once on N local ranks
   bench/    synthetic graph generators, the SpMV item-rate probe, the
             embedding path's and the engines' profiles, walk
-            diagnostics, gold-standard sweeps
+            diagnostics, gold-standard sweeps, the 10M flagship
 This package imports neither ``jax`` nor ``graphtpu``.
 """
 

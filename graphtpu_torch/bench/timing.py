@@ -2,10 +2,19 @@
 
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them; raises
+    where nvidia-smi does not run."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
 
 
 def cuda_ms(fn, warmup: int = 2, runs: int = 9) -> float:

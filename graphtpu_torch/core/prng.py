@@ -37,3 +37,9 @@ def key_for(seed: int, *stream: int) -> int:
 def generator(key: int, device) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded with ``key``."""
     return torch.Generator(device=device).manual_seed(key)
+
+
+def per_device_key(key: int, mesh, axis: str) -> int:
+    """The key of this rank's own stream along ``axis`` of ``mesh``
+    (graphtpu folds ``axis_index`` into the key inside ``shard_map``)."""
+    return key_for(key, mesh.axis_index(axis))

@@ -187,11 +187,24 @@ def sgns_step(
     negs: torch.Tensor,
     lr: float,
     n_nodes: int,
+    data_group=None,
 ) -> Params:
     """One SGD step.  Collision normalisation: a row hit k times in the batch
     moves by its summed gradient over k, so the per-occurrence step matches
-    gensim's sequential update whatever the batch and vocabulary size."""
+    gensim's sequential update whatever the batch and vocabulary size.
+
+    ``data_group``: the batch is this rank's shard of a batch split over the
+    process group; the row sums and counts are summed over the group (one
+    all-reduce) before the update, so every rank takes the full batch's
+    step."""
     (g0, g1), (c0, c1) = sgns_manual_grads(params, centers, contexts, mask, negs, n_nodes)
+    if data_group is not None:
+        from graphtpu_torch.dist.mesh import psum
+
+        d = g0.shape[1]
+        packed = psum(torch.cat([g0, c0[:, None], g1, c1[:, None]], dim=1), data_group)
+        g0, c0 = packed[:, :d], packed[:, d]
+        g1, c1 = packed[:, d + 1: 2 * d + 1], packed[:, 2 * d + 1]
     syn0, syn1 = params
     return (syn0 - lr * (g0 / c0.clamp(min=1)[:, None]),
             syn1 - lr * (g1 / c1.clamp(min=1)[:, None]))
@@ -208,13 +221,22 @@ def batch_step(
     gen: torch.Generator,
     lr: float,
     n_nodes: int,
+    shard=None,
 ) -> Params:
     """One training step on the center ``slots`` of the compacted walks:
     the batch's dynamic windows, then its negatives, drawn from ``gen`` in
-    that order, then :func:`sgns_step`."""
+    that order, then :func:`sgns_step`.  ``shard = (group, index, n)``:
+    every rank draws the whole batch and steps on its ``index``-th of ``n``
+    row blocks, summing the gradients over ``group``."""
     centers, contexts, mask = _gather_batch(cwalks, slots, window, gen)
     negs = alias_draw_batch(neg_j, neg_q, gen, nshape)
-    return sgns_step(params, centers, contexts, mask, negs, lr, n_nodes)
+    if shard is None:
+        return sgns_step(params, centers, contexts, mask, negs, lr, n_nodes)
+    group, i, n = shard
+    b = centers.shape[0] // n
+    part = slice(i * b, (i + 1) * b)
+    return sgns_step(params, centers[part], contexts[part], mask[part], negs[part], lr,
+                     n_nodes, data_group=group)
 
 
 def _gather_batch(
@@ -257,6 +279,7 @@ def train_sgns(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,
     device=None,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Train on a [W, L] walk tensor on ``device`` (default ``cuda``);
     returns (syn0, syn1) as numpy [V, D].
@@ -265,9 +288,28 @@ def train_sgns(
     decaying linearly across the run.  Steps run in chunks of
     ``chunk_steps``; with ``checkpoint_path``, the state is saved every
     ``checkpoint_every`` chunks and a run finding the file resumes from it.
+
+    ``mesh`` (:mod:`graphtpu_torch.dist.mesh`): synchronous data parallelism
+    over its first ("data") axis, on the mesh's device (``device`` is not
+    read).  Every rank holds
+    the walks and both tables whole, draws every batch as one device would,
+    steps on its share of the batch (rounded down to a multiple of the
+    axis) and sums the gradients over the axis, so a mesh run follows the
+    single-device trajectory but for the order of the sums.  Rank 0 writes
+    the checkpoints.  A second ("model") axis of more than one rank, which
+    graphtpu uses to row-shard the tables, raises NotImplementedError.
     """
     from graphtpu_torch.models.checkpoint import load_state, save_state
 
+    shard = None
+    if mesh is not None:
+        if len(mesh.shape) > 1 and mesh.shape[1] > 1:
+            raise NotImplementedError(
+                "train_sgns(mesh=) runs the data axis only; row-sharding the tables over a "
+                f"'{mesh.axis_names[1]}' axis of {mesh.shape[1]} ranks is ROADMAP item 14")
+        axis = mesh.axis_names[0]
+        shard = (mesh.groups[axis], mesh.axis_index(axis), mesh.axis_size(axis))
+        device = mesh.device
     dev = resolve_device(device)
     if key is None:
         key = cfg.seed
@@ -287,6 +329,8 @@ def train_sgns(
     # relative to gensim's sequential SGD, so cap the batch near the
     # vocabulary size to keep small-graph training gensim-equivalent
     batch = min(cfg.batch_size, slots_per_epoch, max(64, n_nodes))
+    if shard is not None:
+        batch = max(shard[2], batch - batch % shard[2])
     steps_per_epoch = slots_per_epoch // batch
     total_steps = max(cfg.epochs * steps_per_epoch, 1)
     chunk = max(1, min(chunk_steps, steps_per_epoch))
@@ -318,10 +362,12 @@ def train_sgns(
                     gstep = e * steps_per_epoch + i
                     lr = cfg.alpha - (cfg.alpha - cfg.min_alpha) * gstep / total_steps
                     params = batch_step(params, cwalks, perm[i * batch:(i + 1) * batch],
-                                        cfg.window, neg_j, neg_q, nshape, gen, lr, n_nodes)
+                                        cfg.window, neg_j, neg_q, nshape, gen, lr, n_nodes,
+                                        shard=shard)
                 done_chunks += 1
                 nxt = start + chunk
-                if checkpoint_path and checkpoint_every and done_chunks % checkpoint_every == 0:
+                if (checkpoint_path and checkpoint_every and done_chunks % checkpoint_every == 0
+                        and (shard is None or shard[1] == 0)):
                     meta = ({"epoch": e, "next_start": nxt} if nxt < steps_per_epoch
                             else {"epoch": e + 1, "next_start": 0})
                     save_state(

@@ -128,8 +128,22 @@ Phases (any failure raises and the run exits non-zero):
      for the third; every source once; each row of the part files the
      float top-k the run computed (ids equal, scores within the 6-decimal
      rounding, every kept score above 0), empty just where the source has
-     no edge; s per tile, G hops/s, peak memory.
-Phases 9-19 print their numbers as a ``{"paths": ...}`` line (12-13 under
+     no edge; s per tile, G hops/s, peak memory.  Then SGNS's model axis
+     at that V: 4 gloo ranks sharing the card as a (1, 4) mesh run 10 steps
+     of ``make_sgns_train_step`` (B = 8,192, D = 128, shared negatives) on
+     batches from 65,536 uniform walks of 20 hops; every rank's tables are
+     its two 2,500,000-row shards and its peak stays below one whole table;
+     8,192 sampled touched and 8,192 untouched rows within 1e-5 of the same
+     steps of ``sgns_step`` on whole tables on the card (untouched rows
+     unchanged); ms per step split into lookup, compute and update.
+     Phase 18 also runs its SGNS epoch on (4, 1), (2, 2) and (1, 4)
+     (data, model) meshes, each within 1e-5 of one card, with the split,
+     the tables, peak and all-reduce bytes per rank.
+ 20. dense precision: ``exact_simrank`` at blog, 5 iterations, at
+     matmul_precision "highest", "high" (bit-equal to "highest") and
+     "default" (TF32: differs from "highest", by at most 2·5·2^-11); each
+     mode's time and "default"'s top-20 agreement with "highest".
+Phases 9-20 print their numbers as a ``{"paths": ...}`` line (12-13 under
 ``mc``).
 The last two lines are the kernels' JSON summary (with each kernel's bound
 from graphtpu_torch/bench/bounds.py; B3's level-0 time excludes the cost its
@@ -1882,6 +1896,9 @@ TOL_DIST_BF16_ULPS = 4   # the bf16 ring vs the tree path's bf16 run (tests/test
 TOL_SGNS_DP = 1e-5       # train_sgns_dp vs train_sgns on the same batches
 FLAGSHIP = dict(v=10_000_000, avg_deg=8, sample=10_000, times=4, stop_v=3 * 4096,
                 window=4096, tile=2048)
+SGNS_MESHES = ((4, 1), (2, 2), (1, 4))  # phase 18's (data, model) meshes for the SGNS epoch
+SGNS_COLS = ("wall_s", "steps", "table_bytes", "peak_gb", "wire_bytes_per_step",
+             "lookup_ms", "compute_ms", "update_ms", "err", "finite")
 
 
 def tensor_max(x: torch.Tensor) -> float:
@@ -2065,6 +2082,26 @@ def _dist_rank(device):
     out["sgns"] = dict(s=sgns_s, slots=int(walks.numel()),
                        max_abs_err=float(max(np.abs(d0 - s0).max(), np.abs(d1 - s1).max())),
                        finite=bool(np.isfinite(d0).all()))
+    # the same epoch with the tables row-sharded over a model axis, beside
+    # the data-only mesh (every mesh timed with its stages synchronised)
+    if n == DIST_RANKS:
+        for shape in SGNS_MESHES:
+            m = dm.make_mesh(model_parallel=shape[1], device=device) if shape[1] > 1 else mesh
+            st = {}
+            dist.barrier()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            m0, m1 = train_sgns_dp(walks, v, m, scfg, stage_times=st)
+            wall = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            steps = st["steps"]
+            err = float(max(np.abs(m0 - s0).max(), np.abs(m1 - s1).max()))
+            out[f"sgns_{shape[0]}x{shape[1]}"] = everyone(
+                [wall, steps, st["table_bytes"], peak,
+                 (st["lookup_bytes"] + st["update_bytes"]) / steps, st["lookup"] / steps,
+                 st["compute"] / steps, st["update"] / steps, err, float(np.isfinite(m0).all())])
     return out
 
 
@@ -2130,6 +2167,21 @@ def phase_dist(dev, report):
         check(ts["ok"], f"dist {tag}: TopSim vs one card {ts['max_abs_err']}")
         check(sg["finite"] and sg["max_abs_err"] <= TOL_SGNS_DP, f"dist {tag}: SGNS vs one card")
         run.update(node2vec=nv, reuse=ru, topsim=ts, sgns=sg)
+        for shape in SGNS_MESHES if n == DIST_RANKS else ():
+            key = f"sgns_{shape[0]}x{shape[1]}"
+            per = res[key]
+            rec = {c: per[:, k].tolist() for k, c in enumerate(SGNS_COLS)}
+            run[key] = rec
+            say(f"dist {tag}, SGNS epoch on a ({shape[0]}, {shape[1]}) (data, model) mesh "
+                f"({card}): {per[0, 0]:.2f} s wall, {int(per[0, 1])} steps; per step lookup "
+                f"{per[:, 5].mean():.2f} ms, compute {per[:, 6].mean():.2f}, update "
+                f"{per[:, 7].mean():.2f} (ranks' mean, synchronised stages); tables per rank "
+                + ", ".join(f"{x / 1e6:.2f}" for x in per[:, 2]) + " MB; peak per rank "
+                + ", ".join(f"{x:.3f}" for x in per[:, 3]) + " GB; into the all-reduces per "
+                "step per rank " + ", ".join(f"{x / 1e6:.2f}" for x in per[:, 4])
+                + f" MB; vs one card {per[:, 8].max():.2e} (bound {TOL_SGNS_DP:g})")
+            check(bool((per[:, 9] == 1).all()) and per[:, 8].max() <= TOL_SGNS_DP,
+                  f"dist {tag}: SGNS on a {shape} mesh vs one card {per[:, 8].max()}")
         out[f"{backend}_{n}"] = run
     return total, b3_err
 
@@ -2211,6 +2263,213 @@ def phase_flagship(dev, tmp, report):
         + ", ".join(f"{t:.3f}" for t in tiles) + f"; {rec['g_hops_per_s']:.3f} G hops/s; peak "
         f"{rec['peak_gb']:.2f} GB; 2 windows, stopped, resumed for the third: {n:,} sources "
         "once each")
+
+
+FLAGSHIP_SGNS = dict(walks=65_536, hops=20, steps=10, batch=8192, sample=8192, key=23)
+TOL_SGNS_10M = 1e-5      # sampled rows of the (1, 4) run vs the same steps on one card
+PRECISION_ITERATIONS = 5
+# "default" (TF32) against "highest" (fp32) after k iterations of
+# S' = c·W·(S·Wᵀ), W row-stochastic, 0 <= S <= 1.  TF32 keeps 10 of fp32's
+# 23 stored bits: an operand rounded to nearest is off by at most 2^-11 of
+# itself.  A product of two rounded operands whose row weights sum to 1
+# and whose entries are at most 1 is then off by at most 2·2^-11 (plus the
+# error it inherits, not amplified: the weights sum to 1); an iteration has
+# two products and is scaled by c < 1, so e_k <= c·(e_{k-1} + 4·2^-11) and
+# e_k <= 4·2^-11·c/(1 - c) = 6·2^-11 at c = 0.6, under the 2·k·2^-11 held
+# here (10·2^-11 at k = 5), which leaves room for fp32's own rounding in
+# both modes' sums.
+TOL_TF32_SIMRANK = 2 * PRECISION_ITERATIONS * 2.0 ** -11
+SGNS_10M_COLS = ("table_bytes", "peak_gb", "step_ms", "first_step_ms", "lookup_ms", "compute_ms",
+                 "update_ms", "wire_bytes_per_step", "rows")
+
+
+def _flagship_sgns_rank(device, tmp, v):
+    """Phase 19's SGNS on one rank of a (1, 4) mesh: its row shards drawn as
+    ``train_sgns`` draws a mesh's (syn0's init, and syn1 from a second key
+    in place of gensim's zeros so the first step moves syn0 too), then the
+    saved batches through ``make_sgns_train_step``; writes its rows of the
+    sampled ids and returns (rank 0) every rank's numbers."""
+    import torch.distributed as dist
+
+    from graphtpu_torch.core.config import SGNSConfig
+    from graphtpu_torch.core.prng import key_for
+    from graphtpu_torch.dist import mesh as dm
+    from graphtpu_torch.dist.sgns_dp import make_sgns_train_step, row_shards
+    from graphtpu_torch.models.sgns import init_syn0
+
+    mesh = dm.make_mesh(model_parallel=dist.get_world_size(), device=device)
+    dev = mesh.device
+    cfg = SGNSConfig()
+    sh = row_shards(mesh, v)
+    torch.cuda.reset_peak_memory_stats()
+    _, shard_batch, train_step = make_sgns_train_step(mesh, cfg, v)
+    params = tuple(init_syn0(key_for(FLAGSHIP_SGNS["key"], t), sh.lo, sh.rows, v, cfg.dim, dev)
+                   for t in (0, 1))
+    table_bytes = sum(p.numel() * p.element_size() for p in params)
+    batches = torch.load(os.path.join(tmp, "batches.pt"))
+    st, step_ms = {}, []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = train_step(params, *shard_batch(*b[:4]), b[4].item(), stage_times=st)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ids = torch.from_numpy(np.load(os.path.join(tmp, "sample_ids.npy"))).to(dev)
+    own = (ids >= sh.lo) & (ids < sh.lo + sh.rows)
+    np.savez(os.path.join(tmp, f"rows_{mesh.rank}.npz"), ids=ids[own].cpu().numpy(),
+             syn0=params[0][ids[own] - sh.lo].cpu().numpy(),
+             syn1=params[1][ids[own] - sh.lo].cpu().numpy())
+    k = len(batches)
+    row = [table_bytes, peak, float(np.mean(step_ms[1:])), step_ms[0], st["lookup"] / k,
+           st["compute"] / k, st["update"] / k, (st["lookup_bytes"] + st["update_bytes"]) / k,
+           sh.rows]
+    return dm.all_gather(torch.tensor(row, dtype=torch.float64, device=dev),
+                         mesh.groups["model"]).cpu().numpy()
+
+
+def phase_flagship_sgns(dev, tmp, report):
+    """SGNS's model axis at the 10M flagship graph: 10 steps of
+    ``make_sgns_train_step`` on a (1, 4) gloo mesh sharing the card (each
+    rank 1/4 of each table), on batches drawn from uniform walks on the
+    graph phase 19 built, against the same steps of ``sgns_step`` on whole
+    tables on the card, on a seeded sample of touched and untouched rows."""
+    from graphtpu_torch.core.config import SGNSConfig
+    from graphtpu_torch.core.device import full_fp32
+    from graphtpu_torch.core.graph import load_graph_cached
+    from graphtpu_torch.core.prng import generator, key_for
+    from graphtpu_torch.dist.mesh import spawn
+    from graphtpu_torch.models.sgns import _gather_batch, corpus_counts, init_syn0, sgns_step
+    from graphtpu_torch.walks.walker import uniform_walks
+
+    card = card_line()
+    v, fs, cfg = FLAGSHIP["v"], FLAGSHIP_SGNS, SGNSConfig()
+    t0 = time.perf_counter()
+    g = load_graph_cached(os.path.join(tmp, "g.txt"), n_nodes=v).to(dev)
+    gen = generator(key_for(fs["key"], 2), dev)
+    starts = torch.randint(0, v, (fs["walks"],), generator=gen, device=dev, dtype=torch.int32)
+    walks = uniform_walks(g, starts, fs["hops"], key_for(fs["key"], 3), device=dev)
+    del g
+    # the unigram^0.75 law of the walks for the shared negatives (the
+    # trainer's alias table is a host loop over V; multinomial draws the law)
+    law = corpus_counts(walks, v).double().pow(cfg.ns_exponent)
+    batches, touched = [], torch.zeros(v, dtype=torch.bool, device=dev)
+    for i in range(fs["steps"]):
+        slots = torch.randint(0, walks.numel(), (fs["batch"],), generator=gen, device=dev)
+        centers, contexts, mask = _gather_batch(walks, slots, cfg.window, gen)
+        negs = torch.multinomial(law, fs["batch"] * cfg.negative, replacement=True,
+                                 generator=gen).view(fs["batch"], cfg.negative).int()
+        lr = cfg.alpha - (cfg.alpha - cfg.min_alpha) * i / fs["steps"]
+        batches.append((centers, contexts, mask, negs, torch.tensor(lr)))
+        for x in (centers[centers >= 0], contexts[mask], negs.reshape(-1)):
+            touched[x.long()] = True
+    torch.save([tuple(t.cpu() for t in b) for b in batches], os.path.join(tmp, "batches.pt"))
+    rng = np.random.default_rng(fs["key"])
+    hit = torch.nonzero(touched).view(-1).cpu().numpy()
+    miss = torch.nonzero(~touched).view(-1).cpu().numpy()
+    ids = np.sort(np.concatenate([rng.choice(hit, fs["sample"], replace=False),
+                                  rng.choice(miss, fs["sample"], replace=False)]))
+    np.save(os.path.join(tmp, "sample_ids.npy"), ids)
+    prep_s = time.perf_counter() - t0
+    del walks, law, touched
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    per = spawn(_flagship_sgns_rank, DIST_RANKS, "gloo", "cuda", args=(tmp, v), timeout=600)
+    spawn_s = time.perf_counter() - t0
+    got = {k: np.zeros((len(ids), cfg.dim), np.float32) for k in ("syn0", "syn1")}
+    seen = np.zeros(len(ids), bool)
+    for r in range(DIST_RANKS):
+        with np.load(os.path.join(tmp, f"rows_{r}.npz")) as z:
+            at = np.searchsorted(ids, z["ids"])
+            seen[at] = True
+            for k in got:
+                got[k][at] = z[k]
+    check(bool(seen.all()), "10M SGNS: a sampled row is on no rank")
+
+    # the same steps on whole tables on one card
+    params = tuple(init_syn0(key_for(fs["key"], t), 0, v, v, cfg.dim, dev) for t in (0, 1))
+    init = tuple(p[torch.from_numpy(ids).to(dev)].cpu().numpy() for p in params)
+    t0 = time.perf_counter()
+    with full_fp32():
+        for centers, contexts, mask, negs, lr in batches:
+            params = sgns_step(params, centers, contexts, mask, negs, lr.item(), v)
+    torch.cuda.synchronize()
+    one_card_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    want = tuple(p[torch.from_numpy(ids).to(dev)].cpu().numpy() for p in params)
+    del params, batches
+    torch.cuda.empty_cache()
+    err = max(float(np.abs(got[k] - w).max()) for k, w in zip(("syn0", "syn1"), want))
+    untouched = np.isin(ids, miss)
+    still = all(np.array_equal(got[k][untouched], i[untouched]) for k, i in zip(got, init))
+    # a touched row moves in syn0 (a center's) or syn1 (a context's or a
+    # negative's) unless its every pair was masked
+    moved = float(((got["syn0"] != init[0]) | (got["syn1"] != init[1])).any(axis=1)
+                  [~untouched].mean())
+    whole_gb = v * cfg.dim * 4 / 1e9
+    rec = {c: per[:, k].tolist() for k, c in enumerate(SGNS_10M_COLS)}
+    rec.update(card=card, v=v, mesh=[1, DIST_RANKS], steps=fs["steps"], batch=fs["batch"],
+               walks=[fs["walks"], fs["hops"]], prep_s=prep_s, spawn_s=spawn_s,
+               one_card_step_ms=one_card_ms, max_abs_err=err, whole_table_gb=whole_gb)
+    report["flagship_sgns"] = rec
+    say(f"10M SGNS on a (1, {DIST_RANKS}) mesh ({card}): V = {v:,}, D = {cfg.dim}, "
+        f"{fs['steps']} steps of B = {fs['batch']:,} (shared negatives) on {fs['walks']:,} walks "
+        f"x {fs['hops']} hops; tables per rank " + ", ".join(f"{x / 1e9:.3f}" for x in per[:, 0])
+        + f" GB (a whole table {whole_gb:.2f} GB); peak per rank "
+        + ", ".join(f"{x:.3f}" for x in per[:, 1]) + " GB; ms per step (ranks' mean) "
+        f"{per[:, 2].mean():.1f} (the first {per[:, 3].mean():.1f}): lookup "
+        f"{per[:, 4].mean():.1f}, compute {per[:, 5].mean():.1f}, update {per[:, 6].mean():.1f} "
+        f"(synchronised stages); into the all-reduces {per[0, 7] / 1e6:.1f} MB a step per rank; "
+        f"one card on whole tables {one_card_ms:.1f} ms a step; {fs['sample']:,} touched and "
+        f"{fs['sample']:,} untouched rows vs one card {err:.2e} (bound {TOL_SGNS_10M:g}); "
+        f"batches drawn in {prep_s:.1f} s, spawn to end {spawn_s:.1f} s")
+    check(bool((per[:, 0] == 2 * per[:, 8] * cfg.dim * 4).all()),
+          "10M SGNS: a rank's tables are not its two shards")
+    check(bool((per[:, 1] < whole_gb).all()), "10M SGNS: a rank's peak reached a whole table")
+    check(err <= TOL_SGNS_10M, f"10M SGNS: sampled rows vs one card {err}")
+    check(still and moved > 0.5,
+          f"10M SGNS: untouched rows moved, or only {moved:.3f} of the touched ones did")
+
+
+def phase_precision(dev, report):
+    """``exact_simrank`` at blog, 5 iterations, at matmul_precision
+    "highest", "high" and "default": "high" runs full float32 and must be
+    "highest"'s bits; "default" allows TF32 and must differ from it, by at
+    most TOL_TF32_SIMRANK; each mode's time and default's top-20 agreement."""
+    from graphtpu_torch.core.config import SimRankConfig
+    from graphtpu_torch.simrank.exact import exact_simrank
+
+    card = card_line()
+    g = blog_shaped_graph()
+    cfg = SimRankConfig(iterations=PRECISION_ITERATIONS)
+    modes = ("highest", "high", "default")
+    runs = {m: [] for m in modes}
+    sims = {}
+    for _ in range(3):  # in turns, the first round a warm-up
+        for m in modes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sims[m] = exact_simrank(g, cfg, matmul_precision=m, device=dev)
+            torch.cuda.synchronize()
+            runs[m].append(1e3 * (time.perf_counter() - t0))
+    same = torch.equal(sims["high"], sims["highest"])
+    err = float((sims["default"] - sims["highest"]).abs().max())
+    k = 20
+    top_hi = torch.topk(sims["highest"], k, dim=1).indices
+    top_tf = torch.topk(sims["default"], k, dim=1).indices
+    agree = float((top_tf[:, :, None] == top_hi[:, None, :]).any(-1).float().mean())
+    ms = {m: float(np.median(runs[m][1:])) for m in modes}
+    report["precision"] = dict(card=card, v=int(g.n_nodes), iterations=cfg.iterations, ms=ms,
+                               high_equals_highest=same, default_max_abs_err=err,
+                               bound=TOL_TF32_SIMRANK, default_top20_agreement=agree)
+    say(f"dense precision, exact_simrank at blog (V = {g.n_nodes:,}, {cfg.iterations} "
+        f"iterations; {card}): ms per call (median of 2, in turns) highest {ms['highest']:.2f}, "
+        f"high {ms['high']:.2f}, default (TF32) {ms['default']:.2f}; high bit-equal to highest: "
+        f"{same}; default vs highest {err:.3e} (bound {TOL_TF32_SIMRANK:.3e}), top-20 "
+        f"agreement {agree:.4f}")
+    check(same, "matmul_precision='high' differs from 'highest'")
+    check(0.0 < err <= TOL_TF32_SIMRANK,
+          f"matmul_precision='default' vs 'highest' {err}: TF32 off, or past its bound")
 
 
 def main(argv=None) -> int:
@@ -2318,9 +2577,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
-        say("== phase 19: the 10M flagship (generate, load, 2 windows, stop, resume the third)")
+        say("== phase 19: the 10M flagship (generate, load, 2 windows, stop, resume the third; "
+            f"then SGNS on a (1, {DIST_RANKS}) mesh)")
         phase_flagship(dev, tmp, report)
+        torch.cuda.empty_cache()
+        phase_flagship_sgns(dev, tmp, report)
     torch.cuda.empty_cache()
+
+    say("== phase 20: dense precision (exact_simrank at highest, high and default)")
+    phase_precision(dev, report)
 
     from graphtpu_torch.bench import bounds
     from graphtpu_torch.bench.spmv_rate import N_BUF
@@ -2372,7 +2637,8 @@ def main(argv=None) -> int:
             json.dump(report, f, indent=1)
     paths = {k: report[k] for k in ("walks", "sgns", "cli")}
     paths["mc"] = dict(report["mc"], cli=report["mc_cli"])
-    paths.update({k: report[k] for k in ("deepsim", "sdne", "le", "support", "dist", "flagship")})
+    paths.update({k: report[k] for k in ("deepsim", "sdne", "le", "support", "dist", "flagship",
+                                         "flagship_sgns", "precision")})
     print(json.dumps({"paths": paths}))
     say(card_line())
     print(json.dumps({"kernels": summary}))

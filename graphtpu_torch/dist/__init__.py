@@ -2,8 +2,8 @@
 ``graphtpu/dist``): meshes and the local launcher, the partitioned CSR,
 sharded exact SimRank (dense, the 1-D ring and 2-D SUMMA, kernel B3 in
 every rank), the frontier exchange with partitioned-graph walks, UniWalk,
-TopSim and node2vec, data-parallel SGNS, and source windows with a durable
-cursor."""
+TopSim and node2vec, SGNS with the batch over ``data`` and the tables
+row-sharded over ``model``, and source windows with a durable cursor."""
 
 from graphtpu_torch.dist.frontier import (
     distributed_uniform_walks,
@@ -13,7 +13,7 @@ from graphtpu_torch.dist.frontier import (
     wire_stats,
 )
 from graphtpu_torch.dist.mesh import device_count, make_2d_mesh, make_mesh, spawn
-from graphtpu_torch.dist.sgns_dp import make_sgns_train_step
+from graphtpu_torch.dist.sgns_dp import gather_params, make_sgns_train_step
 from graphtpu_torch.dist.simrank_sharded import sharded_exact_simrank
 from graphtpu_torch.dist.spmm_summa import summa_simrank_spmm
 
@@ -21,6 +21,7 @@ __all__ = [
     "make_mesh",
     "device_count",
     "make_sgns_train_step",
+    "gather_params",
     "sharded_exact_simrank",
     "exchange_by_owner",
     "distributed_uniform_walks",

@@ -4,8 +4,10 @@ ranks (counterpart of graphtpu's ``dryrun_multichip``,
 
     python -m graphtpu_torch.dryrun N [--device cuda|cpu]
 
-Exercises the parallel axes on a 64-node graph: the data axis (SGNS with
-its gradients summed over the ranks), the frontier exchange (walks,
+Exercises the parallel axes on a 64-node graph: the (data, model) mesh
+(one SGNS step with the batch over ``data`` and the tables row-sharded
+over a ``model`` axis of 2 ranks when N is even, as graphtpu's dry run
+builds it), the frontier exchange (walks,
 reuse UniWalk, TopSim and node2vec against a partitioned CSR), the source
 windows with their durable cursor, and sharded exact SimRank (dense, the
 1-D ring in f32 and bf16, 2-D SUMMA on an (N/2)x2 grid).  The backend
@@ -48,11 +50,11 @@ def _rank(device, n):
     edges = edges[edges[:, 0] != edges[:, 1]]
     ring = np.stack([np.arange(64), (np.arange(64) + 1) % 64], 1)
     g = build_graph(np.concatenate([edges, ring]), n_nodes=64)
-    mesh = make_mesh(device=device)
+    mesh = make_mesh(model_parallel=2 if n % 2 == 0 else 1, device=device)
     dev = mesh.device
     done = []
 
-    # 1) one SGNS step, the batch sharded over the data axis
+    # 1) one SGNS step: the batch over 'data', the tables row-sharded over 'model'
     shard_params, shard_batch, train_step = make_sgns_train_step(
         mesh, SGNSConfig(dim=32, window=2, negative=3), 64)
     params = shard_params((rng.normal(scale=0.01, size=(64, 32)).astype(np.float32),
@@ -61,7 +63,8 @@ def _rank(device, n):
     params = train_step(params, *shard_batch(rng.integers(0, 64, b), rng.integers(0, 64, (b, 4)),
                                              np.ones((b, 4), bool),
                                              rng.integers(0, 64, (b, 4, 3))), 0.025)
-    done.append(f"sgns step {tuple(params[0].shape)}")
+    done.append(f"sgns step on a {mesh.shape[0]}x{mesh.shape[1]} mesh, shards "
+                f"{tuple(params[0].shape)}")
 
     # 2) walk supersteps against a partitioned CSR
     mesh1 = make_1d_mesh(device=device)

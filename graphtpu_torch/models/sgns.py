@@ -143,19 +143,12 @@ def sgns_loss(
     return -(pos_l.sum() + neg_sum)
 
 
-def sgns_manual_grads(
-    params: Params,
-    centers: torch.Tensor,
-    contexts: torch.Tensor,
-    ctx_mask: torch.Tensor,
-    negatives: torch.Tensor,
-    n_nodes: int,
-):
-    """Closed-form gradients of :func:`sgns_loss`, summed into table rows by
-    :func:`segment_rows_sum`, with each row's occurrence count for the
-    collision normalisation.  Returns ((g0, g1), (c0, c1))."""
-    syn0, _ = params
-    v, u, un = _lookups(params, centers, contexts, negatives)
+def sgns_closed_form(v, u, un, centers, contexts, ctx_mask, negatives):
+    """The closed-form gradients of :func:`sgns_loss` with respect to the
+    looked-up rows ``v = syn0[centers]``, ``u = syn1[contexts]`` and ``un =
+    syn1[negatives]`` (``[B, D]``, ``[B, W, D]``, ``[..., N, D]``): (dv,
+    du, dun) of the same shapes.  The masks read the ids themselves
+    (accidental hits on the context or the center are skipped)."""
     pos_logit = torch.einsum("bd,bwd->bw", v, u)
     m = ctx_mask & (centers >= 0)[:, None]
     # d(-log sigma(x))/dx = sigma(x) - 1 ; d(-log sigma(-x))/dx = sigma(x)
@@ -172,7 +165,23 @@ def sgns_manual_grads(
         g_neg = torch.sigmoid(neg_logit) * _shared_coeff(m, centers, contexts, negatives)
         dv = torch.einsum("bw,bwd->bd", g_pos, u) + torch.einsum("bn,bnd->bd", g_neg, un)
         dun = g_neg[..., None] * v[:, None, :]             # [B, N, D]
-    d = syn0.shape[1]
+    return dv, du, dun
+
+
+def sgns_manual_grads(
+    params: Params,
+    centers: torch.Tensor,
+    contexts: torch.Tensor,
+    ctx_mask: torch.Tensor,
+    negatives: torch.Tensor,
+    n_nodes: int,
+):
+    """Closed-form gradients of :func:`sgns_loss`, summed into table rows by
+    :func:`segment_rows_sum`, with each row's occurrence count for the
+    collision normalisation.  Returns ((g0, g1), (c0, c1))."""
+    dv, du, dun = sgns_closed_form(*_lookups(params, centers, contexts, negatives), centers,
+                                   contexts, ctx_mask, negatives)
+    d = dv.shape[1]
     g0, c0 = segment_rows_sum(centers, dv, n_nodes)
     idx1 = torch.cat([torch.where(ctx_mask, contexts, -1).reshape(-1), negatives.reshape(-1)])
     g1, c1 = segment_rows_sum(idx1, torch.cat([du.reshape(-1, d), dun.reshape(-1, d)]), n_nodes)
@@ -187,24 +196,12 @@ def sgns_step(
     negs: torch.Tensor,
     lr: float,
     n_nodes: int,
-    data_group=None,
 ) -> Params:
     """One SGD step.  Collision normalisation: a row hit k times in the batch
     moves by its summed gradient over k, so the per-occurrence step matches
-    gensim's sequential update whatever the batch and vocabulary size.
-
-    ``data_group``: the batch is this rank's shard of a batch split over the
-    process group; the row sums and counts are summed over the group (one
-    all-reduce) before the update, so every rank takes the full batch's
-    step."""
+    gensim's sequential update whatever the batch and vocabulary size.  A
+    mesh's step is :func:`graphtpu_torch.dist.sgns_dp.sharded_sgns_step`."""
     (g0, g1), (c0, c1) = sgns_manual_grads(params, centers, contexts, mask, negs, n_nodes)
-    if data_group is not None:
-        from graphtpu_torch.dist.mesh import psum
-
-        d = g0.shape[1]
-        packed = psum(torch.cat([g0, c0[:, None], g1, c1[:, None]], dim=1), data_group)
-        g0, c0 = packed[:, :d], packed[:, d]
-        g1, c1 = packed[:, d + 1: 2 * d + 1], packed[:, 2 * d + 1]
     syn0, syn1 = params
     return (syn0 - lr * (g0 / c0.clamp(min=1)[:, None]),
             syn1 - lr * (g1 / c1.clamp(min=1)[:, None]))
@@ -221,22 +218,26 @@ def batch_step(
     gen: torch.Generator,
     lr: float,
     n_nodes: int,
-    shard=None,
+    shards=None,
+    stage_times: Optional[dict] = None,
 ) -> Params:
     """One training step on the center ``slots`` of the compacted walks:
     the batch's dynamic windows, then its negatives, drawn from ``gen`` in
-    that order, then :func:`sgns_step`.  ``shard = (group, index, n)``:
-    every rank draws the whole batch and steps on its ``index``-th of ``n``
-    row blocks, summing the gradients over ``group``."""
+    that order, then :func:`sgns_step`.  ``shards``
+    (:class:`graphtpu_torch.dist.sgns_dp.RowShards`): every rank draws the
+    whole batch and steps on its data block with its row shards of the
+    tables (``stage_times`` as :func:`~graphtpu_torch.dist.sgns_dp.sharded_sgns_step`
+    takes it)."""
     centers, contexts, mask = _gather_batch(cwalks, slots, window, gen)
     negs = alias_draw_batch(neg_j, neg_q, gen, nshape)
-    if shard is None:
+    if shards is None:
         return sgns_step(params, centers, contexts, mask, negs, lr, n_nodes)
-    group, i, n = shard
-    b = centers.shape[0] // n
-    part = slice(i * b, (i + 1) * b)
-    return sgns_step(params, centers[part], contexts[part], mask[part], negs[part], lr,
-                     n_nodes, data_group=group)
+    from graphtpu_torch.dist.sgns_dp import sharded_sgns_step
+
+    b = centers.shape[0] // shards.n_blocks
+    part = slice(shards.block * b, (shards.block + 1) * b)
+    return sharded_sgns_step(params, centers[part], contexts[part], mask[part], negs[part], lr,
+                             shards, stage_times)
 
 
 def _gather_batch(
@@ -262,6 +263,26 @@ def _gather_batch(
     return centers, contexts, inb & (contexts >= 0)
 
 
+INIT_ROWS = 1 << 16  # rows of one syn0 init chunk, each drawn from its own stream
+
+
+def init_syn0(key: int, lo: int, rows: int, n_nodes: int, dim: int, device) -> torch.Tensor:
+    """Rows [lo, lo + rows) of gensim's syn0 init, U(-0.5/d, 0.5/d); rows
+    past ``n_nodes`` are 0.  The table is drawn in fixed chunks of
+    ``INIT_ROWS`` rows, chunk k from the stream ``key_for(key, k)``, so a
+    rank holding a row block draws only the chunks it overlaps and gets the
+    rows one device draws."""
+    out = torch.zeros((rows, dim), device=device)
+    hi = max(lo, min(lo + rows, n_nodes))
+    for k in range(lo // INIT_ROWS, -(-hi // INIT_ROWS)):
+        a = k * INIT_ROWS
+        chunk = (torch.rand((INIT_ROWS, dim), generator=generator(key_for(key, k), device),
+                            device=device) - 0.5) / dim
+        s, e = max(a, lo), min(a + INIT_ROWS, hi)
+        out[s - lo: e - lo] = chunk[s - a: e - a]
+    return out
+
+
 def params_from_numpy(syn0: np.ndarray, syn1: np.ndarray, device) -> Params:
     """(syn0, syn1) as float32 tensors on ``device``: graphtpu's trained
     tables, or a checkpoint's."""
@@ -280,6 +301,7 @@ def train_sgns(
     checkpoint_every: int = 0,
     device=None,
     mesh=None,
+    stage_times: Optional[dict] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Train on a [W, L] walk tensor on ``device`` (default ``cuda``);
     returns (syn0, syn1) as numpy [V, D].
@@ -288,27 +310,31 @@ def train_sgns(
     decaying linearly across the run.  Steps run in chunks of
     ``chunk_steps``; with ``checkpoint_path``, the state is saved every
     ``checkpoint_every`` chunks and a run finding the file resumes from it.
+    syn0's init is drawn in fixed row chunks (:func:`init_syn0`).
 
     ``mesh`` (:mod:`graphtpu_torch.dist.mesh`): synchronous data parallelism
-    over its first ("data") axis, on the mesh's device (``device`` is not
-    read).  Every rank holds
-    the walks and both tables whole, draws every batch as one device would,
-    steps on its share of the batch (rounded down to a multiple of the
-    axis) and sums the gradients over the axis, so a mesh run follows the
-    single-device trajectory but for the order of the sums.  Rank 0 writes
-    the checkpoints.  A second ("model") axis of more than one rank, which
-    graphtpu uses to row-shard the tables, raises NotImplementedError.
+    over its first ("data") axis with both tables row-sharded over its
+    second ("model") axis, if it has one, on the mesh's device (``device``
+    is not read).  Every rank holds the walks, draws every batch as one
+    device would and steps on its data block (the batch rounded down to a
+    multiple of the axis) with its row shards
+    (:func:`graphtpu_torch.dist.sgns_dp.sharded_sgns_step`), so a mesh run
+    follows the single-device trajectory but for the order of the sums.
+    Checkpoints hold the whole tables (graphtpu's format: they resume on
+    any mesh shape, or on one device): the model group of data row 0
+    gathers them and rank 0 writes; on resume each rank reads its rows.
+    The returned tables are gathered onto every rank's host.
+    ``stage_times``: with a mesh, the steps' stage ms and wire bytes
+    (:func:`~graphtpu_torch.dist.sgns_dp.sharded_sgns_step`), plus "steps"
+    and "table_bytes" (this rank's two tables, or shards).
     """
     from graphtpu_torch.models.checkpoint import load_state, save_state
 
-    shard = None
+    shards = None
     if mesh is not None:
-        if len(mesh.shape) > 1 and mesh.shape[1] > 1:
-            raise NotImplementedError(
-                "train_sgns(mesh=) runs the data axis only; row-sharding the tables over a "
-                f"'{mesh.axis_names[1]}' axis of {mesh.shape[1]} ranks is ROADMAP item 14")
-        axis = mesh.axis_names[0]
-        shard = (mesh.groups[axis], mesh.axis_index(axis), mesh.axis_size(axis))
+        from graphtpu_torch.dist.sgns_dp import gather_params, row_shards, take_rows
+
+        shards = row_shards(mesh, n_nodes)
         device = mesh.device
     dev = resolve_device(device)
     if key is None:
@@ -319,29 +345,35 @@ def train_sgns(
     neg_j, neg_q = build_negative_alias(counts, cfg.ns_exponent)
 
     k_init, k_run = key_for(key, 0), key_for(key, 1)
+    lo, rows = (0, n_nodes) if shards is None else (shards.lo, shards.rows)
     # gensim init: syn0 ~ U(-0.5/d, 0.5/d), syn1neg = 0
-    syn0 = (torch.rand((n_nodes, cfg.dim), generator=generator(k_init, dev), device=dev)
-            - 0.5) / cfg.dim
-    syn1 = torch.zeros((n_nodes, cfg.dim), device=dev)
+    syn0 = init_syn0(k_init, lo, rows, n_nodes, cfg.dim, dev)
+    syn1 = torch.zeros((rows, cfg.dim), device=dev)
 
     slots_per_epoch = wn * ln
     # collision normalisation makes per-epoch row movement scale like V/B
     # relative to gensim's sequential SGD, so cap the batch near the
     # vocabulary size to keep small-graph training gensim-equivalent
     batch = min(cfg.batch_size, slots_per_epoch, max(64, n_nodes))
-    if shard is not None:
-        batch = max(shard[2], batch - batch % shard[2])
+    if shards is not None:
+        batch = max(shards.n_blocks, batch - batch % shards.n_blocks)
     steps_per_epoch = slots_per_epoch // batch
     total_steps = max(cfg.epochs * steps_per_epoch, 1)
     chunk = max(1, min(chunk_steps, steps_per_epoch))
     nshape = ((batch, cfg.negative) if cfg.shared_negatives
               else (batch, 2 * cfg.window, cfg.negative))
 
+    def whole_tables(params):
+        if shards is None:
+            return params[0].cpu().numpy(), params[1].cpu().numpy()
+        return gather_params(params, mesh, n_nodes)
+
     params = (syn0, syn1)
     resume_epoch, resume_start = 0, 0
     if checkpoint_path and os.path.exists(checkpoint_path):
         arrays, _, meta = load_state(checkpoint_path)
-        params = params_from_numpy(arrays["syn0"], arrays["syn1"], dev)
+        params = (params_from_numpy(arrays["syn0"], arrays["syn1"], dev) if shards is None
+                  else tuple(take_rows(arrays[k], shards) for k in ("syn0", "syn1")))
         resume_epoch = meta.get("epoch", 0)
         resume_start = meta.get("next_start", 0)
 
@@ -363,16 +395,19 @@ def train_sgns(
                     lr = cfg.alpha - (cfg.alpha - cfg.min_alpha) * gstep / total_steps
                     params = batch_step(params, cwalks, perm[i * batch:(i + 1) * batch],
                                         cfg.window, neg_j, neg_q, nshape, gen, lr, n_nodes,
-                                        shard=shard)
+                                        shards=shards, stage_times=stage_times)
+                    if stage_times is not None:
+                        stage_times["steps"] = stage_times.get("steps", 0) + 1
                 done_chunks += 1
                 nxt = start + chunk
                 if (checkpoint_path and checkpoint_every and done_chunks % checkpoint_every == 0
-                        and (shard is None or shard[1] == 0)):
-                    meta = ({"epoch": e, "next_start": nxt} if nxt < steps_per_epoch
-                            else {"epoch": e + 1, "next_start": 0})
-                    save_state(
-                        checkpoint_path,
-                        {"syn0": params[0].cpu().numpy(), "syn1": params[1].cpu().numpy()},
-                        step=done_chunks, meta=meta,
-                    )
-    return params[0].cpu().numpy(), params[1].cpu().numpy()
+                        and (shards is None or shards.block == 0)):
+                    arrays = whole_tables(params)
+                    if mesh is None or mesh.rank == 0:
+                        meta = ({"epoch": e, "next_start": nxt} if nxt < steps_per_epoch
+                                else {"epoch": e + 1, "next_start": 0})
+                        save_state(checkpoint_path, {"syn0": arrays[0], "syn1": arrays[1]},
+                                   step=done_chunks, meta=meta)
+    if stage_times is not None:
+        stage_times["table_bytes"] = sum(p.numel() * p.element_size() for p in params)
+    return whole_tables(params)

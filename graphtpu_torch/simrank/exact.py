@@ -5,8 +5,8 @@ with the diagonal pinned to 1 during iteration and zeroed afterwards
 (``simrank/SimRank.java:36-77``).  With P the row-stochastic adjacency that
 is S' = C·P·S·Pᵀ, run two ways:
 
-* :func:`exact_simrank`: two dense fp32 matmuls per iteration (TF32 off),
-  the gold;
+* :func:`exact_simrank`: two dense matmuls per iteration, in full fp32
+  by default (TF32 off), the gold;
 * :func:`exact_simrank_spmm`: two sparse products per iteration and one
   transpose, through the item stream (:func:`graphtpu_torch.kernels.spmm.spmv`)
   or the reduction tree (:func:`graphtpu_torch.kernels.spmm.tree_spmm`).
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from graphtpu_torch.core.config import SimRankConfig, WeightedSimRankConfig
-from graphtpu_torch.core.device import full_fp32, resolve_device
+from graphtpu_torch.core.device import matmul_precision as precision, resolve_device
 from graphtpu_torch.core.graph import DiGraph, Graph, dense_adjacency, row_normalized
 from graphtpu_torch.kernels.spmm import (
     build_reduction_tree,
@@ -52,18 +52,21 @@ def exact_simrank(
     cfg: SimRankConfig = SimRankConfig(),
     weighted: bool = False,
     dtype=torch.float32,
+    matmul_precision: str = "highest",
     device=None,
 ) -> torch.Tensor:
-    """Dense [V, V] SimRank scores (diag zeroed) in full fp32: TF32 is
-    switched off for the matmuls, matching the JAX "highest" precision.
-    Runs on ``device`` (default ``cuda``, see :func:`resolve_device`)."""
+    """Dense [V, V] SimRank scores (diag zeroed).  ``matmul_precision``
+    takes graphtpu's names (:data:`graphtpu_torch.core.device.MATMUL_TF32`):
+    "highest" (the default) and "high" run full fp32 with TF32 off,
+    "default" lets cuBLAS use TF32.  Runs on ``device`` (default ``cuda``,
+    see :func:`resolve_device`)."""
     if isinstance(g, DiGraph):
         g = g.in_  # in-neighbour rows: P[i, u] = w(u->i) / sum_in(i)
     a = dense_adjacency(g, dtype=torch.float32, device=resolve_device(device))
     if not weighted and g.weight is not None:
         a = (a > 0).to(torch.float32)
     w = row_normalized(a).to(dtype)
-    with full_fp32():
+    with precision(matmul_precision):
         return _simrank_iterate(w, cfg.c, cfg.iterations)
 
 

@@ -9,7 +9,7 @@ each node at each step, and scores
 
 (``getSim :196-210``).  With the even split dominating, the endpoint mass
 is the t-step transition distribution M_t = e_v (D^-1 A)^t, so the dense
-form is sum_t C^t M_t M_t^T, in full float32.
+form is sum_t C^t M_t M_t^T.
 
 ``TopSim_Dev`` (``simrank/TopSim_Dev.java:24-268``) is two-phase:
 single-walk spreading scores pick the top ``singleK`` candidates per
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from graphtpu_torch.core.config import TopSimConfig
-from graphtpu_torch.core.device import full_fp32, resolve_device
+from graphtpu_torch.core.device import full_fp32, matmul_precision as precision, resolve_device
 from graphtpu_torch.core.graph import Graph, dense_adjacency, row_normalized
 from graphtpu_torch.simrank.doublewalk import endpoint_counts
 from graphtpu_torch.walks.walker import uniform_walks
@@ -44,12 +44,14 @@ def _meeting_similarity(p_row: torch.Tensor, c: float, step: int) -> torch.Tenso
 
 
 def doublesample_similarity(
-    g: Graph, cfg: TopSimConfig = TopSimConfig(), device=None
+    g: Graph, cfg: TopSimConfig = TopSimConfig(), matmul_precision: str = "high", device=None
 ) -> np.ndarray:
-    """Dense [V, V] meeting-probability similarity (diag zeroed), in full
-    float32 on ``device`` (default ``cuda``)."""
+    """Dense [V, V] meeting-probability similarity (diag zeroed) on
+    ``device`` (default ``cuda``).  ``matmul_precision`` takes graphtpu's
+    names (:data:`graphtpu_torch.core.device.MATMUL_TF32`); its default
+    "high", like "highest", is full float32, "default" allows TF32."""
     p_row = row_normalized(dense_adjacency(g, device=resolve_device(device)))
-    with full_fp32():
+    with precision(matmul_precision):
         sim = _meeting_similarity(p_row, cfg.c, cfg.step)
     return sim.fill_diagonal_(0.0).cpu().numpy()
 

@@ -249,7 +249,7 @@ def _rank_cases(device, tmp):
         shard_graph(n2v_w, N_RANKS, mesh=mesh), N2V_WALKERS, 2, 2.0, 0.5, 6, mesh, starts=starts,
         weighted=True))
 
-    # SGNS: one step, the whole run with a resumed copy, the model axis
+    # SGNS on the data axis: one step, the whole run with a resumed copy
     si = sgns_step_inputs()
     shard_params, shard_batch, train_step = make_sgns_train_step(mesh, SGNSConfig(dim=16, window=2,
                                                                                   negative=3),
@@ -280,11 +280,6 @@ def _rank_cases(device, tmp):
     dist.barrier()
     out["sgns_resumed"] = train_sgns_dp(walks, 64, mesh, SGNS_CFG, checkpoint_path=ck,
                                         checkpoint_every=1)
-    try:
-        train_sgns_dp(walks, 64, m2, SGNS_CFG)
-        out["model_axis"] = None
-    except NotImplementedError as e:
-        out["model_axis"] = str(e)
     return out
 
 
@@ -682,10 +677,6 @@ def test_train_sgns_dp_equals_single_device(ranks):
     np.testing.assert_allclose(d0, s0, atol=1e-5)
     np.testing.assert_allclose(d1, s1, atol=1e-5)
     np.testing.assert_allclose(ranks["sgns_resumed"][0], d0, atol=1e-6)
-
-
-def test_model_axis_raises(ranks):
-    assert ranks["model_axis"] is not None and "ROADMAP item 14" in ranks["model_axis"]
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,13 @@ single-device dense engine; bf16 iterates within 4 bf16 ulps of the tree
 path's bf16 run (the ring rounds P·S to bf16 and multiplies by c rounded
 to bf16, as graphtpu's ring does, where the tree path keeps P·S in f32
 and scales in f32: 3 ulps at most on the CPU at V = 256 and 2,048).
+
+The dense form's ``matmul_precision`` on the card: "high" bit-equal to
+"highest" in every rank, "default" (TF32) different but within
+2·k·2^-11 after k iterations (derived in tests/test_torch_models_cuda.py).
+SGNS's model axis on the card: 5 steps on a (1, 4) mesh equal one card's
+``sgns_step`` bit for bit (one device's order of sums), on a (2, 2) mesh
+within 1e-5 (the data axis sums each row in two blocks).
 """
 
 import numpy as np
@@ -28,6 +35,10 @@ torch.set_num_threads(1)
 V, E = 2048, 16_000
 TOL_F32 = 1e-6
 BF16_ULPS = 4
+TF32_ITERATIONS = 5
+TF32_BOUND = 2 * TF32_ITERATIONS * 2.0 ** -11
+TOL_SGNS = {2: 1e-5, 4: 0.0}   # model_parallel -> SGNS shards vs one card
+SGNS_V, SGNS_STEPS = 5000, 5
 
 
 @pytest.fixture
@@ -111,3 +122,62 @@ def test_every_entry_point_under_nccl(cuda):
 
     line = tm.spawn(_rank, 1, "nccl", "cuda", args=(1,), timeout=600)
     assert line.startswith("nccl on cuda:0") and "SUMMA" in line, line
+
+
+def _sgns_batches(device):
+    rng = np.random.default_rng(11)
+    b, w, n = 1024, 10, 5
+    return [tuple(torch.from_numpy(x).to(device) for x in (
+        rng.integers(-1, SGNS_V, b).astype(np.int32),
+        rng.integers(0, SGNS_V, (b, w)).astype(np.int32),
+        rng.random((b, w)) < 0.8,
+        rng.integers(0, SGNS_V, (b, n)).astype(np.int32))) for _ in range(SGNS_STEPS)]
+
+
+def _precision_and_model_axis(device):
+    """Each rank: its dense block at three precisions; SGNS steps on a
+    (2, 2) and a (1, 4) mesh against one card's ``sgns_step`` on the same
+    device.  Returns every rank's row of numbers."""
+    from graphtpu_torch import build_graph
+    from graphtpu_torch.core.config import SGNSConfig, SimRankConfig
+    from graphtpu_torch.core.device import full_fp32
+    from graphtpu_torch.dist.sgns_dp import make_sgns_train_step, row_shards
+    from graphtpu_torch.dist.simrank_sharded import sharded_exact_simrank
+    from graphtpu_torch.models.sgns import sgns_step
+
+    mesh = tm.make_1d_mesh(device=device)
+    dev = mesh.device
+    g = build_graph(_edges(), n_nodes=V)
+    cfg = SimRankConfig(iterations=TF32_ITERATIONS)
+    blk = {p: sharded_exact_simrank(g, mesh, cfg, matmul_precision=p).values
+           for p in ("highest", "high", "default")}
+    row = [float(torch.equal(blk["high"], blk["highest"])),
+           (blk["default"] - blk["highest"]).abs().max().item()]
+    rng = np.random.default_rng(12)
+    tables = [rng.normal(scale=0.1, size=(SGNS_V, 32)).astype(np.float32) for _ in range(2)]
+    batches = _sgns_batches(dev)
+    one = tuple(torch.from_numpy(t).to(dev) for t in tables)
+    with full_fp32():
+        for i, b in enumerate(batches):
+            one = sgns_step(one, *b, 0.025 - 0.002 * i, SGNS_V)
+    for mp in TOL_SGNS:
+        m = tm.make_mesh(model_parallel=mp, device=device)
+        sh = row_shards(m, SGNS_V)
+        shard_params, shard_batch, train_step = make_sgns_train_step(m, SGNSConfig(dim=32),
+                                                                     SGNS_V)
+        params = shard_params(tables)
+        for i, b in enumerate(batches):
+            params = train_step(params, *shard_batch(*b), 0.025 - 0.002 * i)
+        hi = min(sh.lo + sh.rows, SGNS_V)
+        row.append(max((p[: hi - sh.lo] - o[sh.lo: hi]).abs().max().item()
+                       for p, o in zip(params, one)))
+    return tm.all_gather(torch.tensor(row, dtype=torch.float64, device=dev),
+                         mesh.groups["data"]).cpu().numpy()
+
+
+def test_precision_and_model_axis_on_card(cuda):
+    per_rank = tm.spawn(_precision_and_model_axis, 4, "gloo", "cuda", timeout=600)
+    assert (per_rank[:, 0] == 1).all()                  # "high" is "highest"'s bits
+    assert (per_rank[:, 1] <= TF32_BOUND).all() and per_rank[:, 1].max() > 0, per_rank[:, 1]
+    for k, (mp, tol) in enumerate(TOL_SGNS.items()):
+        assert (per_rank[:, 2 + k] <= tol).all(), (mp, per_rank[:, 2 + k])

@@ -3,7 +3,10 @@ on an NVIDIA GPU against their CPU runs: sim lookups and BFS exactly, a
 DeepSim step within 1e-5, an SDNE step's loss and gradients within 1e-5
 and its Adam update within 1e-5 plus the update's slope times the
 gradients' difference, seeded DeepSim runs and the weight statistics
-bit-equal run to run, LE eigenvalues within 1e-4.  Every
+bit-equal run to run, LE eigenvalues within 1e-4.  And the dense SimRank
+forms' ``matmul_precision`` on the card: "high" (full float32) bit-equal
+to "highest", "default" (TF32) different from it but within its TF32
+bound (derived beside ``tf32_bound_exact`` and ``tf32_bound_meeting``).  Every
 test needs a card and skips without one.  This file imports neither jax nor
 graphtpu:
 
@@ -16,7 +19,13 @@ import torch
 
 import graphtpu_torch as gt
 from graphtpu_torch.core import stats
-from graphtpu_torch.core.config import DeepSimConfig, LEConfig, SDNEConfig
+from graphtpu_torch.core.config import (
+    DeepSimConfig,
+    LEConfig,
+    SDNEConfig,
+    SimRankConfig,
+    TopSimConfig,
+)
 from graphtpu_torch.core.device import full_fp32
 from graphtpu_torch.core.traversal import bfs_distances
 from graphtpu_torch.models import deepsim as ds
@@ -148,3 +157,50 @@ def test_le_eigenvalues_card_equal_cpu(cuda):
     yc, ec = le.le_embed_points(x, cfg, device="cpu")
     np.testing.assert_allclose(eg, ec, atol=EVAL_TOL)
     assert yg.shape == yc.shape == (600, 4) and np.isfinite(yg).all()
+
+
+# TF32 keeps 10 of float32's 23 stored bits: an operand rounded to nearest
+# is off by at most DELTA of itself.
+DELTA = 2.0 ** -11
+
+
+def tf32_bound_exact(iterations):
+    """S' = c·W·(S·Wᵀ), W row-stochastic, 0 <= S <= 1: a product of two
+    rounded operands (row weights summing to 1, entries at most 1) adds at
+    most 2·DELTA to the error it inherits, an iteration has two and is
+    scaled by c < 1, so the error stays below 4·DELTA·c/(1 - c) = 6·DELTA at
+    c = 0.6; held at the looser 2·k·DELTA (chip_smoke.py's
+    TOL_TF32_SIMRANK), which leaves room for float32's own rounding."""
+    return 2 * iterations * DELTA
+
+
+def tf32_bound_meeting(cfg):
+    """sum_t c^t M_t M_tᵀ with M_t = M_{t-1} P: each product by the
+    row-stochastic P adds at most 2·DELTA to M's row error (max row sum), so
+    M_t's is at most 2·t·DELTA; an entry of M_t M_tᵀ is then off by at most
+    twice that plus its own rounding, 2·DELTA: in all 2·DELTA·sum_t c^t
+    (2t + 1), doubled for float32's own rounding."""
+    return 2 * 2 * DELTA * sum(cfg.c ** t * (2 * t + 1) for t in range(1, cfg.step + 1))
+
+
+@pytest.mark.parametrize("form", ["exact", "meeting"])
+def test_dense_precision_modes(cuda, form):
+    from graphtpu_torch.simrank.exact import exact_simrank
+    from graphtpu_torch.simrank.meeting import doublesample_similarity
+
+    g = _graph(v=2048, e=16_000, seed=4)
+    if form == "exact":
+        cfg = SimRankConfig(iterations=5)
+        run = lambda p: exact_simrank(g, cfg, matmul_precision=p, device=cuda).cpu().numpy()
+        bound = tf32_bound_exact(cfg.iterations)
+    else:
+        cfg = TopSimConfig(step=3)
+        run = lambda p: doublesample_similarity(g, cfg, matmul_precision=p, device=cuda)
+        bound = tf32_bound_meeting(cfg)
+    highest = run("highest")
+    np.testing.assert_array_equal(run("high"), highest)
+    np.testing.assert_array_equal(run("float32"), highest)
+    tf32 = run("default")
+    err = np.abs(tf32 - highest).max()
+    assert 0 < err <= bound, (err, bound)
+    np.testing.assert_array_equal(run("bfloat16"), tf32)

@@ -102,7 +102,11 @@ Phases (any failure raises and the run exits non-zero):
      R-MAT 11 the card's float32 spectrum against scipy's float64 ``eigh``
      within 1e-4.
  17. support modules: BFS distances from 64 blog sources on the card equal
-     scipy's unweighted shortest paths; the weight sums and variances of a
+     scipy's unweighted shortest paths; on that card-resident graph,
+     ``neighbors``/``degree`` of a few nodes equal to its CSR,
+     ``bfs_order(start=hub)`` a permutation that visits the hub's component
+     in BFS layers, and ``locality_score(window=2)`` equal to the count
+     made on the card; the weight sums and variances of a
      weighted blog graph within 1e-6 of numpy float64 and bit-equal run to
      run; the C++ parser's read of the blog edge file equal to the numpy
      reader's, both timed; ``generate --kind massive`` (the C++ generator)
@@ -1805,6 +1809,7 @@ def phase_support(dev, tmp, report):
 
     from graphtpu_torch import build_graph, load_graph_cached
     from graphtpu_torch.core import stats
+    from graphtpu_torch.core.reorder import bfs_order, locality_score
     from graphtpu_torch.core.traversal import bfs_distances
     from graphtpu_torch.io.edgelist import read_edgelist, read_edgelist_numpy
     from graphtpu_torch.native import load
@@ -1825,6 +1830,34 @@ def phase_support(dev, tmp, report):
                       unreachable=int((got < 0).sum()))
     say(f"BFS from 64 blog sources on the card: {bfs_s:.3f} s, equal to scipy's shortest_path "
         f"(max distance {got.max()}, {int((got < 0).sum()):,} unreachable pairs)")
+
+    # the host-side API on the card-resident graph, against its card CSR
+    check(g.device.type == "cuda", f"the blog graph lives on {g.device}")
+    rp_d, col_d, deg_d = g.row_ptr.cpu().numpy(), g.col.cpu().numpy(), g.deg.cpu().numpy()
+    hub = int(np.argmax(deg_d))
+    nodes = sorted({0, hub, BLOG_NODES // 2, int(np.argmin(deg_d)), BLOG_NODES - 1, *src[:4]})
+    for v in nodes:
+        nb = g.neighbors(v)
+        check(nb.dtype == np.int32 and np.array_equal(nb, col_d[rp_d[v]: rp_d[v + 1]])
+              and np.array_equal(nb, col[rp[v]: rp[v + 1]]), f"neighbors({v}) differ from the CSR")
+        check(g.degree(v) == int(deg_d[v]) == len(nb), f"degree({v}) differs from the CSR")
+    t0 = time.perf_counter()
+    order = bfs_order(g, start=hub)
+    order_s = time.perf_counter() - t0
+    dist = bfs_distances(g, np.array([hub], np.int32), device=dev)[0]
+    reach = int((dist >= 0).sum())
+    check(order[0] == hub and np.array_equal(np.sort(order), np.arange(BLOG_NODES)),
+          "bfs_order(start=hub) is no permutation seeded at the hub")
+    check(bool((dist[order[:reach]] >= 0).all()) and bool((np.diff(dist[order[:reach]]) >= 0).all()),
+          "bfs_order(start=hub) does not visit the hub's component in BFS layers")
+    hits = int((torch.diff(g.col.long()).abs() <= 2).sum())
+    score = locality_score(g, window=2)
+    check(abs(score - hits / (g.n_edges - 1)) <= 1e-12,
+          f"locality_score(window=2) {score} differs from the card's {hits / (g.n_edges - 1)}")
+    out["api"] = dict(nodes=len(nodes), bfs_order_s=order_s, reached=reach, locality_w2=score)
+    say(f"neighbors/degree of {len(nodes)} nodes equal the card's CSR; bfs_order(start=hub) "
+        f"{order_s:.3f} s (host), its first {reach:,} nodes in the hub's BFS layers; "
+        f"locality_score(window=2) {score:.4f}, equal to the card's count")
 
     wts = np.random.default_rng(10).uniform(0.1, 1.1, len(edges)).astype(np.float32)
     gw = build_graph(edges, wts, n_nodes=BLOG_NODES, device=dev)

@@ -64,6 +64,15 @@ class Graph:
             deg=self.deg.to(device),
         )
 
+    # -- host-side conveniences, read from the numpy mirror (no device copy) --
+    def neighbors(self, v: int) -> np.ndarray:
+        """A copy of row ``v`` of ``col``, so a caller cannot write the mirror."""
+        rp, col, _, _ = self.host
+        return col[int(rp[v]) : int(rp[v + 1])].copy()
+
+    def degree(self, v: int) -> int:
+        return int(self.host[3][v])
+
 
 @dataclasses.dataclass(frozen=True)
 class DiGraph:
@@ -71,6 +80,14 @@ class DiGraph:
 
     out: Graph
     in_: Graph
+
+    @property
+    def n_nodes(self) -> int:
+        return self.out.n_nodes
+
+    @property
+    def n_edges(self) -> int:
+        return self.out.n_edges
 
 
 def _build_csr(

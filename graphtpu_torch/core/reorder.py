@@ -9,23 +9,26 @@ permutes at the CSR slot level, keeping weights and multiplicity exactly.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from graphtpu_torch.core.graph import Graph, graph_from_numpy
 
 
-def bfs_order(g: Graph) -> np.ndarray:
+def bfs_order(g: Graph, start: Optional[int] = None) -> np.ndarray:
     """int32[V] permutation ``order[new_id] = old_id`` from a BFS that
-    visits neighbours in increasing-degree order (Cuthill-McKee),
-    restarting at the lowest-degree unvisited node per component."""
+    visits neighbours in increasing-degree order (Cuthill-McKee), seeded at
+    ``start`` when it is given, then restarting at the lowest-degree
+    unvisited node per component."""
     rp, col, _, deg = g.host
     v = g.n_nodes
     order = np.empty(v, np.int64)
     seen = np.zeros(v, bool)
     pos = 0
     seeds = np.argsort(deg, kind="stable")
+    if start is not None:
+        seeds = np.concatenate([[start], seeds])
     head = 0
     for s in seeds:
         if seen[s]:
@@ -90,11 +93,12 @@ def relabel_graph(g: Graph, order: np.ndarray) -> Tuple[Graph, np.ndarray]:
     return g2, inv.astype(np.int32)
 
 
-def locality_score(g: Graph) -> float:
+def locality_score(g: Graph, window: int = 1) -> float:
     """Fraction of consecutive CSR slots whose neighbour ids differ by at
-    most 1: the share of items a k-row segment stream could merge."""
+    most ``window``: at 1, the share of items a k-row segment stream could
+    merge."""
     col = g.host[1]
     if len(col) < 2:
         return 0.0
     d = np.abs(np.diff(col.astype(np.int64)))
-    return float((d <= 1).mean())
+    return float((d <= window).mean())

@@ -10,11 +10,16 @@ Phases (any failure raises and the run exits non-zero):
   3. kernels: kernels B1 (Kahan) and B2 (fast) against their plain PyTorch
      version and the float64 oracle on the blog-shaped stream (V = C =
      10,496, the column-panel design), plus seg-2 (row tiles), ragged and
-     bf16 cases, a V = 60,000 case (row tiles) and the Kahan hub at degree
-     20,000 (row tiles) and 11,000 (the panel): B1, and B2 in the panel,
-     within 1e-5, while a sequential f32 sum must miss; every case launched
-     twice and the outputs held bit-equal; CUDA-event times of kernel,
-     plain version and one torch.sparse.mm.
+     bf16 cases, a V = 60,000 case (the L2 column tiles) and the Kahan hub
+     at degree 20,000 (row tiles) and 11,000 (the panel): B1, and B2 in the
+     panel, within 1e-5, while a sequential f32 sum must miss; every case
+     launched twice and the outputs held bit-equal; CUDA-event times of
+     kernel, plain version and one torch.sparse.mm.  Then R-MAT 14 (row
+     tiles) and the arxiv shape (V = 38,912, the L2 column tiles in f32) at
+     C = V: B1 and B2 in f32 and B2 in bf16, each with and without the pin,
+     against the plain version and the float64 oracle, and bit-equal to the
+     row tiles on rows of at most SELL_HUB items; kernel, row-tile, plain
+     and torch.sparse.mm times beside the bound.
   4. tree kernel: kernel B3 against its plain version on every level of
      the blog-shaped and R-MAT reduction trees at 4,096-column blocks
      (level 0 read in place from the wider iterate), the ragged tail
@@ -31,6 +36,11 @@ Phases (any failure raises and the run exits non-zero):
      files read back, scores against the dense fp32 engine, the host ms of
      the sliced layout.
   6. skew: the kahan run again on an R-MAT graph (V = 16,384, row tiles).
+ 6b. the arxiv shape: ``simrank --engine spmm`` on the arxiv-shaped edge
+     file (V = 38,912, the L2 column tiles), kahan and fast, 3 iterations;
+     launch counts, the file's top-20 scores against the in-process call's,
+     which is held within 1e-6 of the same call on forced row tiles; stage
+     times and peak memory of both.
   7. tree path: ``exact_simrank_spmm(impl="tree")`` on the blog-shaped
      graph (f32, bf16) and R-MAT (f32); B3 launch counts, scores against
      the dense fp32 engine, per-stage times, the compact plans' host ms and
@@ -172,14 +182,19 @@ import numpy as np
 import torch
 
 from graphtpu_torch.bench.generators import (
+    ARXIV_NODES,
     BLOG_NODES,
     RMAT14_NODES,
+    V60000_NODES,
+    arxiv_shaped_edges,
+    arxiv_shaped_graph,
     blog_shaped_edges,
     blog_shaped_graph,
     rmat14_edges,
     rmat14_graph,
+    v60000_graph,
 )
-from graphtpu_torch.bench.timing import busy_ms, cuda_ms, device_profile
+from graphtpu_torch.bench.timing import busy_ms, cuda_ms, device_profile, stream_csr
 from graphtpu_torch.bench.timing import card as card_line
 
 TOL_F32 = 1e-5        # f32 product vs plain version / float64 oracle, values <= 1
@@ -190,6 +205,7 @@ TOL_SIM_BF16 = 1e-2   # SimRank scores, fast16, vs the dense fp32 engine
 TOL_MC_PARITY = 1e-5  # reuse top-k (sort, float64 run totals) vs the dense scatter oracle
 TOL_MC_ENUM = 1e-6    # TopSim enumerate, card vs CPU (the same float32 operations)
 TOL_F32_DIST = 1e-6   # sharded f32 SimRank vs the single-device tree path / dense engine
+TOL_DESIGNS = 1e-6    # f32 SimRank on the stream's design vs forced row tiles
 TOL_SDNE_ACT = 2e-4   # SDNE activations vs the float64 oracle, of max(1, |ref|)
 TOL_LE_RESIDUAL = 1e-3  # LE: ||(D - W)y - lambda D y|| / ||D y|| of each kept pair, float64
 TOL_LE_EIGH = 1e-4    # LE: the float32 spectrum on the card vs scipy's float64 eigh
@@ -208,7 +224,7 @@ GRAPHTPU_RMAT11 = {
 QUALITY_MARGIN = 0.03  # the port's figures may fall this far below graphtpu's
 C_RAGGED = 10_313
 HUB_DEGREES = (20_000, 11_000)  # row tiles; the column panel (V <= 11,448)
-V_PANELS, C_PANELS = 60_000, 256  # a V past one block's shared memory
+V_PANELS, C_PANELS = V60000_NODES, 256  # a V past one block's shared memory
 ORACLE_ROWS = 384     # rows of each product held against the float64 oracle
 COL_BLOCK = 4096      # exact_simrank_spmm's tree column block
 ITERATIONS = 3
@@ -248,15 +264,6 @@ def pinned64(x: np.ndarray, c: float) -> np.ndarray:
     return t
 
 
-def csr_of(plan, v, weights):
-    """The stream's P as a [V, V] CSR (rows < V), for the library yardstick."""
-    pos, slots = plan.pos.long(), plan.slots.long()
-    keep = pos < v
-    w = weights.view(-1)[: pos.numel()][keep]
-    crow = torch.searchsorted(pos[keep], torch.arange(v + 1, device=pos.device))
-    return torch.sparse_csr_tensor(crow, slots[keep], w, (v, v))
-
-
 def library_ms(fn):
     """CUDA-event time of one PyTorch call, or None where it does not run."""
     try:
@@ -266,18 +273,6 @@ def library_ms(fn):
         say(f"  library call not available: {str(e).splitlines()[0][:120]}")
         return None
     return cuda_ms(fn)
-
-
-def v60000_graph():
-    """V = 60,000 (past one block's shared memory): 200,000 random edges
-    and a hub of degree 3,000 at node 7."""
-    from graphtpu_torch import build_graph
-
-    rng = np.random.default_rng(4)
-    edges = rng.integers(0, V_PANELS, size=(200_000, 2))
-    hub = np.stack([np.full(3000, 7), rng.choice(V_PANELS, 3000, replace=False)], 1)
-    return build_graph(np.concatenate([edges[edges[:, 0] != edges[:, 1]], hub]),
-                       n_nodes=V_PANELS)
 
 
 def phase_kernels(dev, report):
@@ -358,13 +353,13 @@ def phase_kernels(dev, report):
             within_plain = err_plain <= TOL_F32
             within_oracle = err_oracle <= TOL_F32
             bound = f"{TOL_F32:g} absolute"
-        used = "panel" if p.sell is not None else "rows"
+        used = spmm.spmv_design(p, table.dtype)
         ms = cuda_ms(lambda: spmm.spmv(p, table, mode, ts))
         plain_ms = cuda_ms(lambda: spmm.spmv_plain(p, table, mode, ts), warmup=1, runs=5)
         lib_ms = None
         if ts is None and p is plan and name in ("kahan_f32", "fast_f32", "fast_bf16"):
             # one PyTorch call of the same product: the folded P as CSR
-            csr = csr_of(p, gg.n_nodes, p.wts).to(table.dtype)
+            csr = stream_csr(p, p.wts).to(table.dtype)
             lib_ms = library_ms(lambda: torch.sparse.mm(csr, table))
             del csr
         r = dict(case=name, kernel=mode, design=used, items=p.n_items, seg_k=p.seg_k,
@@ -393,7 +388,7 @@ def phase_kernels(dev, report):
         hub_np = np.broadcast_to(hub_vals, (d + 1, 1024)).copy()
         hub_x = torch.from_numpy(hub_np).to(dev)
         hub_plan = spmm.build_spmv_stream(hub_g, device=dev)
-        design = "panel" if hub_plan.sell is not None else "rows"
+        design = spmm.spmv_design(hub_plan)
         hub_oracle = spmm.spmm_oracle(hub_g, hub_np, rows=[0])[0]
         lo, hi = hub_plan.row_items[:2].tolist()
         terms = (hub_plan.wts[lo:hi].cpu().numpy()[:, None]
@@ -421,6 +416,123 @@ def phase_kernels(dev, report):
     del x, xb, xp
     torch.cuda.empty_cache()
     return results, plan.n_items
+
+
+class HostRows:
+    """The rows of a card-resident table in float64 on the host, fetched
+    on demand (the float64 oracle reads few of them) and, with ``c``,
+    pinned: where(col == row, 1, c·x)."""
+
+    def __init__(self, table, c):
+        self.table, self.c, self.shape = table, c, tuple(table.shape)
+
+    def __getitem__(self, idx):
+        idx = np.asarray(idx)
+        r = self.table[torch.as_tensor(idx, device=self.table.device)].double().cpu().numpy()
+        if self.c is not None:
+            r = self.c * r
+            hit = np.flatnonzero(idx < r.shape[1])
+            r[hit, idx[hit]] = 1.0
+        return r
+
+
+def phase_kernels_large(dev, report):
+    """B1 and B2 at C = V on R-MAT 14 and the arxiv shape, in the design the
+    stream gets (``spmm.spmv_design``): f32 with and without the pin, B2 in
+    bf16 with and without it; each against its plain version, the float64
+    oracle on ORACLE_ROWS rows and the row tiles (``spmm.row_tiles``),
+    bit-equal to them on rows of at most SELL_HUB items; kernel, row-tile,
+    plain and (unpinned) ``torch.sparse.mm`` times and the bound."""
+    from graphtpu_torch.bench import bounds
+    from graphtpu_torch.kernels import spmm
+
+    results = []
+    for tag, make in (("rmat", rmat14_graph), ("arxiv", arxiv_shaped_graph)):
+        g = make()
+        plan = spmm.build_spmv_stream(g, device=dev)
+        rows_plan = spmm.row_tiles(plan)
+        v = g.n_nodes
+        cnt = torch.diff(plan.row_items)
+        lane = cnt <= spmm.SELL_HUB
+        deg = g.host[3]
+        orows = np.unique(np.concatenate([
+            np.random.default_rng(7).choice(v, ORACLE_ROWS), [int(np.argmax(deg)), 0, v - 1]]))
+        say(f"{tag} stream: V={v} slots={g.n_edges} items={plan.n_items} max_degree="
+            f"{g.max_degree}; hub rows hold {spmm.hub_share(plan):.3f} of the items; "
+            f"f32 design {spmm.spmv_design(plan)}"
+            + ("" if plan.tiles is None else
+               f" ({plan.tiles.n_pieces} hub pieces, plan {plan.tiles.host_ms:.1f} ms host)"))
+        x = torch.rand((v, v), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+        for name, mode, dtype, ts in (("kahan_f32", "kahan", torch.float32, None),
+                                      ("kahan_f32_pin", "kahan", torch.float32, 0.6),
+                                      ("fast_f32", "fast", torch.float32, None),
+                                      ("fast_f32_pin", "fast", torch.float32, 0.6),
+                                      ("fast_bf16", "fast", torch.bfloat16, None),
+                                      ("fast_bf16_pin", "fast", torch.bfloat16, 0.6)):
+            table = x.to(dtype)
+            bf = dtype == torch.bfloat16
+            design = spmm.spmv_design(plan, dtype)
+            out = spmm.spmv(plan, table, mode, ts)
+            torch.cuda.synchronize()
+            check(out.shape == (v + 1, v) and out.dtype == dtype, f"{tag} {name}: shape/dtype")
+            check(bool(torch.isfinite(out.float()).all()), f"{tag} {name}: non-finite output")
+            check(torch.equal(out, spmm.spmv(plan, table, mode, ts)),
+                  f"{tag} {name}: two launches differ")
+            tiles_out = spmm.spmv(rows_plan, table, mode, ts)
+            unequal_lane = int((out[lane] != tiles_out[lane]).sum().item())
+            err_rows = (out.float() - tiles_out.float()).abs().max().item()
+            del tiles_out
+            plain = spmm.spmv_plain(plan, table, mode, ts)
+            diff = (out.float() - plain.float()).abs()
+            err_plain = diff.max().item()
+            if bf:
+                within_plain = bool((diff <= bf16_ulp(torch.maximum(
+                    out.float().abs(), plain.float().abs()))).all())
+            del plain, diff
+            oracle = spmm.spmm_oracle(g, HostRows(table, ts), rows=orows)
+            got = out[torch.as_tensor(orows, device=dev)].double().cpu().numpy()
+            err_oracle = float(np.abs(got - oracle).max())
+            if bf:
+                o = torch.from_numpy(oracle)
+                within_oracle = bool(((torch.from_numpy(got) - o).abs() <= bf16_ulp(o)).all())
+                bound = "1 bf16 ulp relative"
+            else:
+                within_plain, within_oracle = err_plain <= TOL_F32, err_oracle <= TOL_F32
+                bound = f"{TOL_F32:g} absolute"
+            ms = cuda_ms(lambda: spmm.spmv(plan, table, mode, ts))
+            rows_ms = cuda_ms(lambda: spmm.spmv(rows_plan, table, mode, ts))
+            plain_ms = cuda_ms(lambda: spmm.spmv_plain(plan, table, mode, ts), warmup=1, runs=3)
+            lib_ms = None
+            if ts is None:
+                csr = stream_csr(plan, plan.wts).to(dtype)
+                lib_ms = library_ms(lambda: torch.sparse.mm(csr, table))
+                del csr
+            bound_ms, bound_by = bounds.bound(*bounds.spmv_work(
+                plan.n_items, 1, v, v, table.element_size(), mode, pin=ts is not None,
+                multiply=mode == "kahan"))
+            r = dict(case=f"{tag}_{name}", graph=tag, kernel=mode, design=design,
+                     items=plan.n_items, width=v, dtype=str(dtype).split(".")[-1],
+                     pin=ts is not None, max_abs_err_plain=err_plain,
+                     max_abs_err_oracle=err_oracle, oracle_rows=int(len(orows)), bound=bound,
+                     max_abs_diff_row_tiles=err_rows, unequal_lane_rows=unequal_lane,
+                     ms=ms, row_tiles_ms=rows_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
+            results.append(r)
+            say(f"{tag} {name} ({design}): err vs plain {err_plain:.3e}, vs float64 oracle "
+                f"{err_oracle:.3e} ({len(orows)} rows), bound {bound}; vs row tiles "
+                f"{err_rows:.3e}, {unequal_lane} unequal on rows of <= {spmm.SELL_HUB} items; "
+                f"kernel {ms:.3f} ms, row tiles {rows_ms:.3f} ms, plain {plain_ms:.3f} ms"
+                + ("" if lib_ms is None else f", torch.sparse.mm {lib_ms:.3f} ms")
+                + f"; bound {bound_ms:.3f} ms ({bound_by})")
+            check(within_plain, f"{tag} {name}: kernel vs plain version outside {bound}")
+            check(within_oracle, f"{tag} {name}: kernel vs float64 oracle outside {bound}")
+            check(unequal_lane == 0, f"{tag} {name}: {unequal_lane} elements of rows of <= "
+                  f"{spmm.SELL_HUB} items differ from the row tiles")
+            del out, table
+        del x, plan, rows_plan
+        torch.cuda.empty_cache()
+    report["kernel_cases_large"] = results
+    return results
 
 
 def tree_level_tables(tree, x):
@@ -676,6 +788,84 @@ def run_main_path(dev, path, n_nodes, modes, report, tag):
     return launches
 
 
+def run_arxiv_path(dev, path, report):
+    """The main path on the arxiv-shaped edge file (V = 38,912, the L2
+    column tiles): ``simrank --engine spmm`` for modes kahan and fast in
+    process, launch counts and the file read back; then, per mode,
+    ``exact_simrank_spmm`` on the stream's design and on forced row tiles
+    (``spmm.row_tiles``), within TOL_F32_DIST of each other, the file's
+    top-20 scores those of the first; per-iteration stage times, the plan's
+    host ms and peak memory.  Returns each kernel's launches."""
+    from graphtpu_torch import read_edgelist_graph
+    from graphtpu_torch.cli import main as cli_main
+    from graphtpu_torch.core.config import SimRankConfig
+    from graphtpu_torch.kernels import spmm
+    from graphtpu_torch.kernels.topk import topk_rows
+    from graphtpu_torch.simrank import exact
+
+    v = ARXIV_NODES
+    g = read_edgelist_graph(path, n_nodes=v)
+    cfg = SimRankConfig(iterations=ITERATIONS)
+    launches = {"kahan": 0, "fast": 0}
+    build = exact.build_spmv_stream
+    for mode in ("kahan", "fast"):
+        out = os.path.join(os.path.dirname(path), f"arxiv_{mode}.txt")
+        for k in spmm.SPMV_LAUNCHES:
+            spmm.SPMV_LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        check(cli_main(["simrank", "--input", path, "--output", out, "--engine", "spmm",
+                        "--mode", mode, "--iterations", str(ITERATIONS), "--topk", "20",
+                        "--n-nodes", str(v)]) == 0, f"arxiv {mode}: CLI exit code")
+        cli_s = time.perf_counter() - t0
+        rise = dict(spmm.SPMV_LAUNCHES)
+        want = {k: (2 * cfg.iterations if k == mode else 0) for k in rise}
+        check(rise == want, f"arxiv {mode}: launches {rise}, expected {want}")
+        for k in launches:
+            launches[k] += rise[k]
+        row = dict(graph="arxiv", mode=mode, V=v, slots=g.n_edges, max_degree=g.max_degree,
+                   launches=rise, cli_wall_s=cli_s)
+        sims = {}
+        for design in ("stream", "row tiles"):
+            if design == "row tiles":
+                exact.build_spmv_stream = lambda *a, **kw: spmm.row_tiles(build(*a, **kw))
+            stages = {}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                t0 = time.perf_counter()
+                sims[design] = exact.exact_simrank_spmm(g, cfg, spmv_mode=mode, device=dev,
+                                                        stage_times=stages)
+                torch.cuda.synchronize()
+            finally:
+                exact.build_spmv_stream = build
+            call_s = time.perf_counter() - t0
+            peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+            per_iter = {k: stages[k] / cfg.iterations
+                        for k in ("product1", "transpose", "product2")}
+            row[design] = dict(spmm_call_wall_s=call_s, stage_ms_per_iter=per_iter,
+                               layout_host_ms=stages["layout_host"], peak_gb=peak_gb)
+            say(f"arxiv {mode} ({design}): per iteration "
+                + ", ".join(f"{k} {t:.3f} ms" for k, t in per_iter.items())
+                + f" (CUDA events); plan {stages['layout_host']:.1f} ms (host); call "
+                f"{call_s:.3f} s (host clock); peak {peak_gb:.3f} GB above the "
+                f"{base / 1e9:.3f} GB held")
+        s = sims["stream"]
+        check(s.shape == (v, v) and bool(torch.isfinite(s).all()), f"arxiv {mode}: scores")
+        err = (s - sims["row tiles"]).abs().max().item()
+        del sims
+        top = topk_rows(s, 20)[0].cpu().numpy()
+        del s
+        torch.cuda.empty_cache()
+        _, file_err = check_sim_file(out + ".sim.txt", top, TOL_DESIGNS, f"arxiv {mode}")
+        row.update(max_abs_err_row_tiles=err, bound=TOL_DESIGNS, file_topk_err=file_err)
+        report.setdefault("main_path", []).append(row)
+        say(f"arxiv {mode}: launches {rise}; S vs forced row tiles max err {err:.3e} (bound "
+            f"{TOL_DESIGNS:g}); file top-20 vs the call {file_err:.3e}; CLI {cli_s:.2f} s")
+        check(err <= TOL_DESIGNS, f"arxiv {mode}: S vs forced row tiles {err} > {TOL_DESIGNS}")
+    return launches
+
+
 def run_tree_path(dev, g, tag, dtypes, report):
     """``exact_simrank_spmm(impl="tree")`` on ``g``; returns B3's launches."""
     from graphtpu_torch.core.config import SimRankConfig
@@ -743,7 +933,7 @@ def rate_library(key, stream, arg):
         idx = torch.arange(stream.slots.numel(), device=arg.device) % spmv_rate.N_BUF
         return lambda: f.embedding_bag(idx, arg, offs, mode="sum",
                                        per_sample_weights=stream.wts)
-    ones = csr_of(stream, stream.n_nodes, torch.ones_like(stream.wts))
+    ones = stream_csr(stream, torch.ones_like(stream.wts))
     return lambda: torch.sparse.mm(ones, arg)
 
 
@@ -2539,6 +2729,7 @@ def main(argv=None) -> int:
 
     say("== phase 3: kernels B1, B2 against their plain version")
     cases, blog_items = phase_kernels(dev, report)
+    large = phase_kernels_large(dev, report)
 
     say("== phase 4: kernel B3 against its plain version")
     tree_cases = phase_tree_kernel(dev, report)
@@ -2556,8 +2747,13 @@ def main(argv=None) -> int:
         path = os.path.join(tmp, "rmat.txt")
         write_edgelist(path, rmat14_edges())
         more = run_main_path(dev, path, RMAT14_NODES, ["kahan"], report, "rmat")
+
+        say("== phase 6b: the arxiv shape (V = 38,912)")
+        path = os.path.join(tmp, "arxiv.txt")
+        write_edgelist(path, arxiv_shaped_edges())
+        arxiv = run_arxiv_path(dev, path, report)
     for k in launches:
-        launches[k] += more[k]
+        launches[k] += more[k] + arxiv[k]
         check(launches[k] > 0, f"kernel {k} was never launched on the main path")
 
     say("== phase 7: tree path (exact_simrank_spmm impl='tree')")
@@ -2637,9 +2833,18 @@ def main(argv=None) -> int:
         timed = next(c for c in cases if c["case"] == pick)
         work = bounds.spmv_work(blog_items, 1, BLOG_NODES, BLOG_NODES, 4, kernel, pin=True,
                                 multiply=kernel == "kahan")
-        summary.append(entry(label, SOURCE, REPLACES[kernel], kernel,
-                             [c["max_abs_err_plain"] for c in mine], timed, work,
-                             next(c for c in cases if c["case"] == lib)["library_ms"]))
+        x = entry(label, SOURCE, REPLACES[kernel], kernel,
+                  [c["max_abs_err_plain"] for c in mine + large
+                   if c["kernel"] == kernel and c["dtype"] == "float32"], timed, work,
+                  next(c for c in cases if c["case"] == lib)["library_ms"])
+        # C = V on R-MAT 14 and the arxiv shape: the pinned f32 product in the
+        # stream's design beside the row tiles, and the unpinned library call
+        x["shapes"] = {
+            tag: {k: next(c for c in large if c["case"] == f"{tag}_{pick}")[k]
+                  for k in ("design", "ms", "row_tiles_ms", "plain_ms", "bound_ms", "bound_by")}
+            | {"library_ms": next(c for c in large if c["case"] == f"{tag}_{lib}")["library_ms"]}
+            for tag in ("rmat", "arxiv")}
+        summary.append(x)
     level0, level1 = tree_cases[0], tree_cases[1]  # the largest level, first column block
     t0 = report["tree_level0"]
     b3 = entry(

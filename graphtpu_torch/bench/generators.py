@@ -2,9 +2,9 @@
 
 The generators of ``graphtpu/bench/generators.py``, with its semantics:
 uniform random pairs, bipartite, directed and R-MAT power-law graphs, and
-the streamed, deduplicated bipartite writer for huge V; and the two graphs
-the port's checks run at full width, :func:`blog_shaped_graph` and
-:func:`rmat14_graph`.
+the streamed, deduplicated bipartite writer for huge V; and the graphs
+the port's checks run at full width, :func:`blog_shaped_graph`,
+:func:`rmat14_graph`, :func:`arxiv_shaped_graph` and :func:`v60000_graph`.
 """
 
 from __future__ import annotations
@@ -148,3 +148,32 @@ def rmat14_edges(seed: int = 0) -> np.ndarray:
 def rmat14_graph(seed: int = 0, device="cpu"):
     """The R-MAT graph: V = 16,384, degrees skewed up to 4,086 at seed 0."""
     return build_graph(rmat14_edges(seed), n_nodes=RMAT14_NODES, device=device)
+
+
+ARXIV_LEFT = ARXIV_RIGHT = 19_456
+ARXIV_NODES = ARXIV_LEFT + ARXIV_RIGHT
+
+
+def arxiv_shaped_edges(seed: int = 0) -> np.ndarray:
+    """The arxiv author-publication shape (``examples/arxiv_simrank.py``):
+    a bipartite graph of 19,456 + 19,456 nodes at average degree 3."""
+    return bipartite_random_graph(ARXIV_LEFT, ARXIV_RIGHT, 3, seed=seed)
+
+
+def arxiv_shaped_graph(seed: int = 0, device="cpu"):
+    """The arxiv-shaped graph: V = 38,912, 116,722 CSR slots at seed 0,
+    degrees up to 13."""
+    return build_graph(arxiv_shaped_edges(seed), n_nodes=ARXIV_NODES, device=device)
+
+
+V60000_NODES = 60_000
+
+
+def v60000_graph(seed: int = 4, device="cpu"):
+    """V = 60,000 (past one block's shared memory): 200,000 random edges
+    and a hub of degree 3,000 at node 7."""
+    rng = np.random.default_rng(seed)
+    edges = rng.integers(0, V60000_NODES, size=(200_000, 2))
+    hub = np.stack([np.full(3000, 7), rng.choice(V60000_NODES, 3000, replace=False)], 1)
+    return build_graph(np.concatenate([edges[edges[:, 0] != edges[:, 1]], hub]),
+                       n_nodes=V60000_NODES, device=device)

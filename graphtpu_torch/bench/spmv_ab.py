@@ -1,6 +1,7 @@
 """Kernels B1/B2 against an earlier build of themselves, in turns, on one card.
 
-    python -m graphtpu_torch.bench.spmv_ab --old-csrc DIR [--out ab.json]
+    python -m graphtpu_torch.bench.spmv_ab --old-csrc DIR [--only TAGS] [--force]
+        [--out ab.json]
 
 ``DIR`` holds an earlier ``graphtpu_torch/kernels/csrc`` whose ``spmv.cu``
 has today's entry points (``gt_spmv_kahan_f32(slots, wts, row_items, sell,
@@ -9,21 +10,28 @@ raw_wts, scales, row_items, sell, table, out, v, c, seg_k, pin, scale, mul,
 bf16, stream)``, commit 4fb4c8d or later: a ``struct GtSell`` that is a
 prefix of today's), for example a ``git archive`` of an earlier commit
 unpacked into a git-ignored directory.  The script builds it with nvcc
-and, at the shapes the main path gives the kernels (blog-shaped V = C =
-10,496 and R-MAT V = C = 16,384, seed 0; f32 and bf16 tables, with and
-without the fused pin), and on the blog-shaped graph's other streams
-(seg-2 after an RCM relabel, as ``--relabel rcm --seg 2`` runs it, and
-random edge weights), runs both builds in the design the stream gives
-them (the column panel over its sliced layout, or row tiles), times old,
-new, new, old with CUDA events (the median of 9 launches each) and counts
-the elements where the new output differs from the old one (expected 0:
-the same operations in the same order).
+and, at the shapes the main path gives the kernels (C = V, seed 0; f32 and
+bf16 tables, with and without the fused pin) on the blog-shaped graph (V =
+10,496), R-MAT 14 (V = 16,384) and the arxiv shape (V = 38,912), on V =
+60,000 at C = 8,192, and on the blog-shaped graph's other streams (seg-2
+after an RCM relabel, as ``--relabel rcm --seg 2`` runs it, and random
+edge weights), runs the old build in the design it gives the stream (the
+column panel where the stream has its sliced layout, else row tiles) and
+the new build in the design ``spmv`` gives it and, with ``--force``, also
+as the L2 column tiles on every seg-1 stream that has another design;
+times old, new, new, old with CUDA events (the median of 9 launches each)
+and counts the elements where the new output differs from the old one,
+all and on rows of at most SELL_HUB items (expected 0 there: the same
+operations in the same order).  Each unpinned case also times one
+``torch.sparse.mm`` of the folded P (its CSR, in the table's dtype) on
+the same table.  ``--only`` takes a comma list of stream tags (TAGS).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -33,13 +41,16 @@ import tempfile
 import numpy as np
 import torch
 
+from graphtpu_torch.bench import bounds
 from graphtpu_torch.bench.generators import (
     BLOG_NODES,
+    arxiv_shaped_graph,
     blog_shaped_edges,
     blog_shaped_graph,
     rmat14_graph,
+    v60000_graph,
 )
-from graphtpu_torch.bench.timing import cuda_ms
+from graphtpu_torch.bench.timing import cuda_ms, stream_csr
 from graphtpu_torch.kernels import _build, spmm
 
 CASES = (  # stream, mode, dtype, table_scale
@@ -54,7 +65,21 @@ CASES = (  # stream, mode, dtype, table_scale
     ("blog_weighted", "fast", torch.float32, 0.6),
     ("rmat", "kahan", torch.float32, 0.6),
     ("rmat", "fast", torch.float32, 0.6),
+    ("rmat", "fast", torch.bfloat16, 0.6),
+    ("rmat", "kahan", torch.float32, None),
+    ("rmat", "fast", torch.float32, None),
+    ("rmat", "fast", torch.bfloat16, None),
+    ("arxiv", "kahan", torch.float32, 0.6),
+    ("arxiv", "fast", torch.float32, 0.6),
+    ("arxiv", "fast", torch.bfloat16, 0.6),
+    ("arxiv", "kahan", torch.float32, None),
+    ("arxiv", "fast", torch.float32, None),
+    ("arxiv", "fast", torch.bfloat16, None),
+    ("v60000", "kahan", torch.float32, 0.6),
+    ("v60000", "fast", torch.float32, 0.6),
 )
+TAGS = ("blog", "blog_seg2_rcm", "blog_weighted", "rmat", "arxiv", "v60000")
+COLS = {"v60000": 8192}  # table columns where not C = V
 
 
 def build_old(csrc: str, out_dir: str) -> ctypes.CDLL:
@@ -92,27 +117,50 @@ def old_spmv(old, stream, table, mode, table_scale):
     return out
 
 
-def streams(dev):
-    """(tag, stream) of each stream the cases run over."""
+def make_stream(tag, dev):
+    """The stream of ``tag`` (one of TAGS) on ``dev``."""
     from graphtpu_torch import build_graph
     from graphtpu_torch.core.reorder import rcm_order, relabel_graph
 
-    blog = blog_shaped_graph()
-    yield "blog", spmm.build_spmv_stream(blog, device=dev)
-    rcm, _ = relabel_graph(blog, rcm_order(blog))
-    yield "blog_seg2_rcm", spmm.build_spmv_segments(rcm, k=2, device=dev)
-    edges = blog_shaped_edges()
-    wts = (np.random.default_rng(0).random(len(edges)) + 0.1).astype(np.float32)
-    weighted = build_graph(edges, weights=wts, n_nodes=BLOG_NODES)
-    yield "blog_weighted", spmm.build_spmv_stream(weighted, weighted=True, device=dev)
-    yield "rmat", spmm.build_spmv_stream(rmat14_graph(), device=dev)
+    if tag == "blog":
+        return spmm.build_spmv_stream(blog_shaped_graph(), device=dev)
+    if tag == "blog_seg2_rcm":
+        blog = blog_shaped_graph()
+        rcm, _ = relabel_graph(blog, rcm_order(blog))
+        return spmm.build_spmv_segments(rcm, k=2, device=dev)
+    if tag == "blog_weighted":
+        edges = blog_shaped_edges()
+        wts = (np.random.default_rng(0).random(len(edges)) + 0.1).astype(np.float32)
+        weighted = build_graph(edges, weights=wts, n_nodes=BLOG_NODES)
+        return spmm.build_spmv_stream(weighted, weighted=True, device=dev)
+    if tag == "rmat":
+        return spmm.build_spmv_stream(rmat14_graph(), device=dev)
+    if tag == "arxiv":
+        return spmm.build_spmv_stream(arxiv_shaped_graph(), device=dev)
+    if tag == "v60000":
+        return spmm.build_spmv_stream(v60000_graph(), device=dev)
+    raise ValueError(f"unknown stream {tag!r}")
+
+
+def variants(stream, force: bool):
+    """The streams the new build runs: the one ``spmv`` is given and, with
+    ``force``, the same stream with a tile plan where it has none (seg-1
+    streams)."""
+    out = [stream]
+    if force and stream.tiles is None and stream.seg_k == 1:
+        out.append(dataclasses.replace(stream, sell=None, tiles=spmm.build_tile_plan(stream)))
+    return out
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", required=True, help="directory of the earlier kernel sources")
+    ap.add_argument("--only", default=",".join(TAGS), help="comma list of stream tags")
+    ap.add_argument("--force", action="store_true",
+                    help="also run every other design that takes each stream")
     ap.add_argument("--out", default=None, help="write the JSON result here")
     args = ap.parse_args(argv)
+    tags = args.only.split(",")
     if not torch.cuda.is_available():
         raise RuntimeError("spmv_ab needs a CUDA device")
     dev = torch.device("cuda")
@@ -123,35 +171,61 @@ def main(argv=None) -> dict:
         old = build_old(args.old_csrc, tmp)
         _build.load()
         rows = []
-        for tag, stream in streams(dev):
-            design = "panel" if stream.sell is not None else "rows"
+        for tag in tags:
+            stream = make_stream(tag, dev)
+            # the old build: the column panel where the stream has its layout, else row tiles
+            old_st = stream if stream.sell is not None else spmm.row_tiles(stream)
+            runs = variants(stream, args.force)
             v = stream.n_nodes
+            c = COLS.get(tag, v)
+            cnt = torch.diff(stream.row_items)
+            lane = cnt <= spmm.SELL_HUB  # rows the new designs sum in the old order
             gen = torch.Generator(device=dev).manual_seed(0)
-            x = torch.rand((v, v), generator=gen, device=dev)
+            x = torch.rand((v, c), generator=gen, device=dev)
             for stag, mode, dtype, ts in CASES:
                 if stag != tag:
                     continue
                 table = x.to(dtype)
-                new_out = spmm.spmv(stream, table, mode, ts)
-                old_out = old_spmv(old, stream, table, mode, ts)
-                torch.cuda.synchronize()
-                diff = (new_out.float() - old_out.float()).abs()
-                unequal = int((new_out != old_out).sum().item())
-                t = [cuda_ms(lambda: old_spmv(old, stream, table, mode, ts)),
-                     cuda_ms(lambda: spmm.spmv(stream, table, mode, ts)),
-                     cuda_ms(lambda: spmm.spmv(stream, table, mode, ts)),
-                     cuda_ms(lambda: old_spmv(old, stream, table, mode, ts))]
-                r = dict(graph=tag, mode=mode, dtype=str(dtype).split(".")[-1],
-                         pin=ts is not None, design=design, old_ms=[t[0], t[3]],
-                         new_ms=[t[1], t[2]], max_abs_diff=diff.max().item(),
-                         unequal=unequal)
-                rows.append(r)
-                print(f"{tag} {mode} {r['dtype']} pin={r['pin']} ({design}): old "
-                      f"{t[0]:.3f}/{t[3]:.3f} ms, new {t[1]:.3f}/{t[2]:.3f} ms; "
-                      f"max |new-old| {r['max_abs_diff']:.3e}, {unequal} unequal elements",
-                      flush=True)
-                del new_out, old_out, diff, table
-            del x
+                old_fn = lambda: old_spmv(old, old_st, table, mode, ts)  # noqa: E731
+                old_out = old_fn()
+                lib = None
+                if ts is None:
+                    csr = stream_csr(stream, stream.wts).to(dtype)
+                    lib = cuda_ms(lambda: torch.sparse.mm(csr, table))
+                    del csr
+                bound_ms, bound_by = bounds.bound(*bounds.spmv_work(
+                    stream.n_items, stream.seg_k, v, c, table.element_size(), mode,
+                    pin=ts is not None,
+                    multiply=mode == "kahan" or not (stream.uniform and stream.seg_k == 1)))
+                labels = set()
+                for st in runs:
+                    label = spmm.spmv_design(st, dtype)
+                    if label in labels:
+                        continue  # a tile plan does not run bf16
+                    labels.add(label)
+                    new_fn = lambda: spmm.spmv(st, table, mode, ts)  # noqa: E731
+                    new_out = new_fn()
+                    torch.cuda.synchronize()
+                    diff = (new_out.float() - old_out.float()).abs().max().item()
+                    ne = new_out != old_out
+                    unequal, unequal_lane = int(ne.sum().item()), int(ne[lane].sum().item())
+                    del new_out, ne
+                    t = [cuda_ms(old_fn), cuda_ms(new_fn), cuda_ms(new_fn), cuda_ms(old_fn)]
+                    r = dict(graph=tag, mode=mode, dtype=str(dtype).split(".")[-1],
+                             pin=ts is not None, width=c, design=label,
+                             old_design=spmm.spmv_design(old_st), old_ms=[t[0], t[3]],
+                             new_ms=[t[1], t[2]], max_abs_diff=diff, unequal=unequal,
+                             unequal_lane_rows=unequal_lane, library_ms=lib,
+                             bound_ms=bound_ms, bound_by=bound_by)
+                    rows.append(r)
+                    print(f"{tag} {mode} {r['dtype']} pin={r['pin']} C={c}: old "
+                          f"({r['old_design']}) {t[0]:.3f}/{t[3]:.3f} ms, new ({label}) "
+                          f"{t[1]:.3f}/{t[2]:.3f} ms; max |new-old| {diff:.3e}, {unequal} "
+                          f"unequal elements ({unequal_lane} on rows of <= {spmm.SELL_HUB} "
+                          "items)" + ("" if lib is None else f"; torch.sparse.mm {lib:.3f} ms")
+                          + f"; bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+                del old_out, table
+            del x, stream, runs, old_st
             torch.cuda.empty_cache()
     res = dict(card=card, cases=rows)
     if args.out:

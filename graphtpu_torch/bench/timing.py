@@ -33,6 +33,18 @@ def cuda_ms(fn, warmup: int = 2, runs: int = 9) -> float:
     return float(np.median(times))
 
 
+def stream_csr(plan, weights) -> torch.Tensor:
+    """An item stream's P as a [V, V] CSR over ``weights`` (one per item;
+    rows < V, the pad row dropped): the operand of the ``torch.sparse.mm``
+    yardstick of B1/B2 and X3."""
+    v = plan.n_nodes
+    pos, slots = plan.pos.long(), plan.slots.long()
+    keep = pos < v
+    w = weights.view(-1)[: pos.numel()][keep]
+    crow = torch.searchsorted(pos[keep], torch.arange(v + 1, device=pos.device))
+    return torch.sparse_csr_tensor(crow, slots[keep], w, (v, v))
+
+
 def busy_ms_of(events) -> float:
     """ms covered by the union of a profile's device intervals (kernels,
     copies): the time the card was busy."""

@@ -40,6 +40,15 @@ class GtSell(ctypes.Structure):
         ("lane_base", ctypes.c_void_p)]
 
 
+class GtTiles(ctypes.Structure):
+    """``struct GtTiles`` of ``csrc/spmv.cu``: the L2 column tiles' plan
+    (:class:`graphtpu_torch.kernels.spmm.TilePlan`) and its scratch."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "hub_rows", "hub_piece", "piece_row", "piece_beg", "acc")] + [
+        (n, ctypes.c_int64) for n in ("n_hub", "n_pieces", "hub")]
+
+
 class GtGather(ctypes.Structure):
     """``struct GtGather`` of ``csrc/gather.cu``: a tree level's compact
     plan (:class:`graphtpu_torch.kernels.spmm.GatherLayout`) on the card."""
@@ -130,6 +139,9 @@ def load() -> ctypes.CDLL:
     lib.gt_spmv_kahan_f32.restype = ctypes.c_int
     lib.gt_spmv_fast.argtypes = [p, p, p, p, sell, p, p, i64, i64, i32, i32, f32, i32, i32, p]
     lib.gt_spmv_fast.restype = ctypes.c_int
+    lib.gt_spmv_tiles.argtypes = [p, p, p, p, ctypes.POINTER(GtTiles), p, p, i64, i64, i32, f32,
+                                  i32, i32, p]
+    lib.gt_spmv_tiles.restype = ctypes.c_int
     lib.gt_gather_rows_sum.argtypes = [p, p, p, i64, i32, p, i64, i64, i32, i64, i32,
                                        ctypes.POINTER(GtGather), p]
     lib.gt_gather_rows_sum.restype = ctypes.c_int

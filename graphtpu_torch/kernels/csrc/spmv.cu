@@ -15,7 +15,8 @@
 // scales the row once by its first item's scale.  Rows with no items are
 // written as zeros; out has V+1 rows (row V takes the stream's pad items).
 //
-// Two designs behind one launch, chosen by the caller's stream:
+// Three designs, chosen on the host by the caller's stream
+// (kernels/spmm.py:design_rule):
 //
 // The column panel (spmv_panel), for a uniform K == 1 stream whose V rows
 // of 16 bytes fit one block's shared memory (V <= 11,448, kernels/spmm.py:
@@ -39,12 +40,28 @@
 // weight times a buffer row instead (sell_buffer_sums_f32), and X3 sums
 // unscaled with 16 items in flight (sell_raw_sums_f32).
 //
-// Row tiles (spmv_rows), for every other stream (seg-2/4, weighted, or V
-// past the panel): one block per (output row, 1,024-column tile), reading
-// table rows from L2.  Where the panel runs, it was measured faster; a
-// panel over int32 slots and per-item weights (seg-2, weighted), or with
-// a slab narrower than 16 bytes or several panels (larger V), was
-// measured slower than row tiles on an H100 (PERF.md) and is not built.
+// L2 column tiles (spmv_tiles, entry gt_spmv_tiles), for f32 products over
+// the other seg-1 streams whose hub rows hold under a quarter of the items
+// (the arxiv shape, V = 60,000, weighted streams): a warp per output row
+// (or per piece of SELL_HUB items of a hub row) and 256-column tile, the
+// blocks running tile by tile, so the rows a tile reads come from L2 while
+// the row tiles below read a 1,024-column slice of every row (V x 4 KB:
+// 159 MB at the arxiv shape) and go to HBM.  A row's items are summed in
+// stream order with the row tiles' operations, so rows of at most
+// SELL_HUB items get their bits; hub rows' pieces are joined in a fixed
+// order (TwoSum for B1) by a second kernel.  What bounds it: a warp's
+// chain of dependent loads (row offsets, slots, table rows) at 24 resident
+// warps an SM (its launch bound: 3 blocks of 8), not HBM: 6.7-7.4 ms at
+// the arxiv shape against 3.6 ms for its bytes (PERF.md).
+//
+// Row tiles (spmv_rows), for every other stream (seg-2/4, bf16 tables, or
+// V past the panel with heavy hub rows, as R-MAT): one block per (output
+// row, 1,024-column tile), reading table rows from L2.  Where the panel or
+// the L2 column tiles run, they were measured faster; a panel over int32
+// slots and per-item weights (seg-2, weighted), or with a slab narrower
+// than 16 bytes or several panels, or of the hot rows only (R-MAT), and
+// the L2 column tiles over seg-2, bf16 or R-MAT streams, were measured
+// slower than row tiles on an H100 (PERF.md) and are not built.
 //
 // What bounds the panel on this card: its walk and its shared-memory reads,
 // not device memory.  At V = C = 10,496 with 658,180 items the function
@@ -75,6 +92,20 @@
 
 #include "cols.cuh"
 #include "panel.cuh"
+
+// The L2 column tiles' plan (kernels/spmm.py:TilePlan): rows of more than
+// `hub` items are cut into pieces of `hub` items, in row order; the launch's
+// scratch holds each piece's partial sums.
+struct GtTiles {
+  const int32_t* hub_rows;   // [n_hub], ascending
+  const int32_t* hub_piece;  // [n_hub + 1]: hub row h sums pieces hub_piece[h] ..
+  const int32_t* piece_row;  // [n_pieces]
+  const int64_t* piece_beg;  // [n_pieces]: the piece's first stream item
+  float* acc;                // n_pieces > 0: [(KAHAN ? 2 : 1) * n_pieces * C]
+  int64_t n_hub;
+  int64_t n_pieces;
+  int64_t hub;               // items per piece (SELL_HUB)
+};
 
 namespace {
 
@@ -534,6 +565,158 @@ int launch_panel_pin(const GtSell& L, const void* table, void* out, int64_t v, i
   return launch_panel<T, KAHAN, false, UNR, !KAHAN>(L, tb, ob, v, c, table_scale, stream);
 }
 
+// L2 column tiles: a warp per (unit, tile of kTileCols f32 columns).  Units
+// 0..V are the output rows (a hub row's unit does nothing), units V+1..
+// the hub rows' pieces, whose (sum, compensation) partials go to P.acc for
+// tiles_hub_merge.  Lane l owns the 16-byte vectors l and l + 32 of the
+// tile, so each item's row is read as two coalesced 512-byte runs, and
+// blocks run tile by tile (blockIdx.y), so the rows a tile reads come
+// from L2.
+constexpr int kTileWarps = 8;
+constexpr int kTileCols = 256;
+constexpr int kTileVecs = kTileCols / (32 * kCols);  // 16-byte vectors of a lane
+constexpr int kTileLane = kTileVecs * kCols;         // columns of a lane
+constexpr int kTileAhead = 4;                        // items loaded before summing
+
+template <bool KAHAN>
+__global__ void __launch_bounds__(kTileWarps * 32, 3)
+spmv_tiles(const int32_t* __restrict__ slots, const float* __restrict__ wts,
+           const float* __restrict__ scales, const int64_t* __restrict__ row_items,
+           const GtTiles P, const float* __restrict__ table, float* __restrict__ out,
+           int64_t v, int64_t c, int pin, float table_scale, int mul, int vec) {
+  constexpr int F = kTileLane;
+  const int lane = threadIdx.x % 32;
+  const int64_t u = (int64_t)blockIdx.x * kTileWarps + threadIdx.x / 32;
+  // vector k of this lane: columns col0 + 32 * kCols * k ..
+  const int64_t col0 = (int64_t)blockIdx.y * kTileCols + (int64_t)lane * kCols;
+  const bool weigh = KAHAN || mul;
+  int64_t row, beg, end, piece = -1;
+  if (u <= v) {
+    row = u;
+    beg = __ldg(row_items + u);
+    end = __ldg(row_items + u + 1);
+    if (end - beg > P.hub) return;             // its pieces take it
+  } else if (u - (v + 1) < P.n_pieces) {
+    piece = u - (v + 1);
+    row = __ldg(P.piece_row + piece);
+    beg = __ldg(P.piece_beg + piece);
+    end = min(beg + P.hub, __ldg(row_items + row + 1));
+  } else {
+    return;
+  }
+
+  float sum[F], comp[F];
+#pragma unroll
+  for (int i = 0; i < F; ++i) sum[i] = comp[i] = 0.f;
+  for (int64_t t0 = beg; t0 < end; t0 += kTileAhead) {
+    const int n = (end - t0 < kTileAhead) ? (int)(end - t0) : kTileAhead;
+    int s[kTileAhead];
+    float w[kTileAhead], x[kTileAhead][F];
+#pragma unroll
+    for (int q = 0; q < kTileAhead; ++q) {
+      if (q < n) {
+        s[q] = __ldg(slots + t0 + q);
+        w[q] = weigh ? __ldg(wts + t0 + q) : 1.f;
+        const float* src = table + (size_t)s[q] * (size_t)c;
+#pragma unroll
+        for (int k = 0; k < kTileVecs; ++k)
+          load_cols(src, col0 + 32 * kCols * k, c, vec != 0,
+                    *reinterpret_cast<float(*)[kCols]>(&x[q][k * kCols]));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kTileAhead; ++q) {
+      if (q < n) {
+#pragma unroll
+        for (int i = 0; i < F; ++i) {
+          float val = x[q][i];
+          if (pin)
+            val = (col0 + 32 * kCols * (i / kCols) + i % kCols == s[q])
+                      ? 1.f : __fmul_rn(table_scale, val);
+          if (weigh) val = __fmul_rn(val, w[q]);
+          if (KAHAN) {
+            // keeps long power-law rows at ~eps instead of O(d) eps
+            const float y = __fsub_rn(val, comp[i]);
+            const float t = __fadd_rn(sum[i], y);
+            comp[i] = __fsub_rn(__fsub_rn(t, sum[i]), y);
+            sum[i] = t;
+          } else {
+            sum[i] = __fadd_rn(sum[i], val);
+          }
+        }
+      }
+    }
+  }
+  if (piece >= 0) {
+    float* acc = P.acc + (size_t)piece * (size_t)c;
+    const size_t half = (size_t)P.n_pieces * (size_t)c;
+#pragma unroll
+    for (int i = 0; i < F; ++i) {
+      const int64_t col = col0 + 32 * kCols * (i / kCols) + i % kCols;
+      if (col < c) {
+        acc[col] = sum[i];
+        if (KAHAN) acc[half + col] = comp[i];
+      }
+    }
+    return;
+  }
+  if (!KAHAN) {
+    const float scale = (end > beg) ? __ldg(scales + beg) : 0.f;
+#pragma unroll
+    for (int i = 0; i < F; ++i) sum[i] = __fmul_rn(sum[i], scale);
+  }
+  float* dst = out + (size_t)row * (size_t)c;
+#pragma unroll
+  for (int k = 0; k < kTileVecs; ++k)
+    store_cols(dst, col0 + 32 * kCols * k, c, vec != 0,
+               *reinterpret_cast<const float(*)[kCols]>(&sum[k * kCols]));
+}
+
+// Each hub row's pieces joined in piece order (TwoSum for B1), B2's row
+// scale applied, one thread per (hub row blockIdx.x, column).
+template <bool KAHAN>
+__global__ void __launch_bounds__(256)
+tiles_hub_merge(const float* __restrict__ scales, const int64_t* __restrict__ row_items,
+                const GtTiles P, float* __restrict__ out, int64_t c) {
+  const int64_t col = (int64_t)blockIdx.y * 256 + threadIdx.x;
+  if (col >= c) return;
+  const int h = blockIdx.x;
+  const int row = __ldg(P.hub_rows + h);
+  const int q0 = __ldg(P.hub_piece + h), q1 = __ldg(P.hub_piece + h + 1);
+  const size_t half = (size_t)P.n_pieces * (size_t)c;
+  float s = P.acc[(size_t)q0 * c + col];
+  float cp = KAHAN ? P.acc[half + (size_t)q0 * c + col] : 0.f;
+  for (int q = q0 + 1; q < q1; ++q) {
+    const float s2 = P.acc[(size_t)q * c + col];
+    if (KAHAN) kahan_merge(s, cp, s2, P.acc[half + (size_t)q * c + col]);
+    else s = __fadd_rn(s, s2);
+  }
+  if (!KAHAN) s = __fmul_rn(s, __ldg(scales + __ldg(row_items + row)));
+  out[(size_t)row * (size_t)c + col] = s;
+}
+
+template <bool KAHAN>
+int launch_tiles(const int32_t* slots, const float* wts, const float* scales,
+                 const int64_t* row_items, const GtTiles& P, const float* table, float* out,
+                 int64_t v, int64_t c, int pin, float table_scale, int mul,
+                 cudaStream_t stream) {
+  if (P.hub < 1 || (P.n_pieces > 0 && P.acc == nullptr) || (P.n_hub > 0) != (P.n_pieces > 0))
+    return (int)cudaErrorInvalidValue;
+  const int vec = c % kCols == 0 && (uintptr_t)table % kSlab == 0 && (uintptr_t)out % kSlab == 0;
+  const int64_t tiles = (c + kTileCols - 1) / kTileCols;
+  const int64_t blocks = (v + 1 + P.n_pieces + kTileWarps - 1) / kTileWarps;
+  if (blocks > 0x7fffffffLL || tiles > 65535 || P.n_hub > 0x7fffffffLL ||
+      (c + 255) / 256 > 65535)
+    return (int)cudaErrorInvalidValue;
+  spmv_tiles<KAHAN><<<dim3((unsigned)blocks, (unsigned)tiles), kTileWarps * 32, 0, stream>>>(
+      slots, wts, scales, row_items, P, table, out, v, c, pin, table_scale, mul, vec);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || P.n_hub == 0) return (int)e;
+  tiles_hub_merge<KAHAN><<<dim3((unsigned)P.n_hub, (unsigned)((c + 255) / 256)), 256, 0,
+                           stream>>>(scales, row_items, P, out, c);
+  return (int)cudaGetLastError();
+}
+
 // the panel where the caller passes a layout (uniform seg-1 streams), else row tiles
 template <typename T, bool KAHAN>
 int launch(const int32_t* slots, const float* wts, const float* scales,
@@ -596,6 +779,22 @@ int gt_spmv_fast(const int32_t* slots, const float* raw_wts, const float* scales
                                         c, seg_k, pin, table_scale, mul, stream);
   return launch<float, false>(slots, raw_wts, scales, row_items, sell, table, out, v, c, seg_k,
                               pin, table_scale, mul, stream);
+}
+
+// B1 (kahan != 0) or B2 over a seg-1 stream as L2 column tiles over `plan`,
+// f32 table and output: the same output as the entry points above, from
+// the same stream arguments.
+int gt_spmv_tiles(const int32_t* slots, const float* wts, const float* scales,
+                  const int64_t* row_items, const GtTiles* plan, const float* table, float* out,
+                  int64_t v, int64_t c, int pin, float table_scale, int mul, int kahan,
+                  cudaStream_t stream) {
+  if (v < 0 || c <= 0) return (int)cudaGetLastError();
+  if (plan == nullptr) return (int)cudaErrorInvalidValue;
+  if (kahan)
+    return launch_tiles<true>(slots, wts, nullptr, row_items, *plan, table, out, v, c, pin,
+                              table_scale, 0, stream);
+  return launch_tiles<false>(slots, wts, scales, row_items, *plan, table, out, v, c, pin,
+                             table_scale, mul, stream);
 }
 
 const char* gt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

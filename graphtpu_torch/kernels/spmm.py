@@ -8,11 +8,12 @@ of two forms:
 
 * an :class:`SpmvStream` of (slot, weight, output row) items sorted by
   output row, on the card with its sliced layout (:class:`SellLayout`)
-  where the column panel runs it, run by :func:`spmv` — on a CUDA tensor
-  through the hand kernels of ``csrc/spmv.cu``, B1 (Kahan-compensated row
-  sums, the gold mode) and B2 (plain f32 row sums, f32 or bf16 tables); on
-  a CPU tensor through :func:`spmv_plain`, the plain PyTorch version of
-  both;
+  where the column panel runs it or its tile plan (:class:`TilePlan`)
+  where the L2 column tiles do (:func:`design_rule`), run by :func:`spmv`
+  — on a CUDA tensor through the hand kernels of ``csrc/spmv.cu``, B1
+  (Kahan-compensated row sums, the gold mode) and B2 (plain f32 row sums,
+  f32 or bf16 tables); on a CPU tensor through :func:`spmv_plain`, the
+  plain PyTorch version of both;
 * a :class:`ReductionTree`, a padded W-ary gather-reduction tree run by
   :func:`tree_spmm` one level at a time — on a CUDA tensor through the
   hand kernel B3 of ``csrc/gather.cu`` (as the column panel over the
@@ -65,12 +66,23 @@ def sell_fits(v: int) -> bool:
 
 
 def runs_panel(stream: "SpmvStream") -> bool:
-    """Whether B1/B2 run ``stream`` as the column panel on the card: a
-    uniform seg-1 stream (every item of a row has the row's weight) of
-    1 <= V rows that fit :func:`sell_fits`.  Other streams run row tiles,
-    which were measured faster for them."""
+    """Whether B1/B2 run ``stream`` as the column panel over every table
+    row on the card: a uniform seg-1 stream (every item of a row has the
+    row's weight) of 1 <= V rows that fit :func:`sell_fits`."""
     return (stream.seg_k == 1 and stream.uniform and stream.n_nodes >= 1
             and sell_fits(stream.n_nodes))
+
+
+def spmv_design(stream: "SpmvStream", dtype=torch.float32) -> str:
+    """The design B1/B2 run ``stream`` in on the card over a ``dtype``
+    table: "panel" (the column panel over its sliced
+    layout), "tiles" (the L2 column tiles over its :class:`TilePlan`, f32
+    tables only) or "rows" (row tiles).  A stream built on the card gets
+    the layout or plan of its :func:`design_rule`; :func:`row_tiles`
+    forces the last."""
+    if stream.sell is not None:
+        return "panel"
+    return "tiles" if stream.tiles is not None and dtype == torch.float32 else "rows"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,11 +230,100 @@ def build_sell_layout(stream: "SpmvStream", hub=SELL_HUB, sigma=SELL_SIGMA) -> S
     )
 
 
+# The L2 column tiles (csrc/spmv.cu:spmv_tiles): a warp sums one row (or a
+# hub row's piece of SELL_HUB items) over a tile of 256 f32 columns, and
+# blocks run tile by tile, so the rows a tile reads come from L2.  They
+# run f32 products over seg-1 streams whose hub rows (more than SELL_HUB
+# items) hold less than this share of the items: on an H100 they beat the
+# row tiles at 0% (the arxiv shape) and 0.8% (V = 60,000) and lost at 58%
+# (R-MAT 14), in bf16, and over seg-2 streams (PERF.md).
+TILES_HUB_SHARE = 0.25
+
+
+def hub_share(stream: "SpmvStream") -> float:
+    """The share of ``stream``'s items that lie in rows of more than
+    SELL_HUB items (host numpy from its row offsets)."""
+    cnt = np.diff(stream.row_items.cpu().numpy())
+    return float(cnt[cnt > SELL_HUB].sum() / max(cnt.sum(), 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """What the L2 column tiles need besides the stream: rows of more than
+    ``SELL_HUB`` items (``hub_rows``, ascending) are cut into pieces of
+    ``SELL_HUB`` items in row order; hub row ``hub_rows[h]`` sums pieces
+    ``hub_piece[h] .. hub_piece[h+1]`` in that order, piece p being items
+    ``piece_beg[p]`` .. (at most ``SELL_HUB``) of row ``piece_row[p]``.
+    ``host_ms``: host time of the build."""
+
+    hub_rows: torch.Tensor   # int32[NH]
+    hub_piece: torch.Tensor  # int32[NH + 1]
+    piece_row: torch.Tensor  # int32[NP]
+    piece_beg: torch.Tensor  # int64[NP]
+    n_pieces: int
+    host_ms: float
+
+    def to(self, device) -> "TilePlan":
+        move = {f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)}
+        return dataclasses.replace(self, **move)
+
+
+def build_tile_plan(stream: "SpmvStream") -> TilePlan:
+    """The :class:`TilePlan` of a seg-1 ``stream`` (host numpy from its row
+    offsets), on its device."""
+    t0 = time.perf_counter()
+    if stream.seg_k != 1:
+        raise ValueError("the L2 column tiles take a seg-1 stream")
+    row_items = stream.row_items.cpu().numpy()
+    cnt = np.diff(row_items)
+    hub_ids = np.flatnonzero(cnt > SELL_HUB)
+    n_pc = -(-cnt[hub_ids] // SELL_HUB)
+    hub_piece = np.concatenate([[0], np.cumsum(n_pc)])
+    piece_row = np.repeat(hub_ids, n_pc)
+    q = np.arange(len(piece_row)) - np.repeat(hub_piece[:-1], n_pc)
+    dev = stream.slots.device
+
+    def d(a, dt):
+        return torch.as_tensor(np.asarray(a), dtype=dt).to(dev)
+
+    return TilePlan(
+        hub_rows=d(hub_ids, torch.int32),
+        hub_piece=d(hub_piece, torch.int32),
+        piece_row=d(piece_row, torch.int32),
+        piece_beg=d(row_items[piece_row] + q * SELL_HUB, torch.int64),
+        n_pieces=int(hub_piece[-1]),
+        host_ms=1e3 * (time.perf_counter() - t0),
+    )
+
+
+def row_tiles(stream: "SpmvStream") -> "SpmvStream":
+    """``stream`` without its layout or plan: B1/B2 run it as row tiles."""
+    return dataclasses.replace(stream, sell=None, tiles=None)
+
+
+def design_rule(stream: "SpmvStream") -> str:
+    """The design a stream built on the card gets, from its shape: the
+    column panel where :func:`runs_panel` holds; else the L2 column tiles
+    for a seg-1 stream whose :func:`hub_share` is below TILES_HUB_SHARE;
+    else row tiles."""
+    if runs_panel(stream):
+        return "panel"
+    if stream.seg_k == 1 and hub_share(stream) < TILES_HUB_SHARE:
+        return "tiles"
+    return "rows"
+
+
 def _with_layout(stream: "SpmvStream") -> "SpmvStream":
-    """``stream`` with its sliced layout where it lies on a CUDA device and
-    :func:`runs_panel` holds; unchanged otherwise."""
-    if stream.sell is None and stream.slots.is_cuda and runs_panel(stream):
+    """``stream`` with the layout or plan of its :func:`design_rule` where
+    it lies on a CUDA device and has neither; unchanged otherwise."""
+    if stream.sell is not None or stream.tiles is not None or not stream.slots.is_cuda:
+        return stream
+    design = design_rule(stream)
+    if design == "panel":
         return dataclasses.replace(stream, sell=build_sell_layout(stream))
+    if design == "tiles":
+        return dataclasses.replace(stream, tiles=build_tile_plan(stream))
     return stream
 
 
@@ -238,8 +339,10 @@ class SpmvStream:
     ``block_items`` multiple run in the dummy output row V.
     ``row_items[r] .. row_items[r+1]`` are the items of output row r
     (int64[V+2]).  ``sell``: on a CUDA device, the same stream in the
-    sliced order of the column panel (:class:`SellLayout`) where
-    :func:`runs_panel` holds, built beside these fields; else None.
+    sliced order of the column panel (:class:`SellLayout`), and
+    ``tiles``: the plan of the L2 column tiles (:class:`TilePlan`), each
+    where :func:`design_rule` gives the stream that design, built beside
+    these fields; else None.
     """
 
     slots: torch.Tensor     # int32[T]
@@ -254,14 +357,16 @@ class SpmvStream:
     uniform: bool           # all raw weights == 1 (fast mode skips the multiply)
     seg_k: int = 1          # table rows per item
     sell: Optional[SellLayout] = None
+    tiles: Optional[TilePlan] = None
 
     def to(self, device) -> "SpmvStream":
         move = {
             f: getattr(self, f).to(device)
             for f in ("slots", "wts", "pos", "raw_wts", "scales", "row_items")
         }
-        if self.sell is not None:
-            move["sell"] = self.sell.to(device)
+        for f in ("sell", "tiles"):
+            if getattr(self, f) is not None:
+                move[f] = getattr(self, f).to(device)
         return _with_layout(dataclasses.replace(self, **move))
 
 
@@ -551,9 +656,10 @@ def spmv(
 
     A CPU table runs :func:`spmv_plain`.  A CUDA table launches kernel B1
     (``mode="kahan"``) or B2 (``mode="fast"``) on the current stream, or
-    raises; there is no other path.  The kernel runs the column panel over
-    the stream's sliced layout where it has one (:func:`runs_panel`), else
-    row tiles (``csrc/spmv.cu``).
+    raises; there is no other path.  The kernel runs the design of
+    :func:`spmv_design` (``csrc/spmv.cu``): the column panel over the
+    stream's sliced layout, the L2 column tiles over its tile plan, or row
+    tiles.
     """
     _check_mode(mode, table)
     if table.device.type == "cpu":
@@ -587,6 +693,25 @@ def sell_launch_args(lay: SellLayout, c: int, kahan: bool, device):
     return ctypes.byref(args), hub_acc
 
 
+def tiles_launch_args(plan: TilePlan, c: int, kahan: bool, device):
+    """``(byref(GtTiles), acc)``: the L2 column tiles' plan at ``c``
+    columns and the scratch of its hub pieces (None without hub rows), to
+    be held until the launch is enqueued."""
+    from graphtpu_torch.kernels import _build
+
+    acc = None
+    if plan.n_pieces:
+        acc = torch.empty((2 if kahan else 1) * plan.n_pieces * c, dtype=torch.float32,
+                          device=device)
+    args = _build.GtTiles()
+    for name in ("hub_rows", "hub_piece", "piece_row", "piece_beg"):
+        setattr(args, name, getattr(plan, name).data_ptr())
+    args.acc = None if acc is None else acc.data_ptr()
+    args.n_hub, args.n_pieces = plan.hub_rows.numel(), plan.n_pieces
+    args.hub = SELL_HUB
+    return ctypes.byref(args), acc
+
+
 def _spmv_cuda(stream, table, mode, table_scale):
     from graphtpu_torch.kernels import _build
 
@@ -602,9 +727,16 @@ def _spmv_cuda(stream, table, mode, table_scale):
     items = (stream.slots, stream.wts if kahan else stream.raw_wts, stream.scales,
              stream.row_items)
     lay = stream.sell
+    plan = stream.tiles if spmv_design(stream, table.dtype) == "tiles" else None
+    if lay is not None and stream.tiles is not None:
+        raise ValueError("a stream takes a sliced layout or a tile plan, not both")
+    if plan is not None and k != 1:
+        raise ValueError("a tile plan needs a seg-1 stream")
     fields = () if lay is None else (
         lay.slots, lay.lane_row, lay.lane_cnt, lay.unit_hub, lay.ss_chunks, lay.hub_rows,
         lay.hub_piece, lay.row_wts if kahan else lay.row_scale)
+    if plan is not None:
+        fields = (plan.hub_rows, plan.hub_piece, plan.piece_row, plan.piece_beg)
     for f in items + fields:
         if f.device != table.device or not f.is_contiguous():
             raise ValueError("stream tensors must be contiguous on the table's device")
@@ -620,9 +752,17 @@ def _spmv_cuda(stream, table, mode, table_scale):
     slots, wts, scales, row_items = (f.data_ptr() for f in items)
     pin = table_scale is not None
     scale = ctypes.c_float(float(table_scale) if pin else 0.0)
+    mul = int(not (stream.uniform and k == 1))
+    bf16 = int(table.dtype == torch.bfloat16)
     with torch.cuda.device(table.device):
         cu_stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        if kahan:
+        if plan is not None:
+            tiles, hub_acc = tiles_launch_args(plan, c, kahan, table.device)
+            rc = lib.gt_spmv_tiles(
+                slots, wts, scales, row_items, tiles, table.data_ptr(), out.data_ptr(), v, c,
+                int(pin), scale, mul, int(kahan), cu_stream,
+            )
+        elif kahan:
             rc = lib.gt_spmv_kahan_f32(
                 slots, wts, row_items, sell, table.data_ptr(), out.data_ptr(), v, c, k,
                 int(pin), scale, cu_stream,
@@ -630,8 +770,7 @@ def _spmv_cuda(stream, table, mode, table_scale):
         else:
             rc = lib.gt_spmv_fast(
                 slots, wts, scales, row_items, sell, table.data_ptr(), out.data_ptr(), v, c,
-                k, int(pin), scale, int(not (stream.uniform and k == 1)),
-                int(table.dtype == torch.bfloat16), cu_stream,
+                k, int(pin), scale, mul, bf16, cu_stream,
             )
     if rc != 0:
         raise RuntimeError(f"spmv {mode} kernel launch failed: {_build.error_string(rc)}")

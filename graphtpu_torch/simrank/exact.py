@@ -142,8 +142,9 @@ def exact_simrank_spmm(
     ("product1", "product2") and the transpose are added; in the tree
     branch "product2" includes the scale, the pin and the cast.  Both
     branches also set "layout_host", the host ms of the plan's kernel
-    layouts: the stream's sliced layout, or the tree levels' compact plans
-    (0 where the kernels run row tiles only, or on the CPU, and build none).
+    layouts: the stream's sliced layout or tile plan, or the tree levels'
+    compact plans (0 where the kernels run row tiles only, or on the CPU,
+    and build none).
     """
     if isinstance(g, DiGraph):
         g = g.in_
@@ -166,7 +167,8 @@ def exact_simrank_spmm(
     else:
         plan = build_spmv_stream(g, weighted=weighted, device=device)
     if stage_times is not None:
-        stage_times["layout_host"] = plan.sell.host_ms if plan.sell is not None else 0.0
+        built = plan.sell if plan.sell is not None else plan.tiles
+        stage_times["layout_host"] = built.host_ms if built is not None else 0.0
 
     s = torch.eye(v, dtype=dtype, device=device)
     for k in range(cfg.iterations):

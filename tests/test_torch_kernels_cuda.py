@@ -182,8 +182,8 @@ def _degree_graph(degrees, v, seed=0):
 
 @pytest.mark.parametrize("mode", ["kahan", "fast"])
 def test_kernel_beyond_one_panel(cuda, mode):
-    """V = 60,000 rows do not fit one block's shared memory: the stream
-    runs row tiles."""
+    """V = 60,000 rows do not fit one block's shared memory, and its hub
+    rows hold few items: the stream runs the L2 column tiles."""
     v, width = 60_000, 256
     assert not spmm.sell_fits(v)
     rng = np.random.default_rng(4)
@@ -191,7 +191,7 @@ def test_kernel_beyond_one_panel(cuda, mode):
     hub = np.stack([np.full(3000, 7), rng.choice(v, 3000, replace=False)], 1)
     g = gt.build_graph(np.concatenate([edges[edges[:, 0] != edges[:, 1]], hub]), n_nodes=v)
     plan = spmm.build_spmv_stream(g, device=cuda)
-    assert plan.sell is None
+    assert plan.sell is None and spmm.spmv_design(plan) == "tiles"
     x = torch.rand((v, width), generator=torch.Generator().manual_seed(4)).to(cuda)
     got = spmm.spmv(plan, x, mode, 0.6)
     rows = np.unique(np.concatenate([rng.choice(v, 300), [7, 0, v - 1]]))
@@ -202,8 +202,9 @@ def test_kernel_beyond_one_panel(cuda, mode):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_narrowed_slab(cuda, dtype):
     """V = 16,384 (R-MAT's) rows of 16 bytes do not fit one block's shared
-    memory, and narrower slabs lost to row tiles: the stream runs row
-    tiles."""
+    memory, and narrower slabs lost to row tiles: the stream runs the L2
+    column tiles (its hub row holds few items) in f32, row tiles in
+    bf16."""
     v, width = 16_384, 72
     assert not spmm.sell_fits(v)
     g = _graph(v=v, e=120_000, seed=5)
@@ -291,6 +292,81 @@ def test_kernel_is_deterministic(cuda, mode):
     a = spmm.spmv(plan, x, mode, 0.6)
     b = spmm.spmv(plan, x, mode, 0.6)
     assert torch.equal(a, b)
+
+
+def _tiled(plan):
+    """``plan`` run as the L2 column tiles, whatever its design."""
+    return dataclasses.replace(plan, sell=None, tiles=spmm.build_tile_plan(plan))
+
+
+def _star_plus(v, hub_degree, e, seed):
+    """Random edges and one hub row 0 of ``hub_degree`` distinct neighbours."""
+    rng = np.random.default_rng(seed)
+    edges = rng.integers(1, v, size=(e, 2))
+    hub = np.stack([np.zeros(hub_degree, np.int64), 1 + rng.permutation(v - 1)[:hub_degree]], 1)
+    return gt.build_graph(np.concatenate([edges[edges[:, 0] != edges[:, 1]], hub]), n_nodes=v)
+
+
+@pytest.mark.parametrize("table_scale", [None, 0.6])
+@pytest.mark.parametrize("mode", ["kahan", "fast"])
+@pytest.mark.parametrize("case", ["rmat14", "arxiv", "star", "ragged", "weighted"])
+def test_tiles_match_plain_and_row_tiles(cuda, case, mode, table_scale):
+    """The L2 column tiles against the plain version and the float64 oracle
+    (1e-5) and against the row tiles: bit-equal on rows of at most SELL_HUB
+    items, within 1e-5 on hub rows (pieces joined in a fixed order).  R-MAT
+    14 (many hub rows) at 264 columns; the arxiv shape at 520; a hub row of
+    more than 32·SELL_HUB items; C = 1,001 (rows not 16-byte aligned); a
+    weighted stream."""
+    from graphtpu_torch.bench import generators
+
+    weighted = case == "weighted"
+    g, width = {
+        "rmat14": lambda: (generators.rmat14_graph(), 264),
+        "arxiv": lambda: (generators.arxiv_shaped_graph(), 520),
+        "star": lambda: (_star_plus(13_000, 32 * spmm.SELL_HUB + 900, 20_000, 11), 300),
+        "ragged": lambda: (_star_plus(12_000, 700, 30_000, 12), 1001),
+        "weighted": lambda: (_graph(v=3000, e=40_000, seed=13, weighted=True), 300),
+    }[case]()
+    v = g.n_nodes
+    plan = _tiled(spmm.build_spmv_stream(g, weighted=weighted, device=cuda))
+    x = torch.rand((v, width), generator=torch.Generator().manual_seed(14)).to(cuda)
+    got = spmm.spmv(plan, x, mode, table_scale)
+    rows = spmm.spmv(spmm.row_tiles(plan), x, mode, table_scale)
+    lane = torch.diff(plan.row_items) <= spmm.SELL_HUB
+    assert torch.equal(got[lane], rows[lane])
+    if (~lane).any():
+        assert (got[~lane] - rows[~lane]).abs().max().item() <= 1e-5
+    orows = np.unique(np.concatenate([np.random.default_rng(15).choice(v, 200), [0, v - 1]]))
+    table = x.cpu().numpy() if table_scale is None else _pinned(x.cpu().numpy(), table_scale)
+    oracle = spmm.spmm_oracle(g, table, weighted=weighted, rows=orows)
+    _check(got, spmm.spmv_plain(plan, x, mode, table_scale), orows, oracle)
+
+
+def test_tiles_take_f32_only(cuda):
+    """A stream with a tile plan runs row tiles over a bf16 table: the
+    same bits as the row tiles, none of the tiles' launches."""
+    from graphtpu_torch.bench import generators
+
+    plan = spmm.build_spmv_stream(generators.arxiv_shaped_graph(), device=cuda)
+    assert spmm.spmv_design(plan) == "tiles"
+    assert spmm.spmv_design(plan, torch.bfloat16) == "rows"
+    x = torch.rand((plan.n_nodes, 264), generator=torch.Generator().manual_seed(16))
+    x = x.to(cuda).bfloat16()
+    assert torch.equal(spmm.spmv(plan, x, "fast", 0.6),
+                       spmm.spmv(spmm.row_tiles(plan), x, "fast", 0.6))
+
+
+def test_tiles_are_deterministic_and_counted(cuda):
+    g = _star_plus(12_000, 3 * spmm.SELL_HUB + 5, 30_000, 17)
+    plan = spmm.build_spmv_stream(g, device=cuda)
+    assert spmm.spmv_design(plan) == "tiles"
+    assert plan.tiles.hub_rows[0].item() == 0 and plan.tiles.hub_piece[1].item() == 4
+    x = torch.rand((12_000, 520), generator=torch.Generator().manual_seed(17)).to(cuda)
+    before = dict(spmm.SPMV_LAUNCHES)
+    for mode in ("kahan", "fast"):
+        assert torch.equal(spmm.spmv(plan, x, mode, 0.6), spmm.spmv(plan, x, mode, 0.6))
+    assert spmm.SPMV_LAUNCHES["kahan"] == before["kahan"] + 2
+    assert spmm.SPMV_LAUNCHES["fast"] == before["fast"] + 2
 
 
 def _small_random():

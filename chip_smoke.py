@@ -14,12 +14,13 @@ Phases (any failure raises and the run exits non-zero):
      at degree 20,000 (row tiles) and 11,000 (the panel): B1, and B2 in the
      panel, within 1e-5, while a sequential f32 sum must miss; every case
      launched twice and the outputs held bit-equal; CUDA-event times of
-     kernel, plain version and one torch.sparse.mm.  Then R-MAT 14 (row
-     tiles) and the arxiv shape (V = 38,912, the L2 column tiles in f32) at
-     C = V: B1 and B2 in f32 and B2 in bf16, each with and without the pin,
-     against the plain version and the float64 oracle, and bit-equal to the
-     row tiles on rows of at most SELL_HUB items; kernel, row-tile, plain
-     and torch.sparse.mm times beside the bound.
+     kernel, plain version and one torch.sparse.mm.  Then R-MAT 14 (the
+     packed-lane panel) and the arxiv shape (V = 38,912, the L2 column
+     tiles in f32, 16-byte row tiles in bf16) at C = V: B1 and B2 in f32
+     and B2 in bf16, each with and without the pin, against the plain
+     version and the float64 oracle, and bit-equal to the row tiles on rows
+     of at most SELL_HUB items; kernel, row-tile, plain and torch.sparse.mm
+     times beside the bound.
   4. tree kernel: kernel B3 against its plain version on every level of
      the blog-shaped and R-MAT reduction trees at 4,096-column blocks
      (level 0 read in place from the wider iterate), the ragged tail
@@ -35,7 +36,9 @@ Phases (any failure raises and the run exits non-zero):
      modes kahan, fast and fast16 on the blog-shaped graph; launch counts,
      files read back, scores against the dense fp32 engine, the host ms of
      the sliced layout.
-  6. skew: the kahan run again on an R-MAT graph (V = 16,384, row tiles).
+  6. skew: the kahan run again on an R-MAT graph (V = 16,384, the packed-
+     lane panel), its in-process call held within 1e-6 of the same call on
+     forced row tiles.
  6b. the arxiv shape: ``simrank --engine spmm`` on the arxiv-shaped edge
      file (V = 38,912, the L2 column tiles), kahan and fast, 3 iterations;
      launch counts, the file's top-20 scores against the in-process call's,
@@ -47,7 +50,9 @@ Phases (any failure raises and the run exits non-zero):
      peak memory.
   8. rate probe: ``python -m graphtpu_torch.bench.spmv_rate`` on both
      graphs (ns per item of B1, B2, X1-X3; X1-X3 on B2's panel at blog,
-     each beside B2, and B2 - X2 as the panel's share), then X1-X3 against
+     each beside B2, and B2 - X2 as the panel's share; X2 over R-MAT's
+     sliced layout, which reads no panel, in ns per chunk and slab beside
+     blog's, held against its plain version and the row tiles), then X1-X3 against
      their plain versions, at blog also in row tiles (X1's outputs
      bit-equal, X2's and X3's on lane rows), each beside one PyTorch
      library call at blog (X1 a max embedding_bag, X2 a weighted sum bag,
@@ -162,13 +167,15 @@ Phases 9-20 print their numbers as a ``{"paths": ...}`` line (12-13 under
 The last two lines are the kernels' JSON summary (with each kernel's bound
 from graphtpu_torch/bench/bounds.py; B3's level-0 time excludes the cost its
 slab-major output moves to level 1, so its entry also gives levels 0 + 1
-and the whole product, each against the row tiles alone) and the JSON
+and the whole product, each against the row tiles alone, and R-MAT 14's
+levels on row tiles; B1/B2 name the design of each shape) and the JSON
 result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -206,6 +213,8 @@ TOL_MC_PARITY = 1e-5  # reuse top-k (sort, float64 run totals) vs the dense scat
 TOL_MC_ENUM = 1e-6    # TopSim enumerate, card vs CPU (the same float32 operations)
 TOL_F32_DIST = 1e-6   # sharded f32 SimRank vs the single-device tree path / dense engine
 TOL_DESIGNS = 1e-6    # f32 SimRank on the stream's design vs forced row tiles
+# B1/B2's design at phase 3's shapes: (f32 tables, bf16 tables)
+DESIGNS_LARGE = {"rmat": ("packed", "packed"), "arxiv": ("tiles", "rows")}
 TOL_SDNE_ACT = 2e-4   # SDNE activations vs the float64 oracle, of max(1, |ref|)
 TOL_LE_RESIDUAL = 1e-3  # LE: ||(D - W)y - lambda D y|| / ||D y|| of each kept pair, float64
 TOL_LE_EIGH = 1e-4    # LE: the float32 spectrum on the card vs scipy's float64 eigh
@@ -472,6 +481,8 @@ def phase_kernels_large(dev, report):
             table = x.to(dtype)
             bf = dtype == torch.bfloat16
             design = spmm.spmv_design(plan, dtype)
+            want = DESIGNS_LARGE[tag][bf]
+            check(design == want, f"{tag} {name}: design {design}, expected {want}")
             out = spmm.spmv(plan, table, mode, ts)
             torch.cuda.synchronize()
             check(out.shape == (v + 1, v) and out.dtype == dtype, f"{tag} {name}: shape/dtype")
@@ -629,7 +640,7 @@ def phase_tree_kernel(dev, report):
         used = next(d for d in ("panel", "rows_slabs_in", "rows") if d in runs)
         plain_ms = cuda_ms(lambda: spmm.gather_rows_sum_plain(sl, w, table), warmup=1, runs=5)
         lib_ms = None
-        if name == "level0_strided":
+        if name in ("level0_strided", "rmat_level0"):
             # one PyTorch call of the same level: a bag of W weighted rows per
             # output row, over a contiguous copy of the level's table
             tc = table.contiguous()
@@ -708,8 +719,27 @@ def check_sim_file(sim_path, dense_top, tol, tag):
     return sims, file_err
 
 
-def run_main_path(dev, path, n_nodes, modes, report, tag):
-    """CLI runs over one edge file; returns each kernel's launches."""
+@contextlib.contextmanager
+def forced_row_tiles():
+    """``exact_simrank_spmm`` builds its streams without a layout or plan
+    inside the block, so B1/B2 run them as row tiles."""
+    from graphtpu_torch.kernels import spmm
+    from graphtpu_torch.simrank import exact
+
+    build = exact.build_spmv_stream
+    exact.build_spmv_stream = lambda *a, **kw: spmm.row_tiles(build(*a, **kw))
+    try:
+        yield
+    finally:
+        exact.build_spmv_stream = build
+
+
+def run_main_path(dev, path, n_nodes, modes, report, tag, want_design,
+                  row_tiles_check=False):
+    """CLI runs over one edge file, whose stream must get B1/B2's
+    ``want_design``; returns each kernel's launches.  With
+    ``row_tiles_check`` each mode's in-process call is held within
+    TOL_DESIGNS of the same call on forced row tiles."""
     from graphtpu_torch import read_edgelist_graph
     from graphtpu_torch.cli import main as cli_main
     from graphtpu_torch.core.config import SimRankConfig
@@ -760,19 +790,38 @@ def run_main_path(dev, path, n_nodes, modes, report, tag):
         call_s = time.perf_counter() - t0
         peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
         err = (sim.float() - dense).abs().max().item()
-        del sim
+        design = spmm.spmv_design(spmm.build_spmv_stream(g, device=dev), dtype)
+        check(design == want_design, f"{tag} {mode}: design {design}, expected {want_design}")
         per_iter = {k: stages[k] / cfg.iterations
                     for k in ("product1", "transpose", "product2")}
         row = dict(graph=tag, mode=mode, V=n_nodes, slots=g.n_edges,
                    max_degree=g.max_degree, launches=rise, max_abs_err_dense=err,
                    bound=tol, file_topk_err=file_err, cli_wall_s=cli_s,
                    spmm_call_wall_s=call_s, stage_ms_per_iter=per_iter,
-                   layout_host_ms=stages["layout_host"], peak_gb=peak_gb)
+                   layout_host_ms=stages["layout_host"], peak_gb=peak_gb, design=design)
+        if row_tiles_check:
+            rows_stages = {}
+            with forced_row_tiles():
+                rows_sim = exact_simrank_spmm(g, cfg, spmv_mode=kernel, dtype=dtype,
+                                              device=dev, stage_times=rows_stages)
+            err_rows = (sim.float() - rows_sim.float()).abs().max().item()
+            del rows_sim
+            row.update(max_abs_err_row_tiles=err_rows, row_tiles_bound=TOL_DESIGNS,
+                       row_tiles_stage_ms_per_iter={
+                           k: rows_stages[k] / cfg.iterations
+                           for k in ("product1", "transpose", "product2")})
+            say(f"{tag} {mode}: S on {design} vs forced row tiles max err {err_rows:.3e} "
+                f"(bound {TOL_DESIGNS:g}); row tiles per iteration "
+                + ", ".join(f"{k} {v:.3f} ms"
+                            for k, v in row["row_tiles_stage_ms_per_iter"].items()))
+            check(err_rows <= TOL_DESIGNS,
+                  f"{tag} {mode}: S vs forced row tiles {err_rows} > {TOL_DESIGNS}")
+        del sim
         out_rows.append(row)
-        say(f"{tag} {mode}: launches {rise}; S vs dense fp32 max err {err:.3e} "
+        say(f"{tag} {mode} ({design}): launches {rise}; S vs dense fp32 max err {err:.3e} "
             f"(bound {tol:g}); file top-20 vs dense {file_err:.3e}; per iteration "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in per_iter.items())
-            + f" (CUDA events); sliced layout {stages['layout_host']:.1f} ms (host); "
+            + f" (CUDA events); layout {stages['layout_host']:.1f} ms (host); "
             f"CLI {cli_s:.2f} s, spmm call {call_s:.3f} s (host clock); "
             f"peak {peak_gb:.3f} GB above the {base / 1e9:.3f} GB held")
         check(err <= tol, f"{tag} {mode}: S vs dense {err} > {tol}")
@@ -807,7 +856,6 @@ def run_arxiv_path(dev, path, report):
     g = read_edgelist_graph(path, n_nodes=v)
     cfg = SimRankConfig(iterations=ITERATIONS)
     launches = {"kahan": 0, "fast": 0}
-    build = exact.build_spmv_stream
     for mode in ("kahan", "fast"):
         out = os.path.join(os.path.dirname(path), f"arxiv_{mode}.txt")
         for k in spmm.SPMV_LAUNCHES:
@@ -826,19 +874,15 @@ def run_arxiv_path(dev, path, report):
                    launches=rise, cli_wall_s=cli_s)
         sims = {}
         for design in ("stream", "row tiles"):
-            if design == "row tiles":
-                exact.build_spmv_stream = lambda *a, **kw: spmm.row_tiles(build(*a, **kw))
             stages = {}
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            try:
+            with forced_row_tiles() if design == "row tiles" else contextlib.nullcontext():
                 t0 = time.perf_counter()
                 sims[design] = exact.exact_simrank_spmm(g, cfg, spmv_mode=mode, device=dev,
                                                         stage_times=stages)
                 torch.cuda.synchronize()
-            finally:
-                exact.build_spmv_stream = build
             call_s = time.perf_counter() - t0
             peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
             per_iter = {k: stages[k] / cfg.iterations
@@ -964,6 +1008,16 @@ def phase_rate_probe(dev, report):
             share = b2["ms"] - by["X2 accumulate only"]["ms"]
             say(f"{tag}: B2 - X2 = {share:.3f} ms, the panel's copy-in and reads "
                 f"({share / b2['ms']:.3f} of B2)")
+    # X2 over R-MAT's sliced layout (the table past the panel; X2 reads none):
+    # that layout's walk, flushes and hub join, beside blog's X2 a chunk and slab
+    blog_x2 = next(r for r in report["rate_probe"]["graphs"]["blog"]["rows"]
+                   if r["kernel"] == "X2 accumulate only")
+    for r in report["rate_probe"]["graphs"]["rmat"]["rows"]:
+        if "ns_per_chunk_slab" in r:
+            say(f"rmat: {r['kernel']} ({r['design']}) {r['ms']:.3f} ms, "
+                f"{r['ns_per_chunk_slab']:.3f} ns per chunk and slab ({r['chunks']} chunks); "
+                f"blog's X2 {blog_x2.get('ns_per_chunk_slab', float('nan')):.3f} "
+                f"({blog_x2.get('chunks')} chunks)")
 
     cases = []
     for tag in ("blog", "rmat"):
@@ -972,7 +1026,7 @@ def phase_rate_probe(dev, report):
         gen = torch.Generator(device=dev).manual_seed(5)
         table = torch.rand((g.n_nodes, g.n_nodes), generator=gen, device=dev)
         buf = torch.rand((spmv_rate.N_BUF, g.n_nodes), generator=gen, device=dev)
-        rows_st = dataclasses.replace(stream, sell=None)
+        rows_st = spmm.row_tiles(stream)
         lane = np.arange(g.n_nodes + 1)
         if stream.sell is not None:
             lane = np.setdiff1d(lane, stream.sell.hub_rows.cpu().numpy())
@@ -1037,6 +1091,27 @@ def phase_rate_probe(dev, report):
             check(ok, f"{tag} {label}: kernel vs plain version outside {bound}")
             check(unequal_rows in (None, 0), f"{tag} {label}: the panel and the row tiles differ")
             del out, plain
+        if stream.sell is None:
+            # X2 over the sliced layout of a table past the panel, as the
+            # probe ran it: the row tiles' bits on lane rows, and every row
+            # within two plain f32 sums' error bound of its plain version,
+            # 2·(n - 1)·2^-24·sum|terms| for n items (R-MAT's rows of up to
+            # 4,086 items, summed in two orders, differ by more than TOL_RATE)
+            sliced = dataclasses.replace(rows_st, sell=spmm.build_sell_layout(stream))
+            out = spmv_rate.accumulate_only(sliced, buf)
+            plain = spmv_rate.accumulate_only_plain(stream, buf)
+            lane = torch.as_tensor(np.setdiff1d(np.arange(g.n_nodes + 1),
+                                                sliced.sell.hub_rows.cpu().numpy()), device=dev)
+            unequal = int((out[lane] != spmv_rate.accumulate_only(rows_st, buf)[lane]).sum())
+            n = torch.diff(stream.row_items).clamp(min=2).float()[:, None]
+            within = bool(((out - plain).abs() <= 2 * (n - 1) * 2.0**-24 * plain).all())
+            err = (out - plain).abs().max().item()
+            say(f"{tag} X2 over its sliced layout ({sliced.sell.n_chunks} chunks, no panel): "
+                f"err vs plain {err:.3e} (bound 2(n-1)2^-24 sum|terms| a row); {unequal} "
+                "elements unequal to the row tiles' (lane rows)")
+            check(within and unequal == 0,
+                  f"{tag} X2 over the sliced layout: outside the bound or off the row tiles")
+            del out, plain, sliced
         del table, buf
         torch.cuda.empty_cache()
     report["rate_cases"] = cases
@@ -2741,12 +2816,13 @@ def main(argv=None) -> int:
         path = os.path.join(tmp, "blog.txt")
         write_edgelist(path, blog_shaped_edges())
         launches = run_main_path(dev, path, BLOG_NODES, ["kahan", "fast", "fast16"],
-                                 report, "blog")
+                                 report, "blog", "panel")
 
         say("== phase 6: skewed degrees (R-MAT)")
         path = os.path.join(tmp, "rmat.txt")
         write_edgelist(path, rmat14_edges())
-        more = run_main_path(dev, path, RMAT14_NODES, ["kahan"], report, "rmat")
+        more = run_main_path(dev, path, RMAT14_NODES, ["kahan"], report, "rmat", "packed",
+                             row_tiles_check=True)
 
         say("== phase 6b: the arxiv shape (V = 38,912)")
         path = os.path.join(tmp, "arxiv.txt")
@@ -2759,7 +2835,8 @@ def main(argv=None) -> int:
     say("== phase 7: tree path (exact_simrank_spmm impl='tree')")
     launches["gather"] = run_tree_path(dev, blog_shaped_graph(), "blog",
                                        [torch.float32, torch.bfloat16], report)
-    launches["gather"] += run_tree_path(dev, rmat14_graph(), "rmat", [torch.float32], report)
+    rmat_tree_launches = run_tree_path(dev, rmat14_graph(), "rmat", [torch.float32], report)
+    launches["gather"] += rmat_tree_launches
 
     say("== phase 8: SpMV item-rate probe")
     rate_launches, rate_cases = phase_rate_probe(dev, report)
@@ -2860,6 +2937,15 @@ def main(argv=None) -> int:
     b3.update(levels01_ms=level0["ms"] + level1["ms"],
               levels01_row_tiles_ms=level0["ms_by_design"]["rows"] + t1["rows"],
               product_ms=prod["panel"], product_row_tiles_ms=prod["rows"])
+    # R-MAT 14's tree, whose levels all run row tiles: each level's time and
+    # bound in the first column block, the embedding_bag of level 0, and the
+    # launches of its tree path (phase 7)
+    rmat_levels = [c for c in tree_cases if c["case"].startswith("rmat_level")]
+    b3["rmat"] = dict(
+        design=rmat_levels[0]["design"], launches=rmat_tree_launches,
+        levels_ms=[c["ms"] for c in rmat_levels], plain_ms=[c["plain_ms"] for c in rmat_levels],
+        bound_ms=[c["bound_ms"] for c in rmat_levels],
+        bound_by=[c["bound_by"] for c in rmat_levels], library_ms=rmat_levels[0]["library_ms"])
     summary.append(b3)
     for key, label, replaces in RATE_KERNELS:
         mine = [c for c in rate_cases if c["kernel"] == key]

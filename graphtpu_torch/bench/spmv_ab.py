@@ -1,7 +1,7 @@
 """Kernels B1/B2 against an earlier build of themselves, in turns, on one card.
 
     python -m graphtpu_torch.bench.spmv_ab --old-csrc DIR [--only TAGS] [--force]
-        [--out ab.json]
+        [--hot N,..] [--plain] [--out ab.json]
 
 ``DIR`` holds an earlier ``graphtpu_torch/kernels/csrc`` whose ``spmv.cu``
 has today's entry points (``gt_spmv_kahan_f32(slots, wts, row_items, sell,
@@ -18,13 +18,18 @@ after an RCM relabel, as ``--relabel rcm --seg 2`` runs it, and random
 edge weights), runs the old build in the design it gives the stream (the
 column panel where the stream has its sliced layout, else row tiles) and
 the new build in the design ``spmv`` gives it and, with ``--force``, also
-as the L2 column tiles on every seg-1 stream that has another design;
+as the L2 column tiles on every seg-1 stream that has another design and
+as the packed-lane panel on every uniform seg-1 stream of V <= 16,384
+that has another (``--hot`` adds packed layouts whose panel holds fewer
+rows, so more of the reads are cold);
 times old, new, new, old with CUDA events (the median of 9 launches each)
 and counts the elements where the new output differs from the old one,
 all and on rows of at most SELL_HUB items (expected 0 there: the same
 operations in the same order).  Each unpinned case also times one
 ``torch.sparse.mm`` of the folded P (its CSR, in the table's dtype) on
-the same table.  ``--only`` takes a comma list of stream tags (TAGS).
+the same table, and ``--plain`` times the plain PyTorch version of each
+case once (the median of 3).  ``--only`` takes a comma list of stream tags
+(TAGS).
 """
 
 from __future__ import annotations
@@ -61,6 +66,8 @@ CASES = (  # stream, mode, dtype, table_scale
     ("blog", "fast", torch.float32, None),
     ("blog_seg2_rcm", "kahan", torch.float32, 0.6),
     ("blog_seg2_rcm", "fast", torch.float32, 0.6),
+    ("blog_seg2_rcm", "fast", torch.bfloat16, 0.6),
+    ("blog_seg2_rcm", "fast", torch.bfloat16, None),
     ("blog_weighted", "kahan", torch.float32, 0.6),
     ("blog_weighted", "fast", torch.float32, 0.6),
     ("rmat", "kahan", torch.float32, 0.6),
@@ -77,6 +84,8 @@ CASES = (  # stream, mode, dtype, table_scale
     ("arxiv", "fast", torch.bfloat16, None),
     ("v60000", "kahan", torch.float32, 0.6),
     ("v60000", "fast", torch.float32, 0.6),
+    ("v60000", "kahan", torch.float32, None),
+    ("v60000", "fast", torch.float32, None),
 )
 TAGS = ("blog", "blog_seg2_rcm", "blog_weighted", "rmat", "arxiv", "v60000")
 COLS = {"v60000": 8192}  # table columns where not C = V
@@ -142,13 +151,22 @@ def make_stream(tag, dev):
     raise ValueError(f"unknown stream {tag!r}")
 
 
-def variants(stream, force: bool):
-    """The streams the new build runs: the one ``spmv`` is given and, with
-    ``force``, the same stream with a tile plan where it has none (seg-1
-    streams)."""
-    out = [stream]
+def variants(stream, force: bool, hot=()):
+    """The streams the new build runs, each with its label: the one ``spmv``
+    is given and, with ``force``, the same stream with a tile plan where it
+    has none (seg-1 streams) and with a packed layout where it has none and
+    the layout takes it (uniform seg-1, V <= PACK_MAX_V); ``hot`` adds
+    packed layouts whose panel holds that many rows ("packed@N")."""
+    out = [(None, stream)]
+    bare = spmm.row_tiles(stream)
     if force and stream.tiles is None and stream.seg_k == 1:
-        out.append(dataclasses.replace(stream, sell=None, tiles=spmm.build_tile_plan(stream)))
+        out.append((None, dataclasses.replace(bare, tiles=spmm.build_tile_plan(stream))))
+    packs = stream.seg_k == 1 and stream.uniform and stream.n_nodes <= spmm.PACK_MAX_V
+    if force and packs and stream.packed is None:
+        out.append((None, dataclasses.replace(bare, packed=spmm.build_packed_layout(stream))))
+    for h in hot if packs else ():
+        out.append((f"packed@{h}", dataclasses.replace(
+            bare, packed=spmm.build_packed_layout(stream, hot=h))))
     return out
 
 
@@ -158,6 +176,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--only", default=",".join(TAGS), help="comma list of stream tags")
     ap.add_argument("--force", action="store_true",
                     help="also run every other design that takes each stream")
+    ap.add_argument("--plain", action="store_true", help="also time each case's plain version")
+    ap.add_argument("--hot", type=lambda a: [int(h) for h in a.split(",")], default=[],
+                    help="comma list of panel rows: also run packed layouts holding that many")
     ap.add_argument("--out", default=None, help="write the JSON result here")
     args = ap.parse_args(argv)
     tags = args.only.split(",")
@@ -175,7 +196,7 @@ def main(argv=None) -> dict:
             stream = make_stream(tag, dev)
             # the old build: the column panel where the stream has its layout, else row tiles
             old_st = stream if stream.sell is not None else spmm.row_tiles(stream)
-            runs = variants(stream, args.force)
+            runs = variants(stream, args.force, args.hot)
             v = stream.n_nodes
             c = COLS.get(tag, v)
             cnt = torch.diff(stream.row_items)
@@ -193,13 +214,17 @@ def main(argv=None) -> dict:
                     csr = stream_csr(stream, stream.wts).to(dtype)
                     lib = cuda_ms(lambda: torch.sparse.mm(csr, table))
                     del csr
+                plain_ms = None
+                if args.plain:
+                    plain_ms = cuda_ms(lambda: spmm.spmv_plain(stream, table, mode, ts),
+                                       warmup=1, runs=3)
                 bound_ms, bound_by = bounds.bound(*bounds.spmv_work(
                     stream.n_items, stream.seg_k, v, c, table.element_size(), mode,
                     pin=ts is not None,
                     multiply=mode == "kahan" or not (stream.uniform and stream.seg_k == 1)))
                 labels = set()
-                for st in runs:
-                    label = spmm.spmv_design(st, dtype)
+                for name, st in runs:
+                    label = name or spmm.spmv_design(st, dtype)
                     if label in labels:
                         continue  # a tile plan does not run bf16
                     labels.add(label)
@@ -216,13 +241,14 @@ def main(argv=None) -> dict:
                              old_design=spmm.spmv_design(old_st), old_ms=[t[0], t[3]],
                              new_ms=[t[1], t[2]], max_abs_diff=diff, unequal=unequal,
                              unequal_lane_rows=unequal_lane, library_ms=lib,
-                             bound_ms=bound_ms, bound_by=bound_by)
+                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
                     rows.append(r)
                     print(f"{tag} {mode} {r['dtype']} pin={r['pin']} C={c}: old "
                           f"({r['old_design']}) {t[0]:.3f}/{t[3]:.3f} ms, new ({label}) "
                           f"{t[1]:.3f}/{t[2]:.3f} ms; max |new-old| {diff:.3e}, {unequal} "
                           f"unequal elements ({unequal_lane} on rows of <= {spmm.SELL_HUB} "
                           "items)" + ("" if lib is None else f"; torch.sparse.mm {lib:.3f} ms")
+                          + ("" if plain_ms is None else f"; plain {plain_ms:.3f} ms")
                           + f"; bound {bound_ms:.3f} ms ({bound_by})", flush=True)
                 del old_out, table
             del x, stream, runs, old_st

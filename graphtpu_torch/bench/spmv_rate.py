@@ -5,8 +5,9 @@
 
 On the item streams of the blog-shaped and R-MAT graphs (seed 0), at C = V
 columns of random f32 values, it times kernel B1 (kahan), B2 (fast, f32 and
-bf16 tables) and three stripped variants of B2, the hand kernels of
-``kernels/csrc/spmv_rate.cu``:
+bf16 tables), each in the design the stream gives it (the column panel at
+blog, the packed-lane panel at R-MAT), and three stripped variants of B2,
+the hand kernels of ``kernels/csrc/spmv_rate.cu``:
 
 * X1 :func:`gather_only` — every item's row is read, nothing accumulated:
   ``out[r] = max over r's items of table[slot]``;
@@ -18,10 +19,12 @@ bf16 tables) and three stripped variants of B2, the hand kernels of
   flight.
 
 It prints ns per stream item and the rate of row reads for each, the
-median of 9 timed runs, and the design each kernel ran.  The streams are
-built on the card with their sliced layout where B2's column panel takes
-them (blog; not R-MAT), and every kernel runs the design the stream gives
-it (:func:`design`).  At blog that is B2's column panel: X1 is the panel
+median of 9 timed runs, the design each kernel ran and, for the panel
+designs, ns per chunk of their layout and 16-byte slab (a block walks every
+chunk once for its slab).  The streams are built on the card with their
+sliced layout where B2's column panel takes them (blog; not R-MAT), and
+the rate kernels run the design the stream gives them (:func:`design`).
+At blog that is B2's column panel: X1 is the panel
 with a max in place of the add (its reads alone), X2 the panel's launch,
 ring and walk with each item's term taken from a buffer in registers (its
 per-item work alone, no panel), X3 the panel with 16 items in flight
@@ -29,7 +32,10 @@ instead of 8 and no row scale; so B2 − X2 is what the panel's copy-in and
 reads cost, X1 against B2 what its arithmetic costs, and X3 beside B2
 whether more reads in flight move it.  At R-MAT they run row tiles, a
 block per (output row, 1,024-column tile): X1 with 4 loads in flight a
-thread, X3 with 8, X2 with its buffer tile in registers.
+thread, X3 with 8, X2 with its buffer tile in registers; and X2 runs once
+more over R-MAT's sliced layout (:func:`build_sell_layout`, whose table
+does not fit the panel: X2 reads none), which gives that layout's walk,
+flushes and hub join without panel reads, beside blog's.
 ``dataclasses.replace(stream, sell=None)`` forces row tiles.  Each
 wrapper runs its plain PyTorch version on a CPU tensor and launches its
 kernel on a CUDA tensor, or raises; the probe itself needs a card.  The
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 from typing import Dict, List
 
@@ -50,10 +57,13 @@ from graphtpu_torch.bench.generators import blog_shaped_graph, rmat14_graph
 from graphtpu_torch.bench.timing import cuda_ms
 from graphtpu_torch.kernels.spmm import (
     SpmvStream,
+    build_sell_layout,
     build_spmv_stream,
+    row_tiles,
     scatter_rows_plain,
     sell_launch_args,
     spmv,
+    spmv_design,
 )
 
 # kernel launches, counted where a wrapper launches its kernel
@@ -180,21 +190,34 @@ def probe(stream: SpmvStream, table: torch.Tensor, buf: torch.Tensor) -> List[Di
     items = stream.slots.numel()
     c = table.shape[1]
     table16 = table.bfloat16()
-    b = "panel" if stream.sell is not None else "rows"
+    b, b16 = spmv_design(stream), spmv_design(stream, torch.bfloat16)
     cases = [
         ("B1 kahan", b, lambda: spmv(stream, table, "kahan"), 4),
         ("B2 fast f32", b, lambda: spmv(stream, table, "fast"), 4),
-        ("B2 fast bf16", b, lambda: spmv(stream, table16, "fast"), 2),
+        ("B2 fast bf16", b16, lambda: spmv(stream, table16, "fast"), 2),
         ("X1 gather only", design("gather_only", stream), lambda: gather_only(stream, table), 4),
         ("X2 accumulate only", design("accumulate_only", stream),
          lambda: accumulate_only(stream, buf), 0),
         ("X3 unroll", design("unroll8", stream), lambda: unroll8(stream, table), 4),
     ]
+    walks = {"panel": stream.sell, "packed": stream.packed}
+    if stream.sell is None and stream.uniform:
+        # X2 over the sliced layout of a stream whose table no panel holds
+        sliced = dataclasses.replace(row_tiles(stream), sell=build_sell_layout(stream))
+        walks["panel"] = sliced.sell
+        cases.append(("X2 sliced layout", "panel", lambda: accumulate_only(sliced, buf), 0))
     rows = []
     for name, used, fn, elem_bytes in cases:
         ms = cuda_ms(fn, runs=RUNS)
-        rows.append(dict(kernel=name, design=used, ms=ms, ns_per_item=ms * 1e6 / items,
-                         read_gb_per_s=items * c * elem_bytes / (ms * 1e6)))
+        row = dict(kernel=name, design=used, ms=ms, ns_per_item=ms * 1e6 / items,
+                   read_gb_per_s=items * c * elem_bytes / (ms * 1e6))
+        if walks.get(used) is not None:
+            # every block walks every chunk of the layout once for its
+            # 16-byte slab (4 f32 or 8 bf16 columns)
+            slabs = -(-c // (8 if elem_bytes == 2 else 4))
+            row["chunks"] = walks[used].n_chunks
+            row["ns_per_chunk_slab"] = ms * 1e6 / (row["chunks"] * slabs)
+        rows.append(row)
     return rows
 
 
@@ -223,7 +246,10 @@ def run(device) -> Dict:
               f"max degree {g.max_degree}", flush=True)
         for r in rows:
             print(f"  {r['kernel']:<20} {r['design']:<5} {r['ms']:9.3f} ms "
-                  f"{r['ns_per_item']:8.3f} ns/item {r['read_gb_per_s']:8.1f} GB/s of row reads",
+                  f"{r['ns_per_item']:8.3f} ns/item {r['read_gb_per_s']:8.1f} GB/s of row reads"
+                  + ("" if "chunks" not in r else
+                     f" {r['ns_per_chunk_slab']:7.3f} ns per chunk and slab "
+                     f"({r['chunks']} chunks)"),
                   flush=True)
     return results
 

@@ -40,6 +40,16 @@ class GtSell(ctypes.Structure):
         ("lane_base", ctypes.c_void_p)]
 
 
+class GtPacked(ctypes.Structure):
+    """``struct GtPacked`` of ``csrc/spmv.cu``: the packed-lane panel's
+    layout (:class:`graphtpu_torch.kernels.spmm.PackedLayout`) and scratch."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "codes", "hot_rows", "row_code", "cold_beg", "cold_rows", "lane_row", "lane_cnt",
+        "lane_w", "warp_units", "hub_rows", "hub_piece", "row_w", "empty_rows", "hub_acc")] + [
+        (n, ctypes.c_int64) for n in ("n_chunks", "n_hot", "n_hub", "n_pieces", "n_empty")]
+
+
 class GtTiles(ctypes.Structure):
     """``struct GtTiles`` of ``csrc/spmv.cu``: the L2 column tiles' plan
     (:class:`graphtpu_torch.kernels.spmm.TilePlan`) and its scratch."""
@@ -142,6 +152,9 @@ def load() -> ctypes.CDLL:
     lib.gt_spmv_tiles.argtypes = [p, p, p, p, ctypes.POINTER(GtTiles), p, p, i64, i64, i32, f32,
                                   i32, i32, p]
     lib.gt_spmv_tiles.restype = ctypes.c_int
+    lib.gt_spmv_packed.argtypes = [ctypes.POINTER(GtPacked), p, p, i64, i64, i32, i32, f32, i32,
+                                   p]
+    lib.gt_spmv_packed.restype = ctypes.c_int
     lib.gt_gather_rows_sum.argtypes = [p, p, p, i64, i32, p, i64, i64, i32, i64, i32,
                                        ctypes.POINTER(GtGather), p]
     lib.gt_gather_rows_sum.restype = ctypes.c_int

@@ -15,7 +15,7 @@
 // scales the row once by its first item's scale.  Rows with no items are
 // written as zeros; out has V+1 rows (row V takes the stream's pad items).
 //
-// Three designs, chosen on the host by the caller's stream
+// Four designs, chosen on the host by the caller's stream
 // (kernels/spmm.py:design_rule):
 //
 // The column panel (spmv_panel), for a uniform K == 1 stream whose V rows
@@ -37,8 +37,37 @@
 // on every run.  The rate probe (csrc/spmv_rate.cu) runs this kernel too:
 // X1 takes a max in place of the add (sell_max_f32), X2 keeps the launch,
 // ring and walk but reads no panel and no slot, adding each item's row
-// weight times a buffer row instead (sell_buffer_sums_f32), and X3 sums
-// unscaled with 16 items in flight (sell_raw_sums_f32).
+// weight times a buffer row instead (sell_buffer_sums_f32; it sizes no
+// panel, so it runs over any sliced layout), and X3 sums unscaled with 16
+// items in flight (sell_raw_sums_f32).
+//
+// The packed-lane panel (spmv_packed, entry gt_spmv_packed), for uniform
+// K == 1 streams past the panel (V <= 16,384) whose rows of more than 128
+// items hold at least a quarter of the items and whose 11,448 most-read
+// table rows take at least 99.5% of the reads: R-MAT 14, 58% and 99.7%.  The
+// column panel's sliced layout gives R-MAT's lanes 16 positions a chunk for
+// a median row of 4 items (fill 0.44, 145 chunks) and a warp per hub piece;
+// here (kernels/spmm.py:build_packed_layout) every row of at most 512
+// items is one segment, its items in stream order (so B1's bits are the
+// row tiles'), and a longer row is cut into pieces of 512 items, its hot
+// items first, then its cold ones.  Segments sorted by length are dealt 32
+// to a unit, and each warp walks its units back to back, the units of
+// segments with a cold item apart from the rest, long and short units
+// alternating: R-MAT fills 66 chunks at 0.972.  A unit is as long as its
+// longest segment, so every lane of the warp flushes at the same position
+// (a uniform branch, once a unit): its row's slab (B2 scaled by the row's
+// scale) or its piece's partial sums, which the block joins at the end in
+// piece order (TwoSum for B1), as the column panel joins its hub pieces.
+// A group of UNR positions in which no unit ends runs the column panel's
+// straight-line sums.  The panel holds the slab of the 11,448 most-read
+// rows, listed in ascending order, so each stream position is a 16-bit
+// entry: the row's panel index, or 0x4000 plus its table row for a cold
+// row, which the warp reads from the table (its group waits: 207 of 2,112
+// groups at R-MAT); the producer warp's lanes prefetch each chunk's cold
+// rows into L2 as the chunk's bulk copy is issued.  The pin by entry: the
+// panel indices of the hot rows whose diagonal lies in the slab are
+// consecutive, so an item's entry is compared with the slab's entries only
+// where it lies in their range, one subtract and compare an item.
 //
 // L2 column tiles (spmv_tiles, entry gt_spmv_tiles), for f32 products over
 // the other seg-1 streams whose hub rows hold under a quarter of the items
@@ -54,14 +83,19 @@
 // warps an SM (its launch bound: 3 blocks of 8), not HBM: 6.7-7.4 ms at
 // the arxiv shape against 3.6 ms for its bytes (PERF.md).
 //
-// Row tiles (spmv_rows), for every other stream (seg-2/4, bf16 tables, or
-// V past the panel with heavy hub rows, as R-MAT): one block per (output
-// row, 1,024-column tile), reading table rows from L2.  Where the panel or
-// the L2 column tiles run, they were measured faster; a panel over int32
-// slots and per-item weights (seg-2, weighted), or with a slab narrower
-// than 16 bytes or several panels, or of the hot rows only (R-MAT), and
-// the L2 column tiles over seg-2, bf16 or R-MAT streams, were measured
-// slower than row tiles on an H100 (PERF.md) and are not built.
+// Row tiles (spmv_rows), for every other stream (seg-2/4, bf16 tables
+// outside the panels, streams whose reads spread past the panel's rows):
+// one block per (output row, 1,024-column tile, 2,048 for bf16 seg-1
+// tables, whose threads read 8 columns in one 16-byte load), reading table
+// rows from L2.  Where the panels or the L2 column tiles run, they were
+// measured faster; a panel over int32 slots and per-item weights (seg-2,
+// weighted), or with a slab narrower than 16 bytes or several panels, the
+// sliced layout over hot rows (R-MAT), the L2 column tiles over seg-2,
+// bf16 or R-MAT streams, 16-byte bf16 row tiles over seg-2 streams, and,
+// for the packed layout, a per-lane flush at each row's end, 8-position
+// chunks beside a 12,984-row panel, and cold slabs staged in the ring by
+// the producer, were measured slower on an H100 (PERF.md) and are not
+// built.
 //
 // What bounds the panel on this card: its walk and its shared-memory reads,
 // not device memory.  At V = C = 10,496 with 658,180 items the function
@@ -77,6 +111,14 @@
 // issues ~30 instructions per (item, lane) besides.  bf16 slabs carry 8
 // columns per 16-byte read: half the reads of f32.  The pin is a template
 // argument, so unpinned products issue none of its work.
+//
+// What bounds the packed-lane panel at R-MAT (C = V): not device memory
+// either (0.64-0.77 ms for its bytes and operations against 4.6-6.2 ms).
+// Cutting one part at a time (bench/packed_split.py, PERF.md) gives, of
+// B2's unpinned f32 4.6 ms, 1.36 ms to the panel and table reads, 0.39 to
+// the flushes' scattered 16-byte stores, 0.25 to the cold reads' stalls
+// and 0.21 to the copy-in; the walk without any read takes 3.2 ms, 1.6
+// times blog's a chunk and slab.
 //
 // Rounding: every multiply and add in the item body uses the _rn
 // intrinsics, which nvcc never contracts into an FMA, so the Kahan update
@@ -107,26 +149,51 @@ struct GtTiles {
   int64_t hub;               // items per piece (SELL_HUB)
 };
 
+// The packed-lane panel's layout (kernels/spmm.py:PackedLayout) and the
+// launch's scratch.
+struct GtPacked {
+  const uint16_t* codes;     // [n_chunks * kChunk]: entry of each position (pads: 0)
+  const int32_t* hot_rows;   // [n_hot], ascending: the panel's table rows
+  const uint16_t* row_code;  // [V]: each table row's entry
+  const int32_t* cold_beg;   // [n_chunks + 1]: chunk ch's cold rows are cold_rows[beg ..]
+  const int32_t* cold_rows;  // the distinct cold rows each chunk reads
+  const int32_t* lane_row;   // [units * 32]: output row, -2 - piece, or -1
+  const int32_t* lane_cnt;   // [units * 32]
+  const float* lane_w;       // [units * 32]: the row's folded weight (B1) or scale (B2)
+  const int32_t* warp_units; // [kPanelWarps + 1]
+  const int32_t* hub_rows;   // [n_hub]
+  const int32_t* hub_piece;  // [n_hub + 1]
+  const float* row_w;        // [V + 1]: each row's scale (B2's join)
+  const int32_t* empty_rows; // [n_empty]
+  float* hub_acc;            // n_pieces > 0: [(KAHAN ? 2 : 1) * n_pieces * C]
+  int64_t n_chunks;
+  int64_t n_hot;
+  int64_t n_hub;
+  int64_t n_pieces;
+  int64_t n_empty;
+};
+
 namespace {
 
 using gt::kCols;
 using gt::kThreads;
-using gt::kTile;
 using gt::load_cols;
 using gt::store_cols;
 
 constexpr int kAhead = 4;                    // items loaded before summing (row tiles)
 
-// Row tiles: one block per (output row blockIdx.x, tile of 1,024 columns
-// blockIdx.y), reading table rows from L2.
-template <typename T, int K, bool KAHAN>
+// Row tiles: one block per (output row blockIdx.x, tile of kThreads * NC
+// columns blockIdx.y), reading table rows from L2; a thread owns NC columns
+// (4, or 8 bf16 columns in one 16-byte read).
+template <typename T, int K, bool KAHAN, int NC>
 __global__ void __launch_bounds__(kThreads)
 spmv_rows(const int32_t* __restrict__ slots, const float* __restrict__ wts,
           const float* __restrict__ scales, const int64_t* __restrict__ row_items,
           const T* __restrict__ table, T* __restrict__ out, int64_t c, int pin,
           float table_scale, int mul, int vec) {
+  constexpr int kCols = NC;  // the columns of this thread, in every loop below
   const int64_t r = blockIdx.x;
-  const int64_t col0 = (int64_t)blockIdx.y * kTile + (int64_t)threadIdx.x * kCols;
+  const int64_t col0 = (int64_t)blockIdx.y * kThreads * NC + (int64_t)threadIdx.x * NC;
   const int64_t beg = row_items[r];
   const int64_t end = row_items[r + 1];
   const bool weigh = KAHAN || mul;
@@ -188,36 +255,45 @@ spmv_rows(const int32_t* __restrict__ slots, const float* __restrict__ wts,
   store_cols(out + (size_t)r * (size_t)c, col0, c, vec != 0, sum);
 }
 
+template <typename T, int K, bool KAHAN, int NC>
+int launch_rows_nc(const int32_t* slots, const float* wts, const float* scales,
+                   const int64_t* row_items, const void* table, void* out,
+                   int64_t n_rows_out, int64_t c, int pin, float table_scale, int mul,
+                   cudaStream_t stream) {
+  const int64_t tiles = (c + kThreads * NC - 1) / (kThreads * NC);
+  if (n_rows_out > 0x7fffffffLL || tiles > 65535) return (int)cudaErrorInvalidValue;
+  const size_t align = sizeof(T) * NC;
+  const int vec = (c % NC == 0) && ((uintptr_t)table % align == 0) &&
+                  ((uintptr_t)out % align == 0);
+  const dim3 grid((unsigned)n_rows_out, (unsigned)tiles);
+  spmv_rows<T, K, KAHAN, NC><<<grid, kThreads, 0, stream>>>(
+      slots, wts, scales, row_items, static_cast<const T*>(table), static_cast<T*>(out), c,
+      pin, table_scale, mul, vec);
+  return (int)cudaGetLastError();
+}
+
+// bf16 tables of seg-1 streams read 8 columns a thread (one 16-byte load;
+// the same sums, so the same bits): faster at the arxiv shape, slower over
+// seg-2 streams (PERF.md), which read 4 as every other stream does
 template <typename T, bool KAHAN>
 int launch_rows(const int32_t* slots, const float* wts, const float* scales,
                 const int64_t* row_items, const void* table, void* out,
                 int64_t n_rows_out, int64_t c, int seg_k, int pin, float table_scale,
                 int mul, cudaStream_t stream) {
-  const int64_t tiles = (c + kTile - 1) / kTile;
-  if (n_rows_out > 0x7fffffffLL || tiles > 65535) return (int)cudaErrorInvalidValue;
-  const size_t align = sizeof(T) * kCols;
-  const int vec = (c % kCols == 0) && ((uintptr_t)table % align == 0) &&
-                  ((uintptr_t)out % align == 0);
-  const dim3 grid((unsigned)n_rows_out, (unsigned)tiles);
-  const T* tb = static_cast<const T*>(table);
-  T* ob = static_cast<T*>(out);
+  constexpr int NC = sizeof(T) == 2 ? gt::kCols16 : kCols;
   switch (seg_k) {
     case 1:
-      spmv_rows<T, 1, KAHAN><<<grid, kThreads, 0, stream>>>(
-          slots, wts, scales, row_items, tb, ob, c, pin, table_scale, mul, vec);
-      break;
+      return launch_rows_nc<T, 1, KAHAN, NC>(slots, wts, scales, row_items, table, out,
+                                             n_rows_out, c, pin, table_scale, mul, stream);
     case 2:
-      spmv_rows<T, 2, KAHAN><<<grid, kThreads, 0, stream>>>(
-          slots, wts, scales, row_items, tb, ob, c, pin, table_scale, mul, vec);
-      break;
+      return launch_rows_nc<T, 2, KAHAN, kCols>(slots, wts, scales, row_items, table, out,
+                                                n_rows_out, c, pin, table_scale, mul, stream);
     case 4:
-      spmv_rows<T, 4, KAHAN><<<grid, kThreads, 0, stream>>>(
-          slots, wts, scales, row_items, tb, ob, c, pin, table_scale, mul, vec);
-      break;
+      return launch_rows_nc<T, 4, KAHAN, kCols>(slots, wts, scales, row_items, table, out,
+                                                n_rows_out, c, pin, table_scale, mul, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 using gt::kBarrierBytes;
@@ -276,8 +352,8 @@ constexpr int kBufRows = 16;                   // rows of X2's buffer (N_BUF)
 // Hub rows of one slab: each row's piece partials in piece order (TwoSum
 // for B1, a max for X1), then B2's row scale (SCALE); one consumer thread a
 // row.
-template <typename T, bool KAHAN, bool SCALE, Op OP>
-__device__ void hub_rows_out(const GtSell& L, T* __restrict__ out, int64_t col0, int64_t c,
+template <typename T, bool KAHAN, bool SCALE, Op OP, class Layout>
+__device__ void hub_rows_out(const Layout& L, T* __restrict__ out, int64_t col0, int64_t c,
                              bool vec_here) {
   constexpr int SC = kSlab / sizeof(T);
   const size_t half = (size_t)L.n_pieces * (size_t)c;
@@ -539,7 +615,9 @@ int launch_panel(const GtSell& L, const T* table, T* out, int64_t v, int64_t c,
   auto kernel = spmv_panel<T, KAHAN, PIN, UNR, SCALE, OP>;
   if (L.n_chunks <= 0 || L.n_ss <= 0 || (L.n_pieces > 0 && L.hub_acc == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int64_t smem = kBarrierBytes + kStages * (int64_t)kChunkBytes + v * kSlab;
+  // X2 reads no panel, so it runs over a layout whose table does not fit one
+  const int64_t panel = OP == Op::kBuf ? 0 : v * kSlab;
+  const int64_t smem = kBarrierBytes + kStages * (int64_t)kChunkBytes + panel;
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -563,6 +641,306 @@ int launch_panel_pin(const GtSell& L, const void* table, void* out, int64_t v, i
   T* ob = static_cast<T*>(out);
   if (pin) return launch_panel<T, KAHAN, true, UNR, !KAHAN>(L, tb, ob, v, c, table_scale, stream);
   return launch_panel<T, KAHAN, false, UNR, !KAHAN>(L, tb, ob, v, c, table_scale, stream);
+}
+
+// The packed-lane panel over a uniform K == 1 stream (kernels/spmm.py:
+// PackedLayout).  The panel holds the slab of the layout's hot rows; a cold
+// item reads its 16 bytes from the table (the warp's group waits for it),
+// so the producer warp's lanes prefetch into L2 the slabs of each chunk's
+// cold rows as the chunk's bulk copy is issued, a few chunks before the
+// consumers reach them.  Each warp walks its units back to back, every lane
+// flushing its segment at the unit's end: a row's slab (B2 scaled by the
+// row's scale), or a piece's partial sums into hub_acc for hub_rows_out.
+// B1 weighs each item by its lane's folded weight; UNR items' rows are
+// read before they are summed.
+constexpr int kPackCold = 0x4000;              // PACK_COLD: the entry holds a table row
+constexpr int kPackRow = kPackCold - 1;        // the entry's panel index or table row
+constexpr int kPackPrefetch = 256;             // cold rows of a chunk prefetched at most
+
+// 16 bytes of table row r at col0 (columns >= c read as 0)
+template <typename T>
+__device__ __forceinline__ uint4 table_slab(const T* __restrict__ table, int r, int64_t col0,
+                                            int64_t c, bool vec) {
+  constexpr int SC = kSlab / sizeof(T);
+  const T* src = table + (size_t)r * (size_t)c + col0;
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(src));
+  T tmp[SC];
+#pragma unroll
+  for (int e = 0; e < SC; ++e) {
+    if (col0 + e < c) tmp[e] = src[e];
+    else from_f32(0.f, tmp[e]);
+  }
+  uint4 q;
+  memcpy(&q, tmp, kSlab);
+  return q;
+}
+
+template <typename T, bool KAHAN, bool PIN, int UNR>
+__global__ void __launch_bounds__(kBlock, 1)
+spmv_packed(const GtPacked L, const T* __restrict__ table, T* __restrict__ out, int64_t v,
+            int64_t c, float table_scale, int vec) {
+  constexpr int SC = kSlab / sizeof(T);        // columns of the slab
+  constexpr bool SCALE = !KAHAN;               // B2 scales each row at its flush
+  static_assert(kJb % UNR == 0, "a chunk's j-block splits into whole groups");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* consumed = full + kStages;
+  unsigned char* ring = smem + kBarrierBytes;
+  unsigned char* panel = ring + kStages * kChunkBytes;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t col0 = (int64_t)blockIdx.x * SC;
+  const bool vec_here = vec && (col0 + SC <= c);
+
+  gt::init_ring(full, consumed, kStages);
+  if (warp == kWarps) {
+    // producer: lane 0 copies each chunk into its stage once every consumer
+    // warp is done with it; as it is issued, the lanes prefetch the chunk's
+    // cold rows (read one chunk ahead: lane l holds rows l, l + 32, ...)
+    constexpr int kPer = kPackPrefetch / 32;
+    auto rows_of = [&](int64_t ch, int& n, int (&r)[kPer]) {
+      const int beg = ch < L.n_chunks ? __ldg(L.cold_beg + ch) : 0;
+      n = ch < L.n_chunks ? min(__ldg(L.cold_beg + ch + 1) - beg, kPackPrefetch) : 0;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int k = lane + 32 * i;
+        r[i] = k < n ? __ldg(L.cold_rows + beg + k) : 0;
+      }
+    };
+    int nx_cold, nx_rows[kPer];
+    rows_of(0, nx_cold, nx_rows);
+    int s = 0;
+    uint32_t round = 0;
+    for (int64_t ch = 0; ch < L.n_chunks; ++ch) {
+      const int n_cold = nx_cold;
+      int rows[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) rows[i] = nx_rows[i];
+      rows_of(ch + 1, nx_cold, nx_rows);
+      if (lane == 0) {
+        if (round > 0) mbar_wait(&consumed[s], (round - 1) & 1);
+        gt::mbar_expect_tx(&full[s], kChunkBytes);
+        gt::bulk_copy(ring + s * kChunkBytes,
+                      reinterpret_cast<const unsigned char*>(L.codes) + ch * (int64_t)kChunkBytes,
+                      kChunkBytes, &full[s]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int k = lane + 32 * i;
+        if (k < n_cold)
+          asm volatile("prefetch.global.L2 [%0];\n" ::"l"(table + (size_t)rows[i] * (size_t)c +
+                                                         col0));
+      }
+      if (++s == kStages) { s = 0; ++round; }
+    }
+    return;
+  }
+  // the block's slab of every hot row into the panel, kCopyAhead row ids
+  // read before their copies are issued
+  constexpr int kCopyAhead = 8;
+  for (int p0 = threadIdx.x; p0 < L.n_hot; p0 += kCopyAhead * kWarps * 32) {
+    int r[kCopyAhead];
+#pragma unroll
+    for (int k = 0; k < kCopyAhead; ++k) {
+      const int p = p0 + k * kWarps * 32;
+      r[k] = p < L.n_hot ? __ldg(L.hot_rows + p) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kCopyAhead; ++k) {
+      const int p = p0 + k * kWarps * 32;
+      if (p >= L.n_hot) break;
+      unsigned char* dst = panel + p * kSlab;
+      if (vec_here) {
+        gt::cp_async16(dst, table + (size_t)r[k] * (size_t)c + col0);
+      } else {
+        const uint4 q = table_slab<T>(table, r[k], col0, c, false);
+        memcpy(dst, &q, kSlab);
+      }
+    }
+  }
+  // the pin: the entries of the table rows whose diagonal lies in this
+  // slab (-1 past V); an item's entry is compared with them only where it
+  // lies in their range [d_lo, d_lo + d_span]
+  int dcode[SC];
+  int d_lo = 0x7fffffff, d_hi = -1;
+  if constexpr (PIN) {
+#pragma unroll
+    for (int e = 0; e < SC; ++e) {
+      dcode[e] = col0 + e < v ? (int)__ldg(L.row_code + col0 + e) : -1;
+      if (dcode[e] >= 0) {
+        d_lo = min(d_lo, dcode[e]);
+        d_hi = max(d_hi, dcode[e]);
+      }
+    }
+  }
+  const unsigned d_span = (unsigned)d_hi - (unsigned)d_lo;  // huge where none lies here
+  gt::cp_async_wait_all();
+  gt::consumers_sync();
+
+  const int last = (int)L.n_hot - 1;              // the panel's last row
+  const int ue = __ldg(L.warp_units + warp + 1);
+  int u = __ldg(L.warp_units + warp);
+  // this lane's segment in unit u (row, items, weight) and in unit u + 1
+  int row = -1, cnt = 0, nx_row = -1, nx_cnt = 0;
+  float w = 0.f, nx_w = 0.f;
+  if (u < ue) {
+    row = __ldg(L.lane_row + u * 32 + lane);
+    cnt = __ldg(L.lane_cnt + u * 32 + lane);
+    w = __ldg(L.lane_w + u * 32 + lane);
+  }
+  if (u + 1 < ue) {
+    nx_row = __ldg(L.lane_row + (u + 1) * 32 + lane);
+    nx_cnt = __ldg(L.lane_cnt + (u + 1) * 32 + lane);
+    nx_w = __ldg(L.lane_w + (u + 1) * 32 + lane);
+  }
+  int len = __reduce_max_sync(0xffffffffu, cnt);  // the unit's positions
+  int j = 0;                                       // this position's index in the unit
+  float sum[SC], comp[SC];
+#pragma unroll
+  for (int e = 0; e < SC; ++e) sum[e] = comp[e] = 0.f;
+
+  // the unit ends (at the same position in every lane): each lane flushes
+  // its segment, then all take the next unit, whose successor is read now
+  auto flush = [&]() {
+    if (row >= 0) {
+      if (SCALE) {
+#pragma unroll
+        for (int e = 0; e < SC; ++e) sum[e] = __fmul_rn(sum[e], w);
+      }
+      if (col0 < c)
+        store_slab<T>(out + (size_t)row * (size_t)c + col0, col0, c, vec_here, sum);
+    } else if (row < -1) {
+      float* h = L.hub_acc + (size_t)(-2 - row) * (size_t)c + col0;
+      const size_t half = (size_t)L.n_pieces * (size_t)c;
+#pragma unroll
+      for (int e = 0; e < SC; ++e) {
+        if (col0 + e < c) {
+          h[e] = sum[e];
+          if (KAHAN) h[half + e] = comp[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < SC; ++e) sum[e] = comp[e] = 0.f;
+    ++u;
+    row = nx_row;
+    cnt = nx_cnt;
+    w = nx_w;
+    if (u + 1 < ue) {
+      nx_row = __ldg(L.lane_row + (u + 1) * 32 + lane);
+      nx_cnt = __ldg(L.lane_cnt + (u + 1) * 32 + lane);
+      nx_w = __ldg(L.lane_w + (u + 1) * 32 + lane);
+    }
+    len = u < ue ? __reduce_max_sync(0xffffffffu, cnt) : 0;
+    j = 0;
+  };
+
+  int s = 0;
+  uint32_t round = 0;
+  for (int64_t ch = 0; ch < L.n_chunks; ++ch) {
+    mbar_wait(&full[s], round & 1);
+    const uint16_t* sl =
+        reinterpret_cast<const uint16_t*>(ring + s * kChunkBytes) + warp * 32 * kJb;
+#pragma unroll 1
+    for (int g = 0; g < kJb && u < ue; g += UNR) {
+      int code[UNR];
+      uint4 raw[UNR];
+      int any = 0;
+#pragma unroll
+      for (int q = 0; q < UNR; ++q) {
+        code[q] = sl[(g + q) * 32 + lane];
+        any |= code[q];
+      }
+      // every entry reads the panel (a cold one its last row), all loads in
+      // flight at once; the few cold ones are then read from the table
+#pragma unroll
+      for (int q = 0; q < UNR; ++q)
+        raw[q] = *reinterpret_cast<const uint4*>(panel + min(code[q], last) * kSlab);
+      if (__any_sync(0xffffffffu, any & kPackCold)) {
+#pragma unroll
+        for (int q = 0; q < UNR; ++q)
+          if (code[q] & kPackCold)
+            raw[q] = table_slab<T>(table, code[q] & kPackRow, col0, c, vec_here);
+      }
+      float x[UNR][SC];
+#pragma unroll
+      for (int q = 0; q < UNR; ++q) unpack<T>(raw[q], x[q]);
+
+      // item q of the group into the sums (ok: the lane's segment has it)
+      auto add = [&](int q, bool ok) {
+        float val[SC];
+#pragma unroll
+        for (int e = 0; e < SC; ++e) val[e] = PIN ? __fmul_rn(table_scale, x[q][e]) : x[q][e];
+        if (PIN && (unsigned)(code[q] - d_lo) <= d_span) {
+#pragma unroll
+          for (int e = 0; e < SC; ++e)
+            if (code[q] == dcode[e]) val[e] = 1.f;
+        }
+#pragma unroll
+        for (int e = 0; e < SC; ++e) {
+          if (KAHAN) {
+            const float y = __fsub_rn(__fmul_rn(val[e], w), comp[e]);
+            const float t = __fadd_rn(sum[e], y);
+            const float cn = __fsub_rn(__fsub_rn(t, sum[e]), y);
+            sum[e] = ok ? t : sum[e];
+            comp[e] = ok ? cn : comp[e];
+          } else {
+            sum[e] = ok ? __fadd_rn(sum[e], val[e]) : sum[e];
+          }
+        }
+      };
+      if (j + UNR <= len) {
+        // no unit ends inside the group: the panel's straight-line sums
+#pragma unroll
+        for (int q = 0; q < UNR; ++q) add(q, j + q < cnt);
+        j += UNR;
+        if (j == len) flush();
+      } else {
+#pragma unroll
+        for (int q = 0; q < UNR; ++q) {
+          add(q, j < cnt);
+          if (++j == len) flush();
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&consumed[s]);
+    if (++s == kStages) { s = 0; ++round; }
+  }
+  gt::consumers_sync();
+  hub_rows_out<T, KAHAN, SCALE, Op::kSum>(L, out, col0, c, vec_here);
+  if (col0 < c) {
+    const float zero[SC] = {};
+    for (int64_t i = threadIdx.x; i < L.n_empty; i += kWarps * 32)
+      store_slab<T>(out + (size_t)__ldg(L.empty_rows + i) * (size_t)c + col0, col0, c,
+                    vec_here, zero);
+  }
+}
+
+template <typename T, bool KAHAN>
+int launch_packed(const GtPacked& L, const void* table, void* out, int64_t v, int64_t c,
+                  int pin, float table_scale, cudaStream_t stream) {
+  constexpr int SC = kSlab / sizeof(T);
+  constexpr int UNR = sizeof(T) == 2 ? 4 : 8;  // as the column panel
+  auto kernel = pin ? &spmv_packed<T, KAHAN, true, UNR> : &spmv_packed<T, KAHAN, false, UNR>;
+  if (L.n_chunks <= 0 || L.n_hot <= 0 || L.n_hot > v || v > kPackCold ||
+      (L.n_pieces > 0 && L.hub_acc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int64_t smem = kBarrierBytes + kStages * (int64_t)kChunkBytes + L.n_hot * kSlab;
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t slabs = (c + SC - 1) / SC;
+  if (slabs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int vec = (c * (int64_t)sizeof(T)) % kSlab == 0 && (uintptr_t)table % kSlab == 0 &&
+                  (uintptr_t)out % kSlab == 0;
+  kernel<<<(unsigned)slabs, kBlock, (size_t)smem, stream>>>(
+      L, static_cast<const T*>(table), static_cast<T*>(out), v, c, table_scale, vec);
+  return (int)cudaGetLastError();
 }
 
 // L2 column tiles: a warp per (unit, tile of kTileCols f32 columns).  Units
@@ -779,6 +1157,20 @@ int gt_spmv_fast(const int32_t* slots, const float* raw_wts, const float* scales
                                         c, seg_k, pin, table_scale, mul, stream);
   return launch<float, false>(slots, raw_wts, scales, row_items, sell, table, out, v, c, seg_k,
                               pin, table_scale, mul, stream);
+}
+
+// B1 (kahan != 0, f32) or B2 (f32, or bf16 when bf16 != 0) over a uniform
+// seg-1 stream as the packed-lane panel over its layout `packed`: the same
+// output as gt_spmv_kahan_f32 and gt_spmv_fast.
+int gt_spmv_packed(const GtPacked* packed, const void* table, void* out, int64_t v, int64_t c,
+                   int kahan, int pin, float table_scale, int bf16, cudaStream_t stream) {
+  if (v < 0 || c <= 0) return (int)cudaGetLastError();
+  if (packed == nullptr || (kahan && bf16)) return (int)cudaErrorInvalidValue;
+  if (kahan) return launch_packed<float, true>(*packed, table, out, v, c, pin, table_scale, stream);
+  if (bf16)
+    return launch_packed<__nv_bfloat16, false>(*packed, table, out, v, c, pin, table_scale,
+                                               stream);
+  return launch_packed<float, false>(*packed, table, out, v, c, pin, table_scale, stream);
 }
 
 // B1 (kahan != 0) or B2 over a seg-1 stream as L2 column tiles over `plan`,

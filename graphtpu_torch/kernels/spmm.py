@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import heapq
 import time
 from typing import Optional, Tuple
 
@@ -75,13 +76,15 @@ def runs_panel(stream: "SpmvStream") -> bool:
 
 def spmv_design(stream: "SpmvStream", dtype=torch.float32) -> str:
     """The design B1/B2 run ``stream`` in on the card over a ``dtype``
-    table: "panel" (the column panel over its sliced
-    layout), "tiles" (the L2 column tiles over its :class:`TilePlan`, f32
-    tables only) or "rows" (row tiles).  A stream built on the card gets
-    the layout or plan of its :func:`design_rule`; :func:`row_tiles`
-    forces the last."""
+    table: "panel" (the column panel over its sliced layout), "packed" (the
+    packed-lane panel over its :class:`PackedLayout`), "tiles" (the L2
+    column tiles over its :class:`TilePlan`, f32 tables only) or "rows"
+    (row tiles).  A stream built on the card gets the layout or plan of its
+    :func:`design_rule`; :func:`row_tiles` forces the last."""
     if stream.sell is not None:
         return "panel"
+    if stream.packed is not None:
+        return "packed"
     return "tiles" if stream.tiles is not None and dtype == torch.float32 else "rows"
 
 
@@ -230,6 +233,259 @@ def build_sell_layout(stream: "SpmvStream", hub=SELL_HUB, sigma=SELL_SIGMA) -> S
     )
 
 
+# The packed-lane panel (csrc/spmv.cu:spmv_packed).  Its chunks are the
+# sliced layout's (SELL_JB positions a lane, SELL_CHUNK a chunk), and its
+# panel holds a 16-byte slab of the PACK_ROWS most-read table rows beside
+# the ring.  Each stream position is a 16-bit entry: the row's panel
+# index, or PACK_COLD plus its table row for a cold row (outside the
+# panel), so V is at most PACK_MAX_V.  Rows of more than PACK_PIECE items
+# are cut into pieces of that many, joined at the end.  It runs uniform
+# seg-1 streams past sell_fits whose rows of more than SELL_HUB items hold
+# at least TILES_HUB_SHARE of the items (where the L2 column tiles lose)
+# and whose panel rows take at least PACK_HOT_SHARE of the reads: on an
+# H100 every f32 and bf16 form beat the row tiles at R-MAT 14, 99.7% of
+# the reads; with the panel cut to 10,240 rows (99.3%) B2 f32 unpinned
+# lost (bench/spmv_ab.py --hot, PERF.md).
+PACK_ROWS = (SMEM_BYTES - SELL_BARRIER_BYTES - SELL_STAGES * SELL_CHUNK * 2) // 16  # 11,448
+PACK_COLD = 0x4000
+PACK_MAX_V = PACK_COLD  # the entry's 14-bit table row
+PACK_PIECE = 512
+PACK_HOT_SHARE = 0.995
+
+
+def hot_share(stream: "SpmvStream", rows: int = PACK_ROWS) -> float:
+    """The share of ``stream``'s items that read its ``rows`` most-read
+    table rows (host numpy)."""
+    n = int(stream.row_items[-1])
+    reads = np.bincount(stream.slots[:n].cpu().numpy(), minlength=1)
+    return float(np.sort(reads)[::-1][:rows].sum() / max(n, 1))
+
+
+def runs_packed(stream: "SpmvStream") -> bool:
+    """Whether B1/B2 run ``stream`` as the packed-lane panel: a uniform
+    seg-1 stream past :func:`sell_fits` with V <= PACK_MAX_V, a
+    :func:`hub_share` of at least TILES_HUB_SHARE and a :func:`hot_share`
+    of at least PACK_HOT_SHARE."""
+    return (stream.seg_k == 1 and stream.uniform and not sell_fits(stream.n_nodes)
+            and stream.n_nodes <= PACK_MAX_V and hub_share(stream) >= TILES_HUB_SHARE
+            and hot_share(stream) >= PACK_HOT_SHARE)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedLayout:
+    """A uniform seg-1 item stream in the order the packed-lane panel of
+    kernels B1/B2 walks it.
+
+    Rows of at most ``PACK_PIECE`` items are one *segment* each, items in
+    stream order.  Longer rows are cut into pieces of ``PACK_PIECE`` items,
+    each a segment: first their hot items (rows in the panel), then their
+    cold ones, each in stream order.  Segments sorted by length (longest
+    first) are dealt 32 to a *unit*, one to a lane; a unit is as long as
+    its longest segment, and the lanes with shorter ones idle at its end.
+    Each consumer warp w walks units ``warp_units[w] .. warp_units[w+1]``
+    back to back (the warps' totals near equal, long and short units
+    alternating); at a unit's end every lane flushes its segment's sums and
+    moves on to its next.  The segments with a cold item fill units of
+    their own, so a cold read stalls few of a warp's groups.  Walk position t of warp w lies in chunk
+    t // SELL_JB at ``chunk·SELL_CHUNK + (w·SELL_JB + t % SELL_JB)·32 +
+    lane``, as in :class:`SellLayout`.
+
+    ``codes[p]`` is position p's entry: the panel index of the item's table
+    row where it is one of the ``hot_rows`` (the panel's rows, ascending),
+    else ``PACK_COLD`` plus the row; pads are 0.  ``row_code[r]`` is row
+    r's entry.  Chunk ch's distinct cold rows are ``cold_rows[cold_beg[ch]
+    .. cold_beg[ch+1]]`` (ascending), which the kernel prefetches.
+    ``item[p]`` is the stream item (-1 for a pad).  Per unit lane:
+    ``lane_row`` the output row, ``-2 - piece`` for a piece, -1 for none;
+    ``lane_cnt`` its items; ``lane_wts`` / ``lane_scale`` the row's folded
+    weight (B1) and scale (B2).  Row ``hub_rows[h]`` sums pieces
+    ``hub_piece[h] .. hub_piece[h+1]`` in that order, then B2 scales it by
+    ``row_scale``.  ``empty_rows`` have no items and are written as zeros.
+    ``host_ms``: host time of the build.
+    """
+
+    codes: torch.Tensor       # int16[NC * SELL_CHUNK], read as uint16
+    item: torch.Tensor        # int32[NC * SELL_CHUNK]
+    hot_rows: torch.Tensor    # int32[H]
+    row_code: torch.Tensor    # int16[V], read as uint16
+    cold_beg: torch.Tensor    # int32[NC + 1]
+    cold_rows: torch.Tensor   # int32[cold_beg[NC]]
+    lane_row: torch.Tensor    # int32[NU * 32]
+    lane_cnt: torch.Tensor    # int32[NU * 32]
+    lane_wts: torch.Tensor    # float32[NU * 32]
+    lane_scale: torch.Tensor  # float32[NU * 32]
+    warp_units: torch.Tensor  # int32[SELL_WARPS + 1]
+    hub_rows: torch.Tensor    # int32[NH]
+    hub_piece: torch.Tensor   # int32[NH + 1]
+    row_scale: torch.Tensor   # float32[V + 1]
+    empty_rows: torch.Tensor  # int32[NE]
+    n_chunks: int
+    n_pieces: int
+    host_ms: float
+
+    def to(self, device) -> "PackedLayout":
+        move = {f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)}
+        return dataclasses.replace(self, **move)
+
+
+def _deal_units(u_len: np.ndarray, n_warps: int):
+    """Units (lengths, longest first) dealt to ``n_warps`` warps, each next
+    unit to the warp with the least so far (ties to the lower warp); each
+    warp's units alternate from its longest and its shortest, so a short
+    unit follows a long one.  Returns (walk order of the units, the first
+    unit of each warp and one past the last)."""
+    heap = [(0, w) for w in range(n_warps)]
+    mine = [[] for _ in range(n_warps)]
+    for u in np.argsort(-u_len, kind="stable"):
+        total, w = heapq.heappop(heap)
+        mine[w].append(u)
+        heapq.heappush(heap, (total + int(u_len[u]), w))
+    order = []
+    for units in mine:
+        lo, hi = 0, len(units) - 1
+        while lo <= hi:
+            order.append(units[lo])
+            if lo != hi:
+                order.append(units[hi])
+            lo, hi = lo + 1, hi - 1
+    bounds = np.concatenate([[0], np.cumsum([len(m) for m in mine])])
+    return np.asarray(order, np.int64), bounds
+
+
+def build_packed_layout(stream: "SpmvStream", hot: Optional[int] = None) -> PackedLayout:
+    """The :class:`PackedLayout` of a uniform seg-1 ``stream`` with V <=
+    PACK_MAX_V, built in host numpy and moved to the stream's device; its
+    panel holds the ``hot`` most-read table rows (default: as many as fit,
+    PACK_ROWS), most reads first, ties to the lower row."""
+    t0 = time.perf_counter()
+    if stream.seg_k != 1 or not stream.uniform:
+        raise ValueError("the packed layout takes a uniform seg-1 stream")
+    v = stream.n_nodes
+    if not 1 <= v <= PACK_MAX_V:
+        raise ValueError(f"the packed layout's 16-bit entry takes 1 <= V <= {PACK_MAX_V}, "
+                         f"got {v}")
+    h = min(v, PACK_ROWS) if hot is None else int(hot)
+    if not 1 <= h <= min(v, PACK_ROWS):
+        raise ValueError(f"the panel holds 1 .. {min(v, PACK_ROWS)} rows, got {h}")
+    nw, jb, chunk = SELL_WARPS, SELL_JB, SELL_CHUNK
+    dev = stream.slots.device
+    ri = stream.row_items.cpu().numpy()
+    start, cnt = ri[:-1], np.diff(ri)              # rows 0..V
+    n = int(ri[-1])
+    slots = stream.slots[:n].cpu().numpy().astype(np.int64)
+    wts = stream.wts[:n].cpu().numpy()
+    scales = stream.scales[:n].cpu().numpy()
+
+    # the panel: the h most-read rows, ascending
+    reads = np.bincount(slots, minlength=v)
+    hot_rows = np.sort(np.lexsort((np.arange(v), -reads))[:h])
+    row_code = PACK_COLD + np.arange(v)
+    row_code[hot_rows] = np.arange(h)
+
+    # segments: a row of at most PACK_PIECE items, in stream order; or a piece
+    # of a longer row, whose items are taken hot ones first, then cold ones
+    # (each in stream order), PACK_PIECE at a time, so its cold reads share
+    # few pieces (pieces numbered row-major).  perm lists the items so that
+    # each segment is a run of it.
+    long = cnt > PACK_PIECE
+    n_all = np.repeat(np.arange(v + 1), cnt)
+    cold_item = row_code[slots] >= PACK_COLD
+    perm = np.argsort(2 * n_all + (long[n_all] & cold_item), kind="stable")
+    n_cold = np.bincount(n_all, weights=cold_item, minlength=v + 1).astype(np.int64)
+    n_hot = cnt - n_cold
+    pc_hot = np.where(long, -(-n_hot // PACK_PIECE), 0)
+    pc_cold = np.where(long, -(-n_cold // PACK_PIECE), 0)
+    n_seg = np.where(cnt == 0, 0, np.where(long, pc_hot + pc_cold, 1))
+    s_row = np.repeat(np.arange(v + 1), n_seg)
+    s_q = np.arange(len(s_row)) - np.repeat(np.cumsum(n_seg) - n_seg, n_seg)
+    in_cold = long[s_row] & (s_q >= pc_hot[s_row])
+    q_in = np.where(in_cold, s_q - pc_hot[s_row], s_q)          # piece within its class
+    base = start[s_row] + np.where(in_cold, n_hot[s_row], 0)    # the class's first item
+    s_beg = base + q_in * PACK_PIECE
+    s_len = np.where(long[s_row],
+                     np.minimum(np.where(in_cold, n_cold[s_row], n_hot[s_row]) - q_in * PACK_PIECE,
+                                PACK_PIECE),
+                     cnt[s_row])
+    hub_ids = np.flatnonzero(long)
+    hub_piece = np.concatenate([[0], np.cumsum(n_seg[hub_ids])]).astype(np.int64)
+    first_piece = np.zeros(v + 1, np.int64)
+    first_piece[hub_ids] = hub_piece[:-1]
+    s_dest = np.where(long[s_row], -2 - (first_piece[s_row] + s_q), s_row)
+
+    # units of 32 segments, longest first, dealt to the warps; the segments
+    # with a cold item fill units of their own
+    cold_cum = np.concatenate([[0], np.cumsum(cold_item[perm])])
+    s_cold = cold_cum[s_beg + s_len] > cold_cum[s_beg]
+    o = []
+    for part in (np.flatnonzero(s_cold), np.flatnonzero(~s_cold)):
+        o += [part[np.argsort(-s_len[part], kind="stable")], np.full(-len(part) % 32, -1)]
+    o = np.concatenate(o).astype(np.int64)
+    if len(o) == 0:
+        o = np.full(32, -1)
+    n_u = len(o) // 32
+    real = o >= 0
+    pick = np.maximum(o, 0)
+    u_dest = np.where(real, s_dest[pick] if len(s_dest) else 0, -1).reshape(n_u, 32)
+    u_len = np.where(real, s_len[pick] if len(s_len) else 0, 0).reshape(n_u, 32)
+    u_beg = np.where(real, s_beg[pick] if len(s_beg) else 0, 0).reshape(n_u, 32)
+    walk, warp_units = _deal_units(u_len.max(1), nw)
+    u_dest, u_len, u_beg = u_dest[walk], u_len[walk], u_beg[walk]
+    u_size = u_len.max(1)
+    u_warp = np.repeat(np.arange(nw), np.diff(warp_units))
+    u_off = np.cumsum(u_size) - u_size              # walk offset within its warp
+    u_off -= np.concatenate([[0], np.cumsum(u_size)])[warp_units[:-1]][u_warp]
+    per_warp = np.bincount(u_warp, weights=u_size, minlength=nw)
+    n_chunks = max(1, int(-(-per_warp.max() // jb)))
+
+    # positions, one per (unit, lane, item)
+    m = u_len.reshape(-1)
+    k = np.arange(int(m.sum())) - np.repeat(np.cumsum(m) - m, m)
+    t = np.repeat(np.repeat(u_off, 32), m) + k
+    w = np.repeat(np.repeat(u_warp, 32), m)
+    lane = np.repeat(np.tile(np.arange(32), n_u), m)
+    pos = (t // jb) * chunk + (w * jb + t % jb) * 32 + lane
+    items = perm[np.repeat(u_beg.reshape(-1), m) + k]
+    item = np.full(n_chunks * chunk, -1, np.int64)
+    item[pos] = items
+    codes = np.zeros(n_chunks * chunk, np.int64)
+    codes[pos] = row_code[slots[items]]
+    # each chunk's distinct cold rows, for the kernel's prefetch
+    cold = codes[pos] >= PACK_COLD
+    key = np.unique((pos[cold] // chunk) * v + slots[items[cold]])
+    cold_beg = np.searchsorted(key // v, np.arange(n_chunks + 1))
+
+    first = perm[np.minimum(u_beg.reshape(-1), max(n - 1, 0))] if n else 0
+    has = u_len.reshape(-1) > 0
+    row_scale = np.zeros(v + 1, np.float32)
+    row_scale[cnt > 0] = scales[start[cnt > 0]]
+
+    def d(a, dt):
+        host = {torch.int16: np.int16, torch.int32: np.int32, torch.float32: np.float32}[dt]
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=host)).to(dev)
+
+    return PackedLayout(
+        codes=d(codes.astype(np.uint16).view(np.int16), torch.int16),
+        item=d(item, torch.int32),
+        hot_rows=d(hot_rows, torch.int32),
+        row_code=d(row_code.astype(np.uint16).view(np.int16), torch.int16),
+        cold_beg=d(cold_beg, torch.int32),
+        cold_rows=d(key % v, torch.int32),
+        lane_row=d(u_dest.reshape(-1), torch.int32),
+        lane_cnt=d(u_len.reshape(-1), torch.int32),
+        lane_wts=d(np.where(has, wts[first] if n else 0, 0), torch.float32),
+        lane_scale=d(np.where(has, scales[first] if n else 0, 0), torch.float32),
+        warp_units=d(warp_units, torch.int32),
+        hub_rows=d(hub_ids, torch.int32),
+        hub_piece=d(hub_piece, torch.int32),
+        row_scale=d(row_scale, torch.float32),
+        empty_rows=d(np.flatnonzero(cnt == 0), torch.int32),
+        n_chunks=n_chunks,
+        n_pieces=int(hub_piece[-1]),
+        host_ms=1e3 * (time.perf_counter() - t0),
+    )
+
+
 # The L2 column tiles (csrc/spmv.cu:spmv_tiles): a warp sums one row (or a
 # hub row's piece of SELL_HUB items) over a tile of 256 f32 columns, and
 # blocks run tile by tile, so the rows a tile reads come from L2.  They
@@ -299,29 +555,42 @@ def build_tile_plan(stream: "SpmvStream") -> TilePlan:
 
 def row_tiles(stream: "SpmvStream") -> "SpmvStream":
     """``stream`` without its layout or plan: B1/B2 run it as row tiles."""
-    return dataclasses.replace(stream, sell=None, tiles=None)
+    return dataclasses.replace(stream, sell=None, packed=None, tiles=None)
 
 
 def design_rule(stream: "SpmvStream") -> str:
     """The design a stream built on the card gets, from its shape: the
-    column panel where :func:`runs_panel` holds; else the L2 column tiles
-    for a seg-1 stream whose :func:`hub_share` is below TILES_HUB_SHARE;
-    else row tiles."""
+    column panel where :func:`runs_panel` holds; else the packed-lane panel
+    where :func:`runs_packed` does; else the L2 column tiles for a seg-1
+    stream whose :func:`hub_share` is below TILES_HUB_SHARE; else row
+    tiles."""
     if runs_panel(stream):
         return "panel"
+    if runs_packed(stream):
+        return "packed"
     if stream.seg_k == 1 and hub_share(stream) < TILES_HUB_SHARE:
         return "tiles"
     return "rows"
 
 
+def layout_of(stream: "SpmvStream"):
+    """The stream's sliced layout, packed layout or tile plan, or None."""
+    built = [f for f in (stream.sell, stream.packed, stream.tiles) if f is not None]
+    if len(built) > 1:
+        raise ValueError("a stream takes one of a sliced layout, a packed layout and a tile plan")
+    return built[0] if built else None
+
+
 def _with_layout(stream: "SpmvStream") -> "SpmvStream":
     """``stream`` with the layout or plan of its :func:`design_rule` where
     it lies on a CUDA device and has neither; unchanged otherwise."""
-    if stream.sell is not None or stream.tiles is not None or not stream.slots.is_cuda:
+    if layout_of(stream) is not None or not stream.slots.is_cuda:
         return stream
     design = design_rule(stream)
     if design == "panel":
         return dataclasses.replace(stream, sell=build_sell_layout(stream))
+    if design == "packed":
+        return dataclasses.replace(stream, packed=build_packed_layout(stream))
     if design == "tiles":
         return dataclasses.replace(stream, tiles=build_tile_plan(stream))
     return stream
@@ -339,7 +608,8 @@ class SpmvStream:
     ``block_items`` multiple run in the dummy output row V.
     ``row_items[r] .. row_items[r+1]`` are the items of output row r
     (int64[V+2]).  ``sell``: on a CUDA device, the same stream in the
-    sliced order of the column panel (:class:`SellLayout`), and
+    sliced order of the column panel (:class:`SellLayout`), ``packed``:
+    in the order of the packed-lane panel (:class:`PackedLayout`), and
     ``tiles``: the plan of the L2 column tiles (:class:`TilePlan`), each
     where :func:`design_rule` gives the stream that design, built beside
     these fields; else None.
@@ -358,13 +628,14 @@ class SpmvStream:
     seg_k: int = 1          # table rows per item
     sell: Optional[SellLayout] = None
     tiles: Optional[TilePlan] = None
+    packed: Optional[PackedLayout] = None
 
     def to(self, device) -> "SpmvStream":
         move = {
             f: getattr(self, f).to(device)
             for f in ("slots", "wts", "pos", "raw_wts", "scales", "row_items")
         }
-        for f in ("sell", "tiles"):
+        for f in ("sell", "tiles", "packed"):
             if getattr(self, f) is not None:
                 move[f] = getattr(self, f).to(device)
         return _with_layout(dataclasses.replace(self, **move))
@@ -658,8 +929,8 @@ def spmv(
     (``mode="kahan"``) or B2 (``mode="fast"``) on the current stream, or
     raises; there is no other path.  The kernel runs the design of
     :func:`spmv_design` (``csrc/spmv.cu``): the column panel over the
-    stream's sliced layout, the L2 column tiles over its tile plan, or row
-    tiles.
+    stream's sliced layout, the packed-lane panel over its packed layout,
+    the L2 column tiles over its tile plan, or row tiles.
     """
     _check_mode(mode, table)
     if table.device.type == "cpu":
@@ -690,6 +961,33 @@ def sell_launch_args(lay: SellLayout, c: int, kahan: bool, device):
     args.hub_acc = None if hub_acc is None else hub_acc.data_ptr()
     args.n_chunks, args.n_ss = lay.n_chunks, lay.ss_chunks.numel()
     args.n_hub, args.n_pieces = lay.hub_rows.numel(), lay.n_pieces
+    return ctypes.byref(args), hub_acc
+
+
+def packed_launch_args(lay: PackedLayout, c: int, kahan: bool, device):
+    """``(byref(GtPacked), hub_acc)``: the arguments of a packed-lane launch
+    over ``lay`` at ``c`` columns and the scratch of its pieces (None
+    without pieces), to be held until the launch is enqueued.  B1
+    (``kahan``) reads each lane's folded weight, B2 its scale."""
+    from graphtpu_torch.kernels import _build
+
+    hub_acc = None
+    if lay.n_pieces:
+        hub_acc = torch.empty((2 if kahan else 1) * lay.n_pieces * c, dtype=torch.float32,
+                              device=device)
+    args = _build.GtPacked()
+    fields = dict(codes=lay.codes, hot_rows=lay.hot_rows, row_code=lay.row_code,
+                  cold_beg=lay.cold_beg, cold_rows=lay.cold_rows,
+                  lane_row=lay.lane_row, lane_cnt=lay.lane_cnt,
+                  lane_w=lay.lane_wts if kahan else lay.lane_scale, warp_units=lay.warp_units,
+                  hub_rows=lay.hub_rows, hub_piece=lay.hub_piece, row_w=lay.row_scale,
+                  empty_rows=lay.empty_rows)
+    for name, f in fields.items():
+        setattr(args, name, f.data_ptr())
+    args.hub_acc = None if hub_acc is None else hub_acc.data_ptr()
+    args.n_chunks, args.n_hot = lay.n_chunks, lay.hot_rows.numel()
+    args.n_hub, args.n_pieces = lay.hub_rows.numel(), lay.n_pieces
+    args.n_empty = lay.empty_rows.numel()
     return ctypes.byref(args), hub_acc
 
 
@@ -726,15 +1024,17 @@ def _spmv_cuda(stream, table, mode, table_scale):
     kahan = mode == "kahan"
     items = (stream.slots, stream.wts if kahan else stream.raw_wts, stream.scales,
              stream.row_items)
-    lay = stream.sell
+    layout_of(stream)  # raises where a stream carries two
+    lay, packed = stream.sell, stream.packed
     plan = stream.tiles if spmv_design(stream, table.dtype) == "tiles" else None
-    if lay is not None and stream.tiles is not None:
-        raise ValueError("a stream takes a sliced layout or a tile plan, not both")
     if plan is not None and k != 1:
         raise ValueError("a tile plan needs a seg-1 stream")
     fields = () if lay is None else (
         lay.slots, lay.lane_row, lay.lane_cnt, lay.unit_hub, lay.ss_chunks, lay.hub_rows,
         lay.hub_piece, lay.row_wts if kahan else lay.row_scale)
+    if packed is not None:
+        fields = tuple(getattr(packed, f.name) for f in dataclasses.fields(packed)
+                       if f.name != "item" and isinstance(getattr(packed, f.name), torch.Tensor))
     if plan is not None:
         fields = (plan.hub_rows, plan.hub_piece, plan.piece_row, plan.piece_beg)
     for f in items + fields:
@@ -745,9 +1045,9 @@ def _spmv_cuda(stream, table, mode, table_scale):
         return out
     lib = _build.load()
     sell = hub_acc = None  # the layout and its scratch, held until the launch is enqueued
+    if (lay is not None or packed is not None) and (k != 1 or not stream.uniform):
+        raise ValueError("a sliced or packed layout needs a uniform seg-1 stream")
     if lay is not None:
-        if k != 1 or not stream.uniform:
-            raise ValueError("a sliced layout needs a uniform seg-1 stream")
         sell, hub_acc = sell_launch_args(lay, c, kahan, table.device)
     slots, wts, scales, row_items = (f.data_ptr() for f in items)
     pin = table_scale is not None
@@ -756,7 +1056,11 @@ def _spmv_cuda(stream, table, mode, table_scale):
     bf16 = int(table.dtype == torch.bfloat16)
     with torch.cuda.device(table.device):
         cu_stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        if plan is not None:
+        if packed is not None:
+            args, hub_acc = packed_launch_args(packed, c, kahan, table.device)
+            rc = lib.gt_spmv_packed(args, table.data_ptr(), out.data_ptr(), v, c, int(kahan),
+                                    int(pin), scale, bf16, cu_stream)
+        elif plan is not None:
             tiles, hub_acc = tiles_launch_args(plan, c, kahan, table.device)
             rc = lib.gt_spmv_tiles(
                 slots, wts, scales, row_items, tiles, table.data_ptr(), out.data_ptr(), v, c,

@@ -29,6 +29,7 @@ from graphtpu_torch.kernels.spmm import (
     build_reduction_tree,
     build_spmv_segments,
     build_spmv_stream,
+    layout_of,
     spmv,
     tree_spmm,
 )
@@ -142,8 +143,8 @@ def exact_simrank_spmm(
     ("product1", "product2") and the transpose are added; in the tree
     branch "product2" includes the scale, the pin and the cast.  Both
     branches also set "layout_host", the host ms of the plan's kernel
-    layouts: the stream's sliced layout or tile plan, or the tree levels'
-    compact plans (0 where the kernels run row tiles only, or on the CPU,
+    layouts: the stream's sliced or packed layout or tile plan, or the tree
+    levels' compact plans (0 where the kernels run row tiles only, or on the CPU,
     and build none).
     """
     if isinstance(g, DiGraph):
@@ -167,7 +168,7 @@ def exact_simrank_spmm(
     else:
         plan = build_spmv_stream(g, weighted=weighted, device=device)
     if stage_times is not None:
-        built = plan.sell if plan.sell is not None else plan.tiles
+        built = layout_of(plan)
         stage_times["layout_host"] = built.host_ms if built is not None else 0.0
 
     s = torch.eye(v, dtype=dtype, device=device)

@@ -296,7 +296,7 @@ def test_kernel_is_deterministic(cuda, mode):
 
 def _tiled(plan):
     """``plan`` run as the L2 column tiles, whatever its design."""
-    return dataclasses.replace(plan, sell=None, tiles=spmm.build_tile_plan(plan))
+    return dataclasses.replace(spmm.row_tiles(plan), tiles=spmm.build_tile_plan(plan))
 
 
 def _star_plus(v, hub_degree, e, seed):
@@ -408,3 +408,109 @@ def test_cli_on_card_matches_cpu(cuda, tmp_path):
     assert set(a) == set(b) == set(range(64))
     for r in a:
         np.testing.assert_allclose([s for _, s in a[r]], [s for _, s in b[r]], atol=2e-5)
+
+
+def _rmat14(cuda, hot=None):
+    """R-MAT 14's stream on the card: the packed-lane panel (hub rows hold
+    58% of the items, its 11,448 most-read rows 99.7% of the reads), or
+    with a panel of ``hot`` rows."""
+    from graphtpu_torch.bench import generators
+
+    g = generators.rmat14_graph()
+    plan = spmm.build_spmv_stream(g, device=cuda)
+    assert spmm.spmv_design(plan) == spmm.spmv_design(plan, torch.bfloat16) == "packed"
+    if hot is not None:
+        plan = dataclasses.replace(plan, packed=spmm.build_packed_layout(plan, hot=hot))
+    return g, plan
+
+
+@pytest.mark.parametrize("table_scale", [None, 0.6])
+@pytest.mark.parametrize("mode,dtype", [("kahan", torch.float32), ("fast", torch.float32),
+                                        ("fast", torch.bfloat16)])
+@pytest.mark.parametrize("case", ["rmat14", "cold", "ragged"])
+def test_packed_matches_plain_oracle_and_row_tiles(cuda, case, mode, dtype, table_scale):
+    """The packed-lane panel at R-MAT 14 (its 11,448 hottest rows in the
+    panel; "cold": 300, so 1 in 3 reads goes to the table; "ragged": C =
+    1,001, rows not 16-byte aligned) against the plain version and the
+    float64 oracle (1e-5, bf16 one ulp), bit-equal to the forced row tiles
+    on rows of at most PACK_PIECE items (one lane each, in stream order),
+    within 1e-5 (bf16 one ulp) on the longer ones, and the same bits on a
+    second launch."""
+    g, plan = _rmat14(cuda, hot=300 if case == "cold" else None)
+    v, width = g.n_nodes, 1001 if case == "ragged" else 520
+    bf = dtype == torch.bfloat16
+    x = torch.rand((v, width), generator=torch.Generator().manual_seed(18)).to(cuda).to(dtype)
+    got = spmm.spmv(plan, x, mode, table_scale)
+    assert torch.equal(got, spmm.spmv(plan, x, mode, table_scale))
+    rows = spmm.spmv(spmm.row_tiles(plan), x, mode, table_scale)
+    cnt = torch.diff(plan.row_items)
+    light = cnt <= spmm.PACK_PIECE
+    assert torch.equal(got[light], rows[light])
+    ha, hb = got[~light].float().cpu().numpy(), rows[~light].float().cpu().numpy()
+    tol = _bf16_ulp(np.maximum(abs(ha), abs(hb))) if bf else 1e-5
+    assert (np.abs(ha - hb) <= tol).all()
+    orows = np.unique(np.concatenate([np.random.default_rng(19).choice(v, 200),
+                                      [int(np.argmax(g.host[3])), 0, v - 1]]))
+    xh = x.float().cpu().numpy()
+    oracle = spmm.spmm_oracle(g, xh if table_scale is None else _pinned(xh, table_scale),
+                              rows=orows)
+    _check(got, spmm.spmv_plain(plan, x, mode, table_scale), orows, oracle, bf16=bf)
+
+
+@pytest.mark.parametrize("mode", ["kahan", "fast"])
+def test_packed_writes_rows_with_no_items(cuda, mode):
+    """Rows with no items (here 3, 7, 200 and the pad row V) are zeros;
+    the rest as the row tiles.  Row 5 holds 30% of the items, and every
+    item reads one of the first 11,000 rows: the packed design."""
+    rng = np.random.default_rng(8)
+    v, n = 12_000, 40_000
+    rows = np.setdiff1d(np.arange(v), [3, 7, 200])
+    pos = np.sort(np.concatenate([rows, rng.choice(rows, n - len(rows) - 12_000),
+                                  np.full(12_000, 5)]))
+    slots = rng.integers(0, 11_000, n)
+    deg = np.bincount(pos, minlength=v + 1).astype(np.float32)
+    st = spmm.stream_from_numpy(slots, 1.0 / deg[pos], pos, np.ones(n), 1.0 / deg[pos], v, n,
+                                1, True, device=cuda)
+    assert spmm.spmv_design(st) == "packed"
+    assert set(st.packed.empty_rows.tolist()) == {3, 7, 200, v}
+    x = torch.rand((v, 264), generator=torch.Generator().manual_seed(20)).to(cuda)
+    got = spmm.spmv(st, x, mode, 0.6)
+    assert not got[[3, 7, 200, v]].any()
+    light = torch.diff(st.row_items) <= spmm.PACK_PIECE
+    assert torch.equal(got[light], spmm.spmv(spmm.row_tiles(st), x, mode, 0.6)[light])
+
+
+def test_packed_launches_are_counted(cuda):
+    _, plan = _rmat14(cuda)
+    x = torch.rand((plan.n_nodes, 64), device=cuda)
+    before = dict(spmm.SPMV_LAUNCHES)
+    spmm.spmv(plan, x, "kahan", 0.6)
+    spmm.spmv(plan, x, "fast")
+    spmm.spmv(plan, x.bfloat16(), "fast", 0.6)
+    spmm.spmv_plain(plan, x, "fast")
+    assert spmm.SPMV_LAUNCHES["kahan"] == before["kahan"] + 1
+    assert spmm.SPMV_LAUNCHES["fast"] == before["fast"] + 2
+
+
+@pytest.mark.parametrize("table_scale", [None, 0.6])
+@pytest.mark.parametrize("case", ["ragged", "arxiv", "seg2"])
+def test_bf16_row_tiles_give_the_f32_loads_bits(cuda, case, table_scale):
+    """The bf16 row tiles read 8 columns a thread with one 16-byte load; the
+    f32 row tiles read 4.  Both sum each column in f32 in the same order
+    with the same operations, and bf16 rounds once on the store, so the
+    bf16 output is the f32 row tiles' over the widened table, rounded: at
+    C = 1,001 (element by element), at the arxiv shape and over a seg-2
+    stream."""
+    from graphtpu_torch.bench import generators
+
+    if case == "arxiv":
+        g, width = generators.arxiv_shaped_graph(), 1040
+    else:
+        g, width = _graph(v=3000, e=40_000, seed=21), 1001 if case == "ragged" else 1040
+    k = 2 if case == "seg2" else 1
+    plan = spmm.row_tiles(spmm.build_spmv_segments(g, k=k, device=cuda))
+    x = torch.rand((g.n_nodes, width), generator=torch.Generator().manual_seed(22))
+    x = x.to(cuda).bfloat16()
+    got = spmm.spmv(plan, x, "fast", table_scale)
+    want = spmm.spmv(plan, x.float(), "fast", table_scale).bfloat16()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)

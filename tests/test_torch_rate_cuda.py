@@ -150,3 +150,29 @@ def test_panel_wrappers_check_the_layouts_device(cuda):
         spmv_rate.gather_only(moved, torch.rand((V, 64), device=cuda))
     with pytest.raises(ValueError, match="device"):
         spmv_rate.accumulate_only(moved, torch.rand((spmv_rate.N_BUF, 64), device=cuda))
+
+
+def test_x2_over_a_layout_past_the_panel(cuda):
+    """X2 reads no panel, so it runs over R-MAT 14's sliced layout (V =
+    16,384, past the panel's 11,448 rows): the same bits as the row tiles
+    on lane rows, twice; every row within two f32 sums' error bound of its
+    plain version, 2·(n - 1)·2^-24·Σ|terms| for a row of n items (R-MAT's
+    rows of up to 4,086 items, summed plainly in two orders, differ by more
+    than TOL_RATE's 1e-5)."""
+    from graphtpu_torch.bench import generators
+
+    st = spmm.build_spmv_stream(generators.rmat14_graph(), device=cuda)
+    assert not spmm.sell_fits(st.n_nodes)
+    laid = dataclasses.replace(spmm.row_tiles(st), sell=spmm.build_sell_layout(st))
+    assert spmv_rate.design("accumulate_only", laid) == "panel"
+    buf = torch.rand((spmv_rate.N_BUF, 264), generator=torch.Generator().manual_seed(23))
+    buf = buf.to(cuda)
+    got = spmv_rate.accumulate_only(laid, buf)
+    assert torch.equal(got, spmv_rate.accumulate_only(laid, buf))
+    plain = spmv_rate.accumulate_only_plain(laid, buf)
+    n = torch.diff(laid.row_items).clamp(min=2).double()[:, None]
+    assert bool(((got - plain).abs().double() <= 2 * (n - 1) * 2.0**-24 * plain.double()).all())
+    lane = np.setdiff1d(np.arange(st.n_nodes + 1), laid.sell.hub_rows.cpu().numpy())
+    lane = torch.as_tensor(lane, device=cuda)
+    rows = spmv_rate.accumulate_only(spmm.row_tiles(st), buf)
+    assert torch.equal(got[lane], rows[lane])

@@ -173,7 +173,8 @@ def _uniform(v, d=1, block_items=1):
     ("v=65,535", "tiles"),
     ("v=65,536", "tiles"),
     ("hub share just below", "tiles"),
-    ("hub share at the threshold", "rows"),
+    ("hub share at the threshold", "packed"),
+    ("hub share at the threshold, reads past the panel", "rows"),
     ("seg-2", "rows"),
     ("weighted", "tiles"),
     ("weighted, hub share above", "rows"),
@@ -187,6 +188,10 @@ def test_design_rule(case, want):
     elif case == "hub share at the threshold":
         s = _uniform(12_001, 4000)      # 4,000 / 16,000
         assert spmm.hub_share(s) == spmm.TILES_HUB_SHARE
+    elif case == "hub share at the threshold, reads past the panel":
+        s = _uniform(60_001, 20_000)    # 20,000 / 80,000; the packed panel takes 64% of reads
+        assert spmm.hub_share(s) == spmm.TILES_HUB_SHARE
+        assert spmm.hot_share(s) < spmm.PACK_HOT_SHARE
     elif case == "seg-2":
         s = spmm.build_spmv_segments(_streams()[0], k=2)
     else:

@@ -9,18 +9,24 @@ Phases (any failure raises and the run exits non-zero):
      the C++ parser and generator from graphtpu_torch/native.
   3. kernels: kernels B1 (Kahan) and B2 (fast) against their plain PyTorch
      version and the float64 oracle on the blog-shaped stream (V = C =
-     10,496, the column-panel design), plus seg-2 (row tiles), ragged and
-     bf16 cases, a V = 60,000 case (the L2 column tiles) and the Kahan hub
+     10,496, the column-panel design), plus the seg-2 and seg-4 streams of
+     the RCM-relabelled graph (the panel's seg-k walk; f32 and bf16, pinned
+     and not), each bit-equal to the forced row tiles on every row, ragged
+     and bf16 cases, a V = 60,000 case (the L2 column tiles) and the Kahan hub
      at degree 20,000 (row tiles) and 11,000 (the panel): B1, and B2 in the
      panel, within 1e-5, while a sequential f32 sum must miss; every case
      launched twice and the outputs held bit-equal; CUDA-event times of
-     kernel, plain version and one torch.sparse.mm.  Then R-MAT 14 (the
+     kernel, plain version and, unpinned, one torch.sparse.mm of the
+     stream's P (checked once against the plain version in f32; in bf16
+     its error is reported), with the bound.
+     Then R-MAT 14 (the
      packed-lane panel) and the arxiv shape (V = 38,912, the L2 column
      tiles in f32, 16-byte row tiles in bf16) at C = V: B1 and B2 in f32
      and B2 in bf16, each with and without the pin, against the plain
      version and the float64 oracle, and bit-equal to the row tiles on rows
      of at most SELL_HUB items; kernel, row-tile, plain and torch.sparse.mm
-     times beside the bound.
+     times beside the bound; the same graphs' seg-2 streams after RCM (row
+     tiles, past the panel) against the plain version and the oracle.
   4. tree kernel: kernel B3 against its plain version on every level of
      the blog-shaped and R-MAT reduction trees at 4,096-column blocks
      (level 0 read in place from the wider iterate), the ragged tail
@@ -35,7 +41,8 @@ Phases (any failure raises and the run exits non-zero):
   5. main path: ``python -m graphtpu_torch simrank --engine spmm`` for
      modes kahan, fast and fast16 on the blog-shaped graph; launch counts,
      files read back, scores against the dense fp32 engine, the host ms of
-     the sliced layout.
+     the sliced layout; 5b: the same with ``--relabel rcm --seg 2`` in
+     kahan and fast16 (the panel's seg-k walk).
   6. skew: the kahan run again on an R-MAT graph (V = 16,384, the packed-
      lane panel), its in-process call held within 1e-6 of the same call on
      forced row tiles.
@@ -289,14 +296,22 @@ def phase_kernels(dev, report):
     from graphtpu_torch.core.reorder import rcm_order, relabel_graph
     from graphtpu_torch.kernels import spmm
 
+    from graphtpu_torch.bench import bounds
+
     g = blog_shaped_graph()
     g2, _ = relabel_graph(g, rcm_order(g))
     plan = spmm.build_spmv_stream(g, device=dev)
     seg2 = spmm.build_spmv_segments(g2, k=2, device=dev)
+    seg4 = spmm.build_spmv_segments(g2, k=4, device=dev)
     say(f"blog stream: V={g.n_nodes} slots={g.n_edges} items={plan.n_items} "
         f"max_degree={g.max_degree}; sliced layout: {plan.sell.n_chunks} chunks, "
-        f"{plan.sell.hub_rows.numel()} hub rows, built in {plan.sell.host_ms:.1f} ms "
-        f"(host); rcm seg-2 stream: items={seg2.n_items}")
+        f"{plan.sell.hub_rows.numel()} hub rows, built in {plan.sell.host_ms:.1f} ms (host)")
+    for name, sk in (("seg-2", seg2), ("seg-4", seg4)):
+        check(spmm.spmv_design(sk) == spmm.spmv_design(sk, torch.bfloat16) == "panel"
+              and sk.sell.hub_rows.numel() == 0,
+              f"rcm {name}: expected the column panel with lane rows only")
+        say(f"rcm {name} stream: items={sk.n_items}, {bounds.stream_terms(sk)} nonzero sub-rows; "
+            f"sliced layout {sk.sell.n_chunks} chunks, built in {sk.sell.host_ms:.1f} ms (host)")
     x_np = np.random.default_rng(1).random((BLOG_NODES, BLOG_NODES), dtype=np.float32)
     x = torch.from_numpy(x_np).to(dev)
     xb = x.bfloat16()
@@ -327,6 +342,11 @@ def phase_kernels(dev, report):
         ("fast_bf16", "fast", plan, g, xb, None, blog, rows),
         ("kahan_seg2_rcm_pin", "kahan", seg2, g2, x, 0.6, blog, rows),
         ("fast_seg2_rcm_pin", "fast", seg2, g2, x, 0.6, blog, rows),
+        ("fast_bf16_seg2_rcm_pin", "fast", seg2, g2, xb, 0.6, blog, rows),
+        ("kahan_seg2_rcm", "kahan", seg2, g2, x, None, blog, rows),
+        ("fast_seg2_rcm", "fast", seg2, g2, x, None, blog, rows),
+        ("fast_bf16_seg2_rcm", "fast", seg2, g2, xb, None, blog, rows),
+        ("kahan_seg4_rcm_pin", "kahan", seg4, g2, x, 0.6, blog, rows),
         ("kahan_f32_pin_ragged", "kahan", plan, g, x[:, :C_RAGGED].contiguous(), 0.6,
          blog, rows),
         ("fast_bf16_pin_ragged", "fast", plan, g, xb[:, :C_RAGGED].contiguous(), 0.6,
@@ -363,26 +383,52 @@ def phase_kernels(dev, report):
             within_oracle = err_oracle <= TOL_F32
             bound = f"{TOL_F32:g} absolute"
         used = spmm.spmv_design(p, table.dtype)
+        extra = {}
+        if p.seg_k > 1:
+            # the seg-k walk against the row tiles: every blog row is a lane
+            # row, so the whole output has their bits
+            check(used == "panel", f"{name}: design {used}, expected panel")
+            rows_out = spmm.spmv(spmm.row_tiles(p), table, mode, ts)
+            extra["unequal_row_tiles"] = int((out != rows_out).sum().item())
+            del rows_out
+            extra["row_tiles_ms"] = cuda_ms(lambda: spmm.spmv(spmm.row_tiles(p), table, mode, ts))
         ms = cuda_ms(lambda: spmm.spmv(p, table, mode, ts))
         plain_ms = cuda_ms(lambda: spmm.spmv_plain(p, table, mode, ts), warmup=1, runs=5)
-        lib_ms = None
-        if ts is None and p is plan and name in ("kahan_f32", "fast_f32", "fast_bf16"):
-            # one PyTorch call of the same product: the folded P as CSR
+        lib_ms = lib_err = None
+        if ts is None and (p.seg_k > 1 or name in ("kahan_f32", "fast_f32", "fast_bf16")):
+            # one PyTorch call of the same product: the folded P as CSR,
+            # checked once against the plain version in f32 (bf16: its own
+            # rounding, reported; the CSR is the f32 case's)
             csr = stream_csr(p, p.wts).to(table.dtype)
             lib_ms = library_ms(lambda: torch.sparse.mm(csr, table))
+            if lib_ms is not None:
+                lib_err = (torch.sparse.mm(csr, table).float() - plain[: gg.n_nodes].float()
+                           ).abs().max().item()
+                check(bf or lib_err <= TOL_F32, f"{name}: torch.sparse.mm vs plain {lib_err} > "
+                      f"{TOL_F32}: the yardstick computes another product")
             del csr
+        bound_ms, bound_by = bounds.bound(*bounds.stream_work(
+            p, table.shape[1], table.element_size(), mode, ts is not None))
         r = dict(case=name, kernel=mode, design=used, items=p.n_items, seg_k=p.seg_k,
                  width=int(table.shape[1]), dtype=str(table.dtype).split(".")[-1],
                  max_abs_err_plain=err_plain, max_abs_err_oracle=err_oracle,
                  oracle_rows=int(len(orows)), bound=bound, ms=ms, plain_ms=plain_ms,
-                 library_ms=lib_ms)
+                 library_ms=lib_ms, library_err_plain=lib_err, bound_ms=bound_ms,
+                 bound_by=bound_by, **extra)
         results.append(r)
         say(f"{name} ({used}): err vs plain {err_plain:.3e}, vs float64 oracle "
             f"{err_oracle:.3e} ({len(orows)} rows), bound {bound}; two launches equal; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
-            + ("" if lib_ms is None else f", torch.sparse.mm {lib_ms:.3f} ms"))
+            + ("" if p.seg_k == 1 else
+               f"{extra['unequal_row_tiles']} elements unequal to the row tiles "
+               f"({extra['row_tiles_ms']:.3f} ms); ")
+            + f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+            + ("" if lib_ms is None else
+               f", torch.sparse.mm {lib_ms:.3f} ms ({lib_err:.3e} from plain)")
+            + f"; bound {bound_ms:.3f} ms ({bound_by})")
         check(within_plain, f"{name}: kernel vs plain version outside {bound}")
         check(within_oracle, f"{name}: kernel vs float64 oracle outside {bound}")
+        check(extra.get("unequal_row_tiles", 0) == 0,
+              f"{name}: {extra.get('unequal_row_tiles')} elements differ from the row tiles")
         del out, plain
 
     # Kahan hub: one row of degree d whose neighbours hold equal values in
@@ -518,9 +564,8 @@ def phase_kernels_large(dev, report):
                 csr = stream_csr(plan, plan.wts).to(dtype)
                 lib_ms = library_ms(lambda: torch.sparse.mm(csr, table))
                 del csr
-            bound_ms, bound_by = bounds.bound(*bounds.spmv_work(
-                plan.n_items, 1, v, v, table.element_size(), mode, pin=ts is not None,
-                multiply=mode == "kahan"))
+            bound_ms, bound_by = bounds.bound(*bounds.stream_work(
+                plan, v, table.element_size(), mode, ts is not None))
             r = dict(case=f"{tag}_{name}", graph=tag, kernel=mode, design=design,
                      items=plan.n_items, width=v, dtype=str(dtype).split(".")[-1],
                      pin=ts is not None, max_abs_err_plain=err_plain,
@@ -543,6 +588,98 @@ def phase_kernels_large(dev, report):
         del x, plan, rows_plan
         torch.cuda.empty_cache()
     report["kernel_cases_large"] = results
+    return results
+
+
+def phase_kernels_seg_large(dev, report):
+    """B1 and B2 at C = V over R-MAT 14's and the arxiv shape's seg-2 streams
+    after an RCM relabel, which keep the row tiles (past the column panel):
+    f32 with and without the pin, B2 in bf16; each against its plain
+    version and the float64 oracle, two launches bit-equal; kernel, plain
+    and (unpinned) ``torch.sparse.mm`` times, the library call checked
+    against the plain version in f32 (in bf16 its error is reported: at
+    R-MAT's 4,086-term rows it reaches 0.039), and the bound."""
+    from graphtpu_torch.bench import bounds
+    from graphtpu_torch.core.reorder import rcm_order, relabel_graph
+    from graphtpu_torch.kernels import spmm
+
+    results = []
+    for tag, make in (("rmat", rmat14_graph), ("arxiv", arxiv_shaped_graph)):
+        g0 = make()
+        g, _ = relabel_graph(g0, rcm_order(g0))
+        plan = spmm.build_spmv_segments(g, k=2, device=dev)
+        v = g.n_nodes
+        orows = np.unique(np.concatenate([
+            np.random.default_rng(7).choice(v, ORACLE_ROWS),
+            [int(np.argmax(g.host[3])), 0, v - 1]]))
+        say(f"{tag} rcm seg-2 stream: V={v} items={plan.n_items} "
+            f"({bounds.stream_terms(plan)} nonzero sub-rows), mask-uniform {plan.mask_uniform}")
+        x = torch.rand((v, v), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+        for name, mode, dtype, ts in (("kahan_f32_pin", "kahan", torch.float32, 0.6),
+                                      ("fast_f32_pin", "fast", torch.float32, 0.6),
+                                      ("fast_bf16_pin", "fast", torch.bfloat16, 0.6),
+                                      ("kahan_f32", "kahan", torch.float32, None),
+                                      ("fast_f32", "fast", torch.float32, None),
+                                      ("fast_bf16", "fast", torch.bfloat16, None)):
+            table = x.to(dtype)
+            bf = dtype == torch.bfloat16
+            design = spmm.spmv_design(plan, dtype)
+            check(design == "rows", f"{tag} seg-2 {name}: design {design}, expected rows")
+            out = spmm.spmv(plan, table, mode, ts)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out.float()).all()), f"{tag} seg-2 {name}: non-finite")
+            check(torch.equal(out, spmm.spmv(plan, table, mode, ts)),
+                  f"{tag} seg-2 {name}: two launches differ")
+            plain = spmm.spmv_plain(plan, table, mode, ts)
+            diff = (out.float() - plain.float()).abs()
+            err_plain = diff.max().item()
+            oracle = spmm.spmm_oracle(g, HostRows(table, ts), rows=orows)
+            got = out[torch.as_tensor(orows, device=dev)].double().cpu().numpy()
+            err_oracle = float(np.abs(got - oracle).max())
+            if bf:
+                within_plain = bool((diff <= bf16_ulp(torch.maximum(
+                    out.float().abs(), plain.float().abs()))).all())
+                o = torch.from_numpy(oracle)
+                within_oracle = bool(((torch.from_numpy(got) - o).abs() <= bf16_ulp(o)).all())
+                bound = "1 bf16 ulp relative"
+            else:
+                within_plain, within_oracle = err_plain <= TOL_F32, err_oracle <= TOL_F32
+                bound = f"{TOL_F32:g} absolute"
+            del diff
+            ms = cuda_ms(lambda: spmm.spmv(plan, table, mode, ts))
+            plain_ms = cuda_ms(lambda: spmm.spmv_plain(plan, table, mode, ts), warmup=1, runs=3)
+            lib_ms = lib_err = None
+            if ts is None:
+                csr = stream_csr(plan, plan.wts).to(dtype)
+                lib_ms = library_ms(lambda: torch.sparse.mm(csr, table))
+                if lib_ms is not None:
+                    lib_err = (torch.sparse.mm(csr, table).float() - plain[:v].float()
+                               ).abs().max().item()
+                    check(bf or lib_err <= TOL_F32, f"{tag} seg-2 {name}: torch.sparse.mm vs "
+                          f"plain {lib_err} > {TOL_F32}")
+                del csr
+            del plain
+            bound_ms, bound_by = bounds.bound(*bounds.stream_work(
+                plan, v, table.element_size(), mode, ts is not None))
+            r = dict(case=f"{tag}_seg2_rcm_{name}", graph=tag, kernel=mode, design=design,
+                     items=plan.n_items, seg_k=2, width=v, dtype=str(dtype).split(".")[-1],
+                     pin=ts is not None, max_abs_err_plain=err_plain,
+                     max_abs_err_oracle=err_oracle, oracle_rows=int(len(orows)), bound=bound,
+                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_err_plain=lib_err,
+                     bound_ms=bound_ms, bound_by=bound_by)
+            results.append(r)
+            say(f"{tag} seg-2 rcm {name} ({design}): err vs plain {err_plain:.3e}, vs float64 "
+                f"oracle {err_oracle:.3e} ({len(orows)} rows), bound {bound}; kernel {ms:.3f} "
+                f"ms, plain {plain_ms:.3f} ms"
+                + ("" if lib_ms is None else
+                   f", torch.sparse.mm {lib_ms:.3f} ms ({lib_err:.3e} from plain)")
+                + f"; bound {bound_ms:.3f} ms ({bound_by})")
+            check(within_plain, f"{tag} seg-2 {name}: kernel vs plain version outside {bound}")
+            check(within_oracle, f"{tag} seg-2 {name}: kernel vs float64 oracle outside {bound}")
+            del out, table
+        del x, plan
+        torch.cuda.empty_cache()
+    report["kernel_cases_seg_large"] = results
     return results
 
 
@@ -735,14 +872,17 @@ def forced_row_tiles():
 
 
 def run_main_path(dev, path, n_nodes, modes, report, tag, want_design,
-                  row_tiles_check=False):
+                  row_tiles_check=False, seg=1):
     """CLI runs over one edge file, whose stream must get B1/B2's
     ``want_design``; returns each kernel's launches.  With
     ``row_tiles_check`` each mode's in-process call is held within
-    TOL_DESIGNS of the same call on forced row tiles."""
+    TOL_DESIGNS of the same call on forced row tiles.  With ``seg`` > 1
+    the CLI runs ``--relabel rcm --seg seg``, and the in-process call the
+    seg-``seg`` stream of the RCM-relabelled graph."""
     from graphtpu_torch import read_edgelist_graph
     from graphtpu_torch.cli import main as cli_main
     from graphtpu_torch.core.config import SimRankConfig
+    from graphtpu_torch.core.reorder import rcm_order, relabel_graph
     from graphtpu_torch.io.simfile import read_topk_ids
     from graphtpu_torch.kernels import spmm
     from graphtpu_torch.kernels.topk import topk_rows
@@ -752,6 +892,13 @@ def run_main_path(dev, path, n_nodes, modes, report, tag, want_design,
     cfg = SimRankConfig(iterations=3)
     dense = exact_simrank(g, cfg, device=dev)
     dense_top = topk_rows(dense, 20)[0].cpu().numpy()
+    run_g, seg_args = g, []
+    if seg > 1:
+        order = rcm_order(g)
+        run_g, _ = relabel_graph(g, order)
+        seg_args = ["--relabel", "rcm", "--seg", str(seg)]
+        o = torch.as_tensor(np.asarray(order, np.int64), device=dev)
+        dense = dense[o][:, o]  # the relabelled graph's scores
     launches = {"kahan": 0, "fast": 0}
     ids = {}
     top = {}
@@ -761,7 +908,7 @@ def run_main_path(dev, path, n_nodes, modes, report, tag, want_design,
         out = os.path.join(os.path.dirname(path), f"{tag}_{mode}.txt")
         argv = ["simrank", "--input", path, "--output", out, "--engine", "spmm",
                 "--mode", mode, "--iterations", "3", "--topk", "20",
-                "--n-nodes", str(n_nodes)]
+                "--n-nodes", str(n_nodes)] + seg_args
         for k in spmm.SPMV_LAUNCHES:
             spmm.SPMV_LAUNCHES[k] = 0
         t0 = time.perf_counter()
@@ -784,17 +931,17 @@ def run_main_path(dev, path, n_nodes, modes, report, tag, want_design,
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        sim = exact_simrank_spmm(g, cfg, spmv_mode=kernel, dtype=dtype,
+        sim = exact_simrank_spmm(run_g, cfg, spmv_mode=kernel, dtype=dtype, spmv_seg=seg,
                                  device=dev, stage_times=stages)
         torch.cuda.synchronize()
         call_s = time.perf_counter() - t0
         peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
         err = (sim.float() - dense).abs().max().item()
-        design = spmm.spmv_design(spmm.build_spmv_stream(g, device=dev), dtype)
+        design = spmm.spmv_design(spmm.build_spmv_segments(run_g, k=seg, device=dev), dtype)
         check(design == want_design, f"{tag} {mode}: design {design}, expected {want_design}")
         per_iter = {k: stages[k] / cfg.iterations
                     for k in ("product1", "transpose", "product2")}
-        row = dict(graph=tag, mode=mode, V=n_nodes, slots=g.n_edges,
+        row = dict(graph=tag, mode=mode, seg_k=seg, V=n_nodes, slots=g.n_edges,
                    max_degree=g.max_degree, launches=rise, max_abs_err_dense=err,
                    bound=tol, file_topk_err=file_err, cli_wall_s=cli_s,
                    spmm_call_wall_s=call_s, stage_ms_per_iter=per_iter,
@@ -1016,8 +1163,8 @@ def phase_rate_probe(dev, report):
         if "ns_per_chunk_slab" in r:
             say(f"rmat: {r['kernel']} ({r['design']}) {r['ms']:.3f} ms, "
                 f"{r['ns_per_chunk_slab']:.3f} ns per chunk and slab ({r['chunks']} chunks); "
-                f"blog's X2 {blog_x2.get('ns_per_chunk_slab', float('nan')):.3f} "
-                f"({blog_x2.get('chunks')} chunks)")
+                f"blog's X2 {blog_x2.get('ns_per_chunk_slab', float('nan')):.3f} ns per chunk "
+                f"and slab ({blog_x2.get('chunks')} chunks)")
 
     cases = []
     for tag in ("blog", "rmat"):
@@ -2805,6 +2952,7 @@ def main(argv=None) -> int:
     say("== phase 3: kernels B1, B2 against their plain version")
     cases, blog_items = phase_kernels(dev, report)
     large = phase_kernels_large(dev, report)
+    seg_large = phase_kernels_seg_large(dev, report)
 
     say("== phase 4: kernel B3 against its plain version")
     tree_cases = phase_tree_kernel(dev, report)
@@ -2817,6 +2965,9 @@ def main(argv=None) -> int:
         write_edgelist(path, blog_shaped_edges())
         launches = run_main_path(dev, path, BLOG_NODES, ["kahan", "fast", "fast16"],
                                  report, "blog", "panel")
+        say("== phase 5b: main path, simrank --relabel rcm --seg 2 (blog-shaped graph)")
+        seg_launches = run_main_path(dev, path, BLOG_NODES, ["kahan", "fast16"], report,
+                                     "blog_seg2_rcm", "panel", seg=2)
 
         say("== phase 6: skewed degrees (R-MAT)")
         path = os.path.join(tmp, "rmat.txt")
@@ -2829,7 +2980,8 @@ def main(argv=None) -> int:
         write_edgelist(path, arxiv_shaped_edges())
         arxiv = run_arxiv_path(dev, path, report)
     for k in launches:
-        launches[k] += more[k] + arxiv[k]
+        check(seg_launches[k] > 0, f"kernel {k} was never launched on the seg-2 path")
+        launches[k] += seg_launches[k] + more[k] + arxiv[k]
         check(launches[k] > 0, f"kernel {k} was never launched on the main path")
 
     say("== phase 7: tree path (exact_simrank_spmm impl='tree')")
@@ -2911,7 +3063,7 @@ def main(argv=None) -> int:
         work = bounds.spmv_work(blog_items, 1, BLOG_NODES, BLOG_NODES, 4, kernel, pin=True,
                                 multiply=kernel == "kahan")
         x = entry(label, SOURCE, REPLACES[kernel], kernel,
-                  [c["max_abs_err_plain"] for c in mine + large
+                  [c["max_abs_err_plain"] for c in mine + large + seg_large
                    if c["kernel"] == kernel and c["dtype"] == "float32"], timed, work,
                   next(c for c in cases if c["case"] == lib)["library_ms"])
         # C = V on R-MAT 14 and the arxiv shape: the pinned f32 product in the
@@ -2921,6 +3073,20 @@ def main(argv=None) -> int:
                   for k in ("design", "ms", "row_tiles_ms", "plain_ms", "bound_ms", "bound_by")}
             | {"library_ms": next(c for c in large if c["case"] == f"{tag}_{lib}")["library_ms"]}
             for tag in ("rmat", "arxiv")}
+        # the same pinned product over RCM blog's seg-2 stream (the column
+        # panel's seg-k walk, launched on phase 5b's path) beside the row
+        # tiles, and over R-MAT's and the arxiv shape's (row tiles)
+        seg = next(c for c in cases if c["case"] == f"{kernel}_seg2_rcm_pin")
+        x["seg2_rcm"] = {k: seg[k] for k in ("design", "ms", "row_tiles_ms", "plain_ms",
+                                              "bound_ms", "bound_by")} | {
+            "launches": seg_launches[kernel],
+            "library_ms": next(c for c in cases if c["case"] == f"{kernel}_seg2_rcm")["library_ms"]}
+        for tag in ("rmat", "arxiv"):
+            mine = {c["case"]: c for c in seg_large if c["graph"] == tag}
+            pinned = mine[f"{tag}_seg2_rcm_{pick}"]
+            x["shapes"][f"{tag}_seg2_rcm"] = {k: pinned[k] for k in (
+                "design", "ms", "plain_ms", "bound_ms", "bound_by")} | {
+                "library_ms": mine[f"{tag}_seg2_rcm_{lib}"]["library_ms"]}
         summary.append(x)
     level0, level1 = tree_cases[0], tree_cases[1]  # the largest level, first column block
     t0 = report["tree_level0"]

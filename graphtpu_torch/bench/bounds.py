@@ -23,20 +23,40 @@ def bound(nbytes: float, ops: float) -> Tuple[float, str]:
 
 
 def spmv_work(n_items: int, seg_k: int, v: int, c: int, itemsize: int, mode: str,
-              pin: bool, multiply: bool) -> Tuple[float, float]:
+              pin: bool, multiply: bool, n_terms: int = None) -> Tuple[float, float]:
     """(bytes, operations) of one B1/B2 product over an item stream.
 
     Bytes: the table's V rows, the [V+1, C] output, and per item its slot
-    and seg_k weights (B2 also its scale), plus the row offsets.  Per item
-    and column: the pin's scale (when fused) and the weight multiply (B1
-    always, B2 unless the stream is uniform) for each of the seg_k rows,
-    seg_k - 1 adds joining them, and the row sum: 4 operations of a Kahan
-    update (B1) or 1 add (B2)."""
+    and seg_k weights (B2 also its scale), plus the row offsets.  Per
+    column: for each of the ``n_terms`` sub-rows with a nonzero coefficient
+    (default: every item's seg_k; :func:`stream_terms`) the pin's scale
+    (when fused) and the weight multiply (B1 always, B2 where ``multiply``),
+    the adds joining an item's terms (n_terms - n_items), and per item the
+    row sum: 4 operations of a Kahan update (B1) or 1 add (B2)."""
     kahan = mode == "kahan"
+    n_terms = n_items * seg_k if n_terms is None else n_terms
     nbytes = (v + v + 1) * c * itemsize + n_items * 4 * (1 + seg_k + (0 if kahan else 1))
     nbytes += (v + 2) * 8
-    per = seg_k * (int(pin) + int(kahan or multiply)) + (seg_k - 1) + (4 if kahan else 1)
-    return float(nbytes), float(n_items) * c * per
+    ops = (n_terms * (int(pin) + int(kahan or multiply)) + (n_terms - n_items)
+           + n_items * (4 if kahan else 1))
+    return float(nbytes), float(ops) * c
+
+
+def stream_terms(stream) -> int:
+    """The terms of an item stream: its items (seg-1), or its real items'
+    sub-rows with a nonzero raw coefficient (seg-k)."""
+    if stream.seg_k == 1:
+        return stream.n_items
+    return int((stream.raw_wts[: stream.n_items * stream.seg_k] != 0).sum().item())
+
+
+def stream_work(stream, c: int, itemsize: int, mode: str, pin: bool) -> Tuple[float, float]:
+    """:func:`spmv_work` of ``stream`` at ``c`` columns: B2 multiplies
+    only where a raw coefficient may differ from 1 (neither a uniform seg-1
+    nor a mask-uniform seg-k stream)."""
+    masks = stream.uniform if stream.seg_k == 1 else stream.mask_uniform
+    return spmv_work(stream.n_items, stream.seg_k, stream.n_nodes, c, itemsize, mode, pin,
+                     multiply=mode == "kahan" or not masks, n_terms=stream_terms(stream))
 
 
 def gather_work(m: int, w: int, c: int, table_rows: int, itemsize: int) -> Tuple[float, float]:

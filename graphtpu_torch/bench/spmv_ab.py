@@ -13,10 +13,12 @@ unpacked into a git-ignored directory.  The script builds it with nvcc
 and, at the shapes the main path gives the kernels (C = V, seed 0; f32 and
 bf16 tables, with and without the fused pin) on the blog-shaped graph (V =
 10,496), R-MAT 14 (V = 16,384) and the arxiv shape (V = 38,912), on V =
-60,000 at C = 8,192, and on the blog-shaped graph's other streams (seg-2
-after an RCM relabel, as ``--relabel rcm --seg 2`` runs it, and random
-edge weights), runs the old build in the design it gives the stream (the
-column panel where the stream has its sliced layout, else row tiles) and
+60,000 at C = 8,192, on the blog-shaped graph's other streams (after an
+RCM relabel its seg-1, seg-2 and seg-4 streams, as ``--relabel rcm --seg
+k`` runs them, and random edge weights) and on the seg-2 streams of R-MAT
+14 and the arxiv shape after RCM, runs the old build in the design it
+gives the stream (the column panel where a seg-1 stream has its sliced
+layout, else row tiles) and
 the new build in the design ``spmv`` gives it and, with ``--force``, also
 as the L2 column tiles on every seg-1 stream that has another design and
 as the packed-lane panel on every uniform seg-1 stream of V <= 16,384
@@ -26,8 +28,9 @@ times old, new, new, old with CUDA events (the median of 9 launches each)
 and counts the elements where the new output differs from the old one,
 all and on rows of at most SELL_HUB items (expected 0 there: the same
 operations in the same order).  Each unpinned case also times one
-``torch.sparse.mm`` of the folded P (its CSR, in the table's dtype) on
-the same table, and ``--plain`` times the plain PyTorch version of each
+``torch.sparse.mm`` of the folded P (its CSR, ``timing.stream_csr``, in
+the table's dtype) on the same table, and ``--plain`` times the plain
+PyTorch version of each
 case once (the median of 3).  ``--only`` takes a comma list of stream tags
 (TAGS).
 """
@@ -68,6 +71,17 @@ CASES = (  # stream, mode, dtype, table_scale
     ("blog_seg2_rcm", "fast", torch.float32, 0.6),
     ("blog_seg2_rcm", "fast", torch.bfloat16, 0.6),
     ("blog_seg2_rcm", "fast", torch.bfloat16, None),
+    ("blog_seg2_rcm", "kahan", torch.float32, None),
+    ("blog_seg2_rcm", "fast", torch.float32, None),
+    ("blog_rcm", "kahan", torch.float32, 0.6),
+    ("blog_rcm", "fast", torch.float32, 0.6),
+    ("blog_rcm", "fast", torch.bfloat16, 0.6),
+    ("blog_rcm", "kahan", torch.float32, None),
+    ("blog_rcm", "fast", torch.float32, None),
+    ("blog_rcm", "fast", torch.bfloat16, None),
+    ("blog_seg4_rcm", "kahan", torch.float32, 0.6),
+    ("blog_seg4_rcm", "fast", torch.float32, 0.6),
+    ("blog_seg4_rcm", "fast", torch.bfloat16, None),
     ("blog_weighted", "kahan", torch.float32, 0.6),
     ("blog_weighted", "fast", torch.float32, 0.6),
     ("rmat", "kahan", torch.float32, 0.6),
@@ -86,8 +100,12 @@ CASES = (  # stream, mode, dtype, table_scale
     ("v60000", "fast", torch.float32, 0.6),
     ("v60000", "kahan", torch.float32, None),
     ("v60000", "fast", torch.float32, None),
-)
-TAGS = ("blog", "blog_seg2_rcm", "blog_weighted", "rmat", "arxiv", "v60000")
+) + tuple((tag, mode, dtype, ts) for tag in ("rmat_seg2_rcm", "arxiv_seg2_rcm")
+          for mode, dtype in (("kahan", torch.float32), ("fast", torch.float32),
+                              ("fast", torch.bfloat16))
+          for ts in (0.6, None))
+TAGS = ("blog", "blog_rcm", "blog_seg2_rcm", "blog_seg4_rcm", "blog_weighted", "rmat", "arxiv",
+        "v60000", "rmat_seg2_rcm", "arxiv_seg2_rcm")
 COLS = {"v60000": 8192}  # table columns where not C = V
 
 
@@ -131,12 +149,17 @@ def make_stream(tag, dev):
     from graphtpu_torch import build_graph
     from graphtpu_torch.core.reorder import rcm_order, relabel_graph
 
+    def rcm(g):
+        return relabel_graph(g, rcm_order(g))[0]
+
     if tag == "blog":
         return spmm.build_spmv_stream(blog_shaped_graph(), device=dev)
-    if tag == "blog_seg2_rcm":
-        blog = blog_shaped_graph()
-        rcm, _ = relabel_graph(blog, rcm_order(blog))
-        return spmm.build_spmv_segments(rcm, k=2, device=dev)
+    seg = {"blog_rcm": 1, "blog_seg2_rcm": 2, "blog_seg4_rcm": 4}
+    if tag in seg:
+        return spmm.build_spmv_segments(rcm(blog_shaped_graph()), k=seg[tag], device=dev)
+    if tag in ("rmat_seg2_rcm", "arxiv_seg2_rcm"):
+        g = rmat14_graph() if tag.startswith("rmat") else arxiv_shaped_graph()
+        return spmm.build_spmv_segments(rcm(g), k=2, device=dev)
     if tag == "blog_weighted":
         edges = blog_shaped_edges()
         wts = (np.random.default_rng(0).random(len(edges)) + 0.1).astype(np.float32)
@@ -194,8 +217,10 @@ def main(argv=None) -> dict:
         rows = []
         for tag in tags:
             stream = make_stream(tag, dev)
-            # the old build: the column panel where the stream has its layout, else row tiles
-            old_st = stream if stream.sell is not None else spmm.row_tiles(stream)
+            # the old build: the column panel where a seg-1 stream has its
+            # layout, else row tiles
+            old_st = (stream if stream.sell is not None and stream.seg_k == 1
+                      else spmm.row_tiles(stream))
             runs = variants(stream, args.force, args.hot)
             v = stream.n_nodes
             c = COLS.get(tag, v)
@@ -218,10 +243,8 @@ def main(argv=None) -> dict:
                 if args.plain:
                     plain_ms = cuda_ms(lambda: spmm.spmv_plain(stream, table, mode, ts),
                                        warmup=1, runs=3)
-                bound_ms, bound_by = bounds.bound(*bounds.spmv_work(
-                    stream.n_items, stream.seg_k, v, c, table.element_size(), mode,
-                    pin=ts is not None,
-                    multiply=mode == "kahan" or not (stream.uniform and stream.seg_k == 1)))
+                bound_ms, bound_by = bounds.bound(*bounds.stream_work(
+                    stream, c, table.element_size(), mode, ts is not None))
                 labels = set()
                 for name, st in runs:
                     label = name or spmm.spmv_design(st, dtype)

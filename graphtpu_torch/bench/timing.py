@@ -34,15 +34,19 @@ def cuda_ms(fn, warmup: int = 2, runs: int = 9) -> float:
 
 
 def stream_csr(plan, weights) -> torch.Tensor:
-    """An item stream's P as a [V, V] CSR over ``weights`` (one per item;
-    rows < V, the pad row dropped): the operand of the ``torch.sparse.mm``
-    yardstick of B1/B2 and X3."""
-    v = plan.n_nodes
-    pos, slots = plan.pos.long(), plan.slots.long()
-    keep = pos < v
-    w = weights.view(-1)[: pos.numel()][keep]
-    crow = torch.searchsorted(pos[keep], torch.arange(v + 1, device=pos.device))
-    return torch.sparse_csr_tensor(crow, slots[keep], w, (v, v))
+    """An item stream's P as a [V, V] CSR over ``weights`` (``seg_k`` a
+    stream item, as the stream's ``wts``): one entry per sub-row j of item t
+    with a nonzero weight, at column ``slots[t] + j`` (rows < V, the pad
+    row dropped).  The operand of the ``torch.sparse.mm`` yardstick of
+    B1/B2 and X3."""
+    v, k = plan.n_nodes, plan.seg_k
+    t = plan.slots.numel()
+    w = weights.reshape(-1)[: t * k].view(t, k)
+    cols = plan.slots.long()[:, None] + torch.arange(k, device=w.device)
+    rows = plan.pos.long()[:, None].expand(t, k)
+    keep = (rows < v) & (w != 0)
+    crow = torch.searchsorted(rows[keep], torch.arange(v + 1, device=w.device))
+    return torch.sparse_csr_tensor(crow, cols[keep], w[keep], (v, v))
 
 
 def busy_ms_of(events) -> float:

@@ -12,25 +12,40 @@
 // SimRank scale-and-diagonal-pin is fused in (pin != 0), else f(x) = x.
 // B1 multiplies by the folded weights and Kahan-sums; B2 multiplies by the
 // raw weights (or not at all for a uniform K == 1 stream), sums plainly and
-// scales the row once by its first item's scale.  Rows with no items are
-// written as zeros; out has V+1 rows (row V takes the stream's pad items).
+// scales the row once by its first item's scale.  An item's K terms are
+// summed in f32 in j order and the item's sum joins the row sum (one Kahan
+// update for B1), graphtpu's order (spmm.py:484-495).  Rows with no items
+// are written as zeros; out has V+1 rows (row V takes the stream's pad
+// items).
 //
 // Four designs, chosen on the host by the caller's stream
 // (kernels/spmm.py:design_rule):
 //
-// The column panel (spmv_panel), for a uniform K == 1 stream whose V rows
-// of 16 bytes fit one block's shared memory (V <= 11,448, kernels/spmm.py:
-// sell_fits), passed with its sliced layout.  Block b owns a slab of 16
+// The column panel (spmv_panel), for a uniform K == 1 stream, or a K = 2 or
+// 4 stream whose coefficients are masks of one value a row (an unweighted
+// graph's: kernels/spmm.py:panel_stream), whose V rows of 16 bytes fit one
+// block's shared memory (V <= 11,448, kernels/spmm.py:sell_fits), passed
+// with its sliced layout.  Block b owns a slab of 16
 // bytes of every table row (4 f32 or 8 bf16 columns) and copies
 // table[0:V, slab] into shared memory once, so every row an item reads is a
 // shared-memory read, not an L2 request.  It walks the whole stream in the
 // sliced order of kernels/spmm.py:build_sell_layout: lane l of a consumer
-// warp owns one output row and walks that row's items in stream order, so
-// B1's Kahan order, and its bits, are those of the row tiles.  Rows longer
-// than the hub threshold are cut into pieces whose items a whole warp takes
-// lane-strided; the lanes' sums are combined in a fixed lane order (TwoSum
-// for B1), and a row's pieces in a fixed order at the end.  The stream is
-// 16-bit slots only (a uniform stream's weight is one value per row), fed
+// warp owns one output row and walks that row's positions in stream order,
+// so B1's Kahan order, and its bits, are those of the row tiles.  A
+// position is an item of a K == 1 stream, or a sub-row of a K > 1 item
+// whose coefficient is nonzero (a masked one adds w * 0 = 0 to its item's
+// sum, so leaving it out changes no bit of a finite table): the walk reads
+// what the K == 1 stream of the same graph reads.  In a K > 1 layout bit
+// 15 of a position's 16-bit entry marks the end of its item, and the walk
+// (SEG) adds each term into its item's partial and, at the end, the
+// partial into the row sum, the row tiles' order; a K == 1 layout's
+// entries are bare rows, each its own item (with the bit set and masked
+// off, the bf16 pinned K == 1 panel ran 3-5% slower, PERF.md).  Rows longer
+// than the hub threshold are cut into pieces whose positions a whole warp
+// takes lane-strided, each position its own term; the lanes' sums are
+// combined in a fixed lane order (TwoSum for B1), and a row's pieces in a
+// fixed order at the end.  The stream is 16-bit entries only (the weight
+// is one value per row), fed
 // in 16 KB chunks by bulk copies (TMA) through a ring of three shared-
 // memory stages, under full and consumed barriers (csrc/panel.cuh).  Each
 // output row's slab segment is written once, with no atomics: the same bits
@@ -83,13 +98,16 @@
 // warps an SM (its launch bound: 3 blocks of 8), not HBM: 6.7-7.4 ms at
 // the arxiv shape against 3.6 ms for its bytes (PERF.md).
 //
-// Row tiles (spmv_rows), for every other stream (seg-2/4, bf16 tables
-// outside the panels, streams whose reads spread past the panel's rows):
+// Row tiles (spmv_rows), for every other stream (weighted seg-2/4 streams
+// and seg-2/4 streams past the panel, bf16 tables outside the panels,
+// streams whose reads spread past the panel's rows):
 // one block per (output row, 1,024-column tile, 2,048 for bf16 seg-1
 // tables, whose threads read 8 columns in one 16-byte load), reading table
 // rows from L2.  Where the panels or the L2 column tiles run, they were
-// measured faster; a panel over int32 slots and per-item weights (seg-2,
-// weighted), or with a slab narrower than 16 bytes or several panels, the
+// measured faster; a panel over int32 slots and K per-item weights, which
+// read every masked sub-row (seg-2, weighted; the seg-k walk above reads
+// 16-bit entries of the nonzero sub-rows only, one weight a row), or with
+// a slab narrower than 16 bytes or several panels, the
 // sliced layout over hot rows (R-MAT), the L2 column tiles over seg-2,
 // bf16 or R-MAT streams, 16-byte bf16 row tiles over seg-2 streams, and,
 // for the packed layout, a per-lane flush at each row's end, 8-position
@@ -310,6 +328,15 @@ constexpr int kChunk = kWarps * 32 * kJb;      // positions per chunk (SELL_CHUN
 constexpr uint32_t kChunkBytes = kChunk * 2;   // 16 KB of 16-bit slots
 constexpr int kStages = 3;                     // ring stages (SELL_STAGES)
 constexpr int kBlock = gt::kPanelBlock;        // + one producer warp
+constexpr int kEnd = 0x8000;                   // SELL_END: the position ends its item
+constexpr int kRow = 0x3fff;                   // SELL_ROW: the entry's table row
+
+// An entry's table row: a K == 1 layout's entries are bare rows (every
+// position ends its item), a K > 1 layout's carry the end bit.
+template <bool SEG>
+__device__ __forceinline__ int table_row(int entry) {
+  return SEG ? (entry & kRow) : entry;
+}
 
 // out[row, col0 : col0 + SC] = x (columns >= c masked)
 template <typename T>
@@ -386,15 +413,17 @@ __device__ void hub_rows_out(const Layout& L, T* __restrict__ out, int64_t col0,
   }
 }
 
-// The column panel over a uniform K == 1 stream: B1 weighs each item by its
+// The column panel over a sliced layout: B1 weighs each position by its
 // row's folded weight, B2 sums unweighted and scales the row at the end
 // (SCALE), X3 sums unweighted and unscaled, X1 takes the max (OP).  UNR
-// items' panel rows are read before they are summed.  X2 (Op::kBuf) reads
-// `table` as its [16, C] buffer and keeps each lane's 16 weighted buffer
-// rows in registers, so that its items touch no memory; UNR is then how
-// many of them run between two checks that a lane of the warp still has
-// one.
-template <typename T, bool KAHAN, bool PIN, int UNR, bool SCALE, Op OP = Op::kSum>
+// positions' panel rows are read before they are summed.  SEG: a K > 1
+// layout, whose items' terms are summed in a partial that joins the row sum
+// where an entry has the end bit (B1, B2).  X2 (Op::kBuf) reads `table` as
+// its [16, C] buffer and keeps each lane's 16 weighted buffer rows in
+// registers, so that its items touch no memory; UNR is then how many of
+// them run between two checks that a lane of the warp still has one.
+template <typename T, bool KAHAN, bool PIN, int UNR, bool SCALE, Op OP = Op::kSum,
+          bool SEG = false>
 __global__ void __launch_bounds__(kBlock, 1)
 spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int64_t v,
            int64_t c, float table_scale, int vec) {
@@ -404,6 +433,7 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
   static_assert(OP == Op::kSum || !(KAHAN || PIN || SCALE),
                 "X1 and X2 take no Kahan sums, pin or row scale");
   static_assert(OP != Op::kBuf || sizeof(T) == 4, "X2's buffer is f32");
+  static_assert(!SEG || OP == Op::kSum, "X1-X3 take K == 1 layouts");
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // stage holds a chunk
@@ -447,7 +477,7 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
 
   // chunks run super-slice by super-slice, j-block by j-block; this warp's
   // unit of the next super-slice is read one super-slice ahead
-  float sum[SC], comp[SC];
+  float sum[SC], comp[SC], part[SC];  // part: the item's sum so far (SEG)
   // X2: lane l holds buffer row l mod 16 (read once), and p[jj] the term of
   // item jj in every chunk of the lane's row
   float mine[SC], p[OP == Op::kBuf ? kJb : 1][SC];
@@ -470,7 +500,7 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
 #pragma unroll
       for (int e = 0; e < SC; ++e) {
         sum[e] = OP == Op::kMax ? -__int_as_float(0x7f800000) : 0.f;  // -inf for a max
-        comp[e] = 0.f;
+        comp[e] = part[e] = 0.f;
       }
       if constexpr (OP == Op::kBuf) {
         // item jj of this lane's j-block b is stream item base + step * (b *
@@ -504,27 +534,49 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
 #pragma unroll 1
       for (int g = 0; g < kJb; g += UNR) {
         if (!__any_sync(0xffffffffu, g < n)) break;
-        // every position of the chunk holds a slot (pads: 0), so the loads
-        // need no branch; pads are masked out of the sums
+        // every entry of the chunk names a table row (pads: 0), so the
+        // loads need no branch; pads are masked out of the sums
         int slot[UNR];
         float x[UNR][SC];
 #pragma unroll
         for (int q = 0; q < UNR; ++q) slot[q] = sl[(g + q) * 32 + lane];
 #pragma unroll
         for (int q = 0; q < UNR; ++q)
-          unpack<T>(*reinterpret_cast<const uint4*>(panel + slot[q] * kSlab), x[q]);
+          unpack<T>(*reinterpret_cast<const uint4*>(panel + table_row<SEG>(slot[q]) * kSlab),
+                    x[q]);
 #pragma unroll
         for (int q = 0; q < UNR; ++q) {
           const bool ok = g + q < n;
           float val[SC];
 #pragma unroll
           for (int e = 0; e < SC; ++e) val[e] = PIN ? __fmul_rn(table_scale, x[q][e]) : x[q][e];
-          // the pin's column lies in this slab for few items
-          const int diag = slot[q] - (int)col0;
+          // the pin's column lies in this slab for few positions
+          const int diag = table_row<SEG>(slot[q]) - (int)col0;
           if (PIN && (unsigned)diag < (unsigned)SC) {
 #pragma unroll
             for (int e = 0; e < SC; ++e)
               if (e == diag) val[e] = 1.f;
+          }
+          if constexpr (SEG) {
+            // the term joins its item's partial; at the item's end the
+            // partial joins the row sum and starts again
+            const bool end = ok && (slot[q] & kEnd);
+#pragma unroll
+            for (int e = 0; e < SC; ++e) {
+              const float term = KAHAN ? __fmul_rn(val[e], rw) : val[e];
+              part[e] = ok ? __fadd_rn(part[e], term) : part[e];
+              if (KAHAN) {
+                const float y = __fsub_rn(part[e], comp[e]);
+                const float t = __fadd_rn(sum[e], y);
+                const float cn = __fsub_rn(__fsub_rn(t, sum[e]), y);
+                sum[e] = end ? t : sum[e];
+                comp[e] = end ? cn : comp[e];
+              } else {
+                sum[e] = end ? __fadd_rn(sum[e], part[e]) : sum[e];
+              }
+              part[e] = end ? 0.f : part[e];
+            }
+            continue;
           }
 #pragma unroll
           for (int e = 0; e < SC; ++e) {
@@ -608,11 +660,12 @@ spmv_panel(const GtSell L, const T* __restrict__ table, T* __restrict__ out, int
   hub_rows_out<T, KAHAN, SCALE, OP>(L, out, col0, c, vec_here);
 }
 
-template <typename T, bool KAHAN, bool PIN, int UNR, bool SCALE, Op OP = Op::kSum>
+template <typename T, bool KAHAN, bool PIN, int UNR, bool SCALE, Op OP = Op::kSum,
+          bool SEG = false>
 int launch_panel(const GtSell& L, const T* table, T* out, int64_t v, int64_t c,
                  float table_scale, cudaStream_t stream) {
   constexpr int SC = kSlab / sizeof(T);
-  auto kernel = spmv_panel<T, KAHAN, PIN, UNR, SCALE, OP>;
+  auto kernel = spmv_panel<T, KAHAN, PIN, UNR, SCALE, OP, SEG>;
   if (L.n_chunks <= 0 || L.n_ss <= 0 || (L.n_pieces > 0 && L.hub_acc == nullptr))
     return (int)cudaErrorInvalidValue;
   // X2 reads no panel, so it runs over a layout whose table does not fit one
@@ -631,16 +684,20 @@ int launch_panel(const GtSell& L, const T* table, T* out, int64_t v, int64_t c,
   return (int)cudaGetLastError();
 }
 
-// the pin is a template argument: unpinned products issue none of its work;
-// B1 keeps 8 items in flight, B2 8 at f32 and 4 at bf16 (8 columns each)
-template <typename T, bool KAHAN>
+// the pin and the seg-k walk are template arguments: unpinned products and
+// K == 1 layouts issue none of their work; B1 keeps 8 positions in flight,
+// B2 8 at f32 and 4 at bf16 (8 columns each)
+template <typename T, bool KAHAN, bool SEG>
 int launch_panel_pin(const GtSell& L, const void* table, void* out, int64_t v, int64_t c,
                      int pin, float table_scale, cudaStream_t stream) {
   constexpr int UNR = sizeof(T) == 2 ? 4 : 8;
   const T* tb = static_cast<const T*>(table);
   T* ob = static_cast<T*>(out);
-  if (pin) return launch_panel<T, KAHAN, true, UNR, !KAHAN>(L, tb, ob, v, c, table_scale, stream);
-  return launch_panel<T, KAHAN, false, UNR, !KAHAN>(L, tb, ob, v, c, table_scale, stream);
+  if (pin)
+    return launch_panel<T, KAHAN, true, UNR, !KAHAN, Op::kSum, SEG>(L, tb, ob, v, c,
+                                                                    table_scale, stream);
+  return launch_panel<T, KAHAN, false, UNR, !KAHAN, Op::kSum, SEG>(L, tb, ob, v, c, table_scale,
+                                                                   stream);
 }
 
 // The packed-lane panel over a uniform K == 1 stream (kernels/spmm.py:
@@ -1095,7 +1152,9 @@ int launch_tiles(const int32_t* slots, const float* wts, const float* scales,
   return (int)cudaGetLastError();
 }
 
-// the panel where the caller passes a layout (uniform seg-1 streams), else row tiles
+// the panel where the caller passes a layout, else row tiles; a K == 1
+// layout's stream is uniform (mul == 0), a K = 2 or 4 layout holds the
+// sub-rows whose raw coefficient is 1 (kernels/spmm.py:panel_stream)
 template <typename T, bool KAHAN>
 int launch(const int32_t* slots, const float* wts, const float* scales,
            const int64_t* row_items, const GtSell* sell, const void* table, void* out,
@@ -1105,8 +1164,11 @@ int launch(const int32_t* slots, const float* wts, const float* scales,
   if (sell == nullptr)
     return launch_rows<T, KAHAN>(slots, wts, scales, row_items, table, out, v + 1, c, seg_k,
                                  pin, table_scale, mul, stream);
-  if (seg_k != 1 || mul) return (int)cudaErrorInvalidValue;
-  return launch_panel_pin<T, KAHAN>(*sell, table, out, v, c, pin, table_scale, stream);
+  if (seg_k == 1 && !mul)
+    return launch_panel_pin<T, KAHAN, false>(*sell, table, out, v, c, pin, table_scale, stream);
+  if (seg_k == 2 || seg_k == 4)
+    return launch_panel_pin<T, KAHAN, true>(*sell, table, out, v, c, pin, table_scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1137,7 +1199,7 @@ int sell_raw_sums_f32(const GtSell& L, const float* table, float* out, int64_t v
 extern "C" {
 
 // B1: out[V+1, C] f32 = Kahan row sums of folded-weight items; `sell` is the
-// stream's sliced layout (the panel) or null (row tiles).
+// stream's sliced layout (the panel; K = 1, 2 or 4) or null (row tiles).
 int gt_spmv_kahan_f32(const int32_t* slots, const float* wts, const int64_t* row_items,
                       const GtSell* sell, const float* table, float* out, int64_t v, int64_t c,
                       int seg_k, int pin, float table_scale, cudaStream_t stream) {
@@ -1147,7 +1209,8 @@ int gt_spmv_kahan_f32(const int32_t* slots, const float* wts, const int64_t* row
 
 // B2: out[V+1, C] in the table's dtype (f32, or bf16 when bf16 != 0) =
 // plain f32 row sums of raw-weight items (unweighted when mul == 0) times
-// the row's first-item scale; `sell` as for B1 (the panel takes mul == 0).
+// the row's first-item scale; `sell` as for B1 (the panel takes mul == 0 at
+// K == 1).
 int gt_spmv_fast(const int32_t* slots, const float* raw_wts, const float* scales,
                  const int64_t* row_items, const GtSell* sell, const void* table, void* out,
                  int64_t v, int64_t c, int seg_k, int pin, float table_scale, int mul, int bf16,

@@ -66,12 +66,20 @@ def sell_fits(v: int) -> bool:
     return v * 16 <= room
 
 
+def panel_stream(stream: "SpmvStream") -> bool:
+    """Whether the column panel's sliced layout takes ``stream``'s
+    coefficients: a uniform seg-1 stream, or a seg-2 or seg-4 stream that
+    is :attr:`SpmvStream.mask_uniform`."""
+    if stream.seg_k == 1:
+        return stream.uniform
+    return stream.seg_k in (2, 4) and stream.mask_uniform
+
+
 def runs_panel(stream: "SpmvStream") -> bool:
     """Whether B1/B2 run ``stream`` as the column panel over every table
-    row on the card: a uniform seg-1 stream (every item of a row has the
-    row's weight) of 1 <= V rows that fit :func:`sell_fits`."""
-    return (stream.seg_k == 1 and stream.uniform and stream.n_nodes >= 1
-            and sell_fits(stream.n_nodes))
+    row on the card: a :func:`panel_stream` of 1 <= V rows that fit
+    :func:`sell_fits`."""
+    return panel_stream(stream) and stream.n_nodes >= 1 and sell_fits(stream.n_nodes)
 
 
 def spmv_design(stream: "SpmvStream", dtype=torch.float32) -> str:
@@ -88,37 +96,54 @@ def spmv_design(stream: "SpmvStream", dtype=torch.float32) -> str:
     return "tiles" if stream.tiles is not None and dtype == torch.float32 else "rows"
 
 
+# A slot entry of the sliced layout: the table row in bits 0-13 (V <=
+# 11,448 < 2^14) and, in a seg-k layout, SELL_END where the position ends
+# its segment.
+SELL_END = 0x8000
+SELL_ROW = 0x3FFF
+
+
 @dataclasses.dataclass(frozen=True)
 class SellLayout:
-    """A uniform seg-1 item stream in the sliced order kernels B1/B2 walk
-    as the column panel (SELL-32-σ).
+    """A :func:`panel_stream` in the sliced order kernels B1/B2 walk as the
+    column panel (SELL-32-σ).
 
-    Output rows with at most ``SELL_HUB`` items are lane rows: sorted by
-    item count within windows of ``SELL_SIGMA`` rows and dealt 32 to a
-    *unit*, lane l walking its own row's items in stream order.  Longer
-    rows are hub rows, cut into *pieces* of up to 32·``SELL_HUB`` items;
-    a piece is a unit whose lane l takes items l, l+32, ... of the piece.
-    Units are grouped ``SELL_WARPS`` to a super-slice (hub pieces first,
-    longest first, then the lane units in order); super-slice s spans
-    ``ss_chunks[s]`` chunks, the j-blocks b = 0, 1, ... of its items: in
-    chunk c, position ``c·SELL_CHUNK + (w·SELL_JB + jj)·32 + l`` is item
-    ``SELL_JB·b + jj`` of lane l of unit ``s·SELL_WARPS + w``.
+    The walk's *positions* are the stream's table rows in stream order:
+    every item of a seg-1 stream; of a seg-k stream, the sub-rows (item t,
+    then j) whose coefficient is nonzero, row ``slots[t] + j``.  A
+    segment's last position ends it: every position of a seg-1 stream.
 
-    ``item[p]`` is the stream item at position p (-1 for a pad) and
-    ``slots[p]`` its slot (pads: 0).  ``lane_row``/``lane_cnt`` give each
-    lane its output row (-1 none) and item count, ``lane_base`` the stream
-    index of its first item (0 for a lane with none): item j of a lane is
-    ``lane_base + j`` (lane rows) or ``lane_base + 32·j`` (hub pieces).
-    ``unit_hub[u]`` is a hub
-    unit's piece index, -1 for lane rows.  Hub row ``hub_rows[h]`` sums
-    pieces ``hub_piece[h] .. hub_piece[h+1]`` in that order.
-    ``row_wts[r]`` and ``row_scale[r]`` are row r's first folded weight
-    (B1) and first scale (B2), 0 for a row with no items; in a uniform
-    stream every item of a row has them.  ``host_ms``: host time of the
-    build.
+    Output rows with at most ``SELL_HUB`` positions are lane rows: sorted
+    by position count within windows of ``SELL_SIGMA`` rows and dealt 32
+    to a *unit*, lane l walking its own row's positions in stream order.
+    Longer rows are hub rows, cut into *pieces* of up to 32·``SELL_HUB``
+    positions; a piece is a unit whose lane l takes positions l, l+32, ...
+    of the piece.  Units are grouped ``SELL_WARPS`` to a super-slice (hub
+    pieces first, longest first, then the lane units in order); super-slice
+    s spans ``ss_chunks[s]`` chunks, the j-blocks b = 0, 1, ... of its
+    positions: in chunk c, entry ``c·SELL_CHUNK + (w·SELL_JB + jj)·32 + l``
+    is position ``SELL_JB·b + jj`` of lane l of unit ``s·SELL_WARPS + w``.
+
+    ``slots[p]`` is entry p: the position's table row (``SELL_ROW`` bits)
+    and, in a seg-k layout, ``SELL_END`` where it ends its segment and on
+    every position of a hub piece, whose lanes split segments (a seg-1
+    layout's entries are bare rows, each position its own segment; pads:
+    0).
+    ``item[p]`` is the position's coefficient index t·k + j (the item t of
+    a seg-1 stream; -1 for a pad).  ``lane_row``/``lane_cnt`` give each
+    lane its output row (-1 none) and position count, ``lane_base`` the
+    index of its first position in stream order (0 for a lane with none;
+    for a seg-1 stream the stream index of its first item): position j of
+    a lane is ``lane_base + j`` (lane rows) or ``lane_base + 32·j`` (hub
+    pieces).  ``unit_hub[u]`` is a hub unit's piece index, -1 for lane
+    rows.  Hub row ``hub_rows[h]`` sums pieces ``hub_piece[h] ..
+    hub_piece[h+1]`` in that order.  ``row_wts[r]`` is row r's first
+    nonzero folded coefficient (B1) and ``row_scale[r]`` its first item's
+    scale (B2), 0 for a row with no positions; every position of a row has
+    them.  ``host_ms``: host time of the build.
     """
 
-    slots: torch.Tensor      # int16[NC * SELL_CHUNK]
+    slots: torch.Tensor      # int16[NC * SELL_CHUNK], read as uint16
     item: torch.Tensor       # int32[NC * SELL_CHUNK]
     lane_row: torch.Tensor   # int32[NU * 32]
     lane_cnt: torch.Tensor   # int32[NU * 32]
@@ -142,18 +167,42 @@ class SellLayout:
         return dataclasses.replace(self, **move)
 
 
-def build_sell_layout(stream: "SpmvStream", hub=SELL_HUB, sigma=SELL_SIGMA) -> SellLayout:
-    """The :class:`SellLayout` of a uniform seg-1 ``stream``, on its device.
+def _walk_positions(stream: "SpmvStream"):
+    """The column panel's positions of a seg-k ``stream`` in stream order,
+    on its device: each one's entry (its table row, plus SELL_END where it
+    ends its segment) and coefficient index t·k + j, each with a pad entry
+    0 appended; and the first position of each row 0..V+1 (host
+    int64[V + 2])."""
+    k, dev = stream.seg_k, stream.slots.device
+    nz = stream.raw_wts.view(-1, k) != 0
+    coef = torch.nonzero(nz.view(-1)).squeeze(1)
+    t = coef // k
+    end = torch.ones_like(t, dtype=torch.bool)
+    end[:-1] = t[1:] != t[:-1]
+    code = stream.slots[t].long() + coef % k + torch.where(end, SELL_END, 0)
+    before = torch.zeros(nz.shape[0] + 1, dtype=torch.int64, device=dev)
+    before[1:] = nz.sum(1).cumsum(0)
+    pad = torch.zeros(1, dtype=torch.int64, device=dev)
+    return torch.cat([code, pad]), torch.cat([coef, pad]), before[stream.row_items].cpu().numpy()
 
-    The host orders rows and units from ``row_items`` (O(V) numpy work);
-    the item positions are expanded on the stream's device."""
+
+def build_sell_layout(stream: "SpmvStream", hub=SELL_HUB, sigma=SELL_SIGMA) -> SellLayout:
+    """The :class:`SellLayout` of a :func:`panel_stream`, on its device.
+
+    The host orders rows and units from the rows' position counts (O(V)
+    numpy work); the positions are found and expanded on the stream's
+    device."""
     t0 = time.perf_counter()
-    if stream.seg_k != 1 or not stream.uniform:
-        raise ValueError("the sliced layout takes a uniform seg-1 stream")
-    dev = stream.slots.device
-    row_items = stream.row_items.cpu().numpy()
-    start = row_items[:-1]
-    cnt = np.diff(row_items)                      # items of rows 0..V
+    if not panel_stream(stream):
+        raise ValueError("the sliced layout takes a uniform seg-1 stream or a mask-uniform "
+                         "seg-2 or seg-4 stream")
+    dev, k = stream.slots.device, stream.seg_k
+    if k == 1:  # a position is an item
+        p_code, p_coef, row_pos = stream.slots, None, stream.row_items.cpu().numpy()
+    else:
+        p_code, p_coef, row_pos = _walk_positions(stream)
+    start = row_pos[:-1]
+    cnt = np.diff(row_pos)                        # positions of rows 0..V
     is_hub = cnt > hub
     nw, jb = SELL_WARPS, SELL_JB
 
@@ -168,18 +217,18 @@ def build_sell_layout(stream: "SpmvStream", hub=SELL_HUB, sigma=SELL_SIGMA) -> S
     l_cnt = np.where(l_row >= 0, cnt[np.maximum(l_row, 0)], 0)
     l_base = np.where(l_row >= 0, start[np.maximum(l_row, 0)], 0)
 
-    # hub pieces, numbered row-major; lane l takes items l, l+32, ...
+    # hub pieces, numbered row-major; lane l takes positions l, l+32, ...
     hub_ids = np.flatnonzero(is_hub)
     per = 32 * hub
     n_pc = -(-cnt[hub_ids] // per)
     hub_piece = np.concatenate([[0], np.cumsum(n_pc)]).astype(np.int64)
-    p_row = np.repeat(hub_ids, n_pc)
-    p_q = np.arange(len(p_row)) - np.repeat(hub_piece[:-1], n_pc)
-    p_len = np.minimum(per, cnt[p_row] - p_q * per)
+    p_hrow = np.repeat(hub_ids, n_pc)
+    p_q = np.arange(len(p_hrow)) - np.repeat(hub_piece[:-1], n_pc)
+    p_len = np.minimum(per, cnt[p_hrow] - p_q * per)
     lane = np.arange(32)
     h_cnt = np.maximum(0, (p_len[:, None] - lane[None, :] + 31) // 32)
-    h_base = (start[p_row] + p_q * per)[:, None] + lane[None, :]
-    h_row = np.repeat(p_row[:, None], 32, 1)
+    h_base = (start[p_hrow] + p_q * per)[:, None] + lane[None, :]
+    h_row = np.repeat(p_hrow[:, None], 32, 1)
     h_ord = np.argsort(-p_len, kind="stable")
 
     # units: hub pieces (longest first), then lane units, padded to whole
@@ -196,7 +245,7 @@ def build_sell_layout(stream: "SpmvStream", hub=SELL_HUB, sigma=SELL_SIGMA) -> S
     chunk_ss = np.repeat(np.arange(n_ss), ss_chunks)
     chunk_jb = np.arange(len(chunk_ss)) - np.repeat(np.cumsum(ss_chunks) - ss_chunks, ss_chunks)
 
-    # positions [chunk, warp, jj, lane] -> stream item, on the device
+    # entries [chunk, warp, jj, lane] -> position, on the device
     def d(a, dt=torch.int64):
         return torch.as_tensor(np.asarray(a), dtype=dt).to(dev)
 
@@ -205,18 +254,29 @@ def build_sell_layout(stream: "SpmvStream", hub=SELL_HUB, sigma=SELL_SIGMA) -> S
     j = (d(chunk_jb * jb)[:, None, None, None]
          + torch.arange(jb, device=dev)[None, None, :, None])
     ln = torch.arange(32, device=dev)
-    step = d(np.where(u_hub >= 0, 32, 1))[u]
-    item = torch.where(j < d(u_cnt)[u, ln], d(u_base)[u, ln] + step * j, -1).reshape(-1)
-    slots = torch.where(item >= 0, stream.slots[item.clamp(min=0)], 0)
+    in_hub = d(u_hub >= 0, torch.bool)[u]
+    pos = torch.where(j < d(u_cnt)[u, ln], d(u_base)[u, ln] + torch.where(in_hub, 32, 1) * j,
+                      -1).reshape(-1)
+    real = pos >= 0
+    code = torch.where(real, p_code[pos.clamp(min=0)], 0)
+    if k == 1:
+        item = pos
+        first = stream.row_items[:-1].clamp(max=stream.slots.numel() - 1)
+        has = stream.row_items[1:] > stream.row_items[:-1]
+    else:
+        # a hub piece's lanes split segments: each position its own term
+        code |= torch.where(in_hub.expand(-1, -1, jb, 32).reshape(-1) & real, SELL_END, 0)
+        code -= torch.where(code >= SELL_END, 0x10000, 0)   # as int16
+        item = torch.where(real, p_coef[pos.clamp(min=0)], -1)
+        first = p_coef[d(np.minimum(start, p_coef.numel() - 1))]
+        has = d(cnt > 0, torch.bool)
 
-    first = stream.row_items[:-1].clamp(max=stream.slots.numel() - 1)
-    has = stream.row_items[1:] > stream.row_items[:-1]
-
-    def per_row(a):
-        return torch.where(has, a[first], torch.zeros((), dtype=a.dtype, device=dev))
+    def per_row(a, idx):
+        """Each row's value at its first position (0 for a row with none)."""
+        return torch.where(has, a[idx], torch.zeros((), dtype=a.dtype, device=dev))
 
     return SellLayout(
-        slots=slots.to(torch.int16),  # slots < V <= 11,448
+        slots=code.to(torch.int16),  # rows < V <= 11,448, the end bit as the sign
         item=item.to(torch.int32),
         lane_row=d(u_row.reshape(-1), torch.int32),
         lane_cnt=d(u_cnt.reshape(-1), torch.int32),
@@ -225,8 +285,8 @@ def build_sell_layout(stream: "SpmvStream", hub=SELL_HUB, sigma=SELL_SIGMA) -> S
         ss_chunks=d(ss_chunks, torch.int32),
         hub_rows=d(hub_ids, torch.int32),
         hub_piece=d(hub_piece, torch.int32),
-        row_scale=per_row(stream.scales),
-        row_wts=per_row(stream.wts),
+        row_scale=per_row(stream.scales, first // k),
+        row_wts=per_row(stream.wts, first),
         n_chunks=int(len(chunk_ss)),
         n_pieces=int(hub_piece[-1]),
         host_ms=1e3 * (time.perf_counter() - t0),
@@ -612,7 +672,12 @@ class SpmvStream:
     in the order of the packed-lane panel (:class:`PackedLayout`), and
     ``tiles``: the plan of the L2 column tiles (:class:`TilePlan`), each
     where :func:`design_rule` gives the stream that design, built beside
-    these fields; else None.
+    these fields; else None.  ``mask_uniform`` (seg_k > 1, decided on the
+    host from the weights when the stream is made): in every row the
+    nonzero raw coefficients are 1.0, the folded ones nonzero exactly
+    there and all equal, so the column panel's one weight a row and
+    unweighted sums give the row tiles' terms; ``uniform`` stays False,
+    as graphtpu has it.
     """
 
     slots: torch.Tensor     # int32[T]
@@ -626,6 +691,7 @@ class SpmvStream:
     block_items: int
     uniform: bool           # all raw weights == 1 (fast mode skips the multiply)
     seg_k: int = 1          # table rows per item
+    mask_uniform: bool = False  # seg-k: coefficients are masks of one value a row
     sell: Optional[SellLayout] = None
     tiles: Optional[TilePlan] = None
     packed: Optional[PackedLayout] = None
@@ -650,6 +716,7 @@ def stream_from_numpy(
     and, on a CUDA device, the sliced layout where the panel runs it."""
     pos = np.asarray(pos, np.int32)
     row_items = np.searchsorted(pos, np.arange(n_nodes + 2)).astype(np.int64)
+    masks = seg_k > 1 and _mask_uniform(wts, raw_wts, pos, seg_k)
 
     def t(a, dt):
         return torch.tensor(np.asarray(a, dtype=dt), device=device)
@@ -666,7 +733,22 @@ def stream_from_numpy(
         block_items=int(block_items),
         uniform=bool(uniform),
         seg_k=int(seg_k),
+        mask_uniform=bool(masks),
     ))
+
+
+def _mask_uniform(wts, raw_wts, pos, k) -> bool:
+    """:attr:`SpmvStream.mask_uniform` of a seg-``k`` stream's host arrays."""
+    w = np.asarray(wts, np.float32).reshape(-1, k)
+    raw = np.asarray(raw_wts, np.float32).reshape(-1, k)
+    nz = raw != 0
+    if not (np.array_equal(nz, w != 0) and (raw[nz] == 1.0).all()):
+        return False
+    vals = w[nz]                                   # stream order: item t, then j
+    rows = np.repeat(np.asarray(pos), k)[nz.reshape(-1)]
+    new = np.ones(len(rows), bool)
+    new[1:] = rows[1:] != rows[:-1]
+    return bool(np.array_equal(vals, vals[new][np.cumsum(new) - 1]))
 
 
 def _row_scale(rp, wsrc, v):
@@ -1040,13 +1122,15 @@ def _spmv_cuda(stream, table, mode, table_scale):
     for f in items + fields:
         if f.device != table.device or not f.is_contiguous():
             raise ValueError("stream tensors must be contiguous on the table's device")
+    if lay is not None and not panel_stream(stream):
+        raise ValueError("a sliced layout needs a uniform seg-1 or mask-uniform seg-2/4 stream")
+    if packed is not None and (k != 1 or not stream.uniform):
+        raise ValueError("a packed layout needs a uniform seg-1 stream")
     out = torch.empty((v + 1, c), dtype=table.dtype, device=table.device)
     if c == 0:
         return out
     lib = _build.load()
     sell = hub_acc = None  # the layout and its scratch, held until the launch is enqueued
-    if (lay is not None or packed is not None) and (k != 1 or not stream.uniform):
-        raise ValueError("a sliced or packed layout needs a uniform seg-1 stream")
     if lay is not None:
         sell, hub_acc = sell_launch_args(lay, c, kahan, table.device)
     slots, wts, scales, row_items = (f.data_ptr() for f in items)

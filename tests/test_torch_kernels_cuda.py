@@ -384,6 +384,8 @@ def _small_random():
 )
 def test_simrank_spmm_on_card_matches_cpu(cuda, mode, dtype, seg):
     g = _small_random()
+    # seg-2 of an unweighted graph runs the column panel's seg-k walk
+    assert spmm.spmv_design(spmm.build_spmv_segments(g, k=seg, device=cuda), dtype) == "panel"
     before = sum(spmm.SPMV_LAUNCHES.values())
     got = exact_simrank_spmm(g, spmv_mode=mode, dtype=dtype, spmv_seg=seg, device=cuda)
     assert sum(spmm.SPMV_LAUNCHES.values()) == before + 6
@@ -514,3 +516,82 @@ def test_bf16_row_tiles_give_the_f32_loads_bits(cuda, case, table_scale):
     got = spmm.spmv(plan, x, "fast", table_scale)
     want = spmm.spmv(plan, x.float(), "fast", table_scale).bfloat16()
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def _seg_graph(v=3000, e=30_000, seed=23):
+    """Random edges among rows [0, v - 4), relabelled by RCM, a hub row 0 of
+    300 neighbours; row 1 joined to row v - 1, whose neighbour v - 2 is
+    isolated (a seg-k window clamped at the table's end, sub-row 0
+    masked); rows v - 4 .. v - 2 isolated."""
+    from graphtpu_torch.core.reorder import rcm_order
+
+    rng = np.random.default_rng(seed)
+    n = v - 4
+    edges = rng.integers(0, n, size=(e, 2))
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    inv = np.empty(n, np.int64)
+    inv[rcm_order(gt.build_graph(edges, n_nodes=n))] = np.arange(n)
+    edges = inv[edges]
+    hub = np.stack([np.zeros(300, np.int64), 2 + rng.permutation(n - 2)[:300]], 1)
+    return gt.build_graph(np.concatenate([edges, hub, [[1, v - 1]]]), n_nodes=v)
+
+
+@pytest.mark.parametrize("width", [1040, 1001])
+@pytest.mark.parametrize("table_scale", [None, 0.6])
+@pytest.mark.parametrize("mode,dtype", [("kahan", torch.float32), ("fast", torch.float32),
+                                        ("fast", torch.bfloat16)])
+@pytest.mark.parametrize("k", [2, 4])
+def test_seg_panel_matches_row_tiles(cuda, k, mode, dtype, table_scale, width):
+    """An unweighted seg-k stream runs the column panel's seg-k walk: bit-equal
+    to the forced row tiles on lane rows (every row of at most SELL_HUB
+    positions), hub rows within 1e-5 of the plain version (bf16 one ulp),
+    the clamped window's row and the isolated rows too, the same bits on a
+    second launch, each launch counted."""
+    g = _seg_graph()
+    v = g.n_nodes
+    plan = spmm.build_spmv_segments(g, k=k, device=cuda)
+    assert spmm.spmv_design(plan, dtype) == "panel" and plan.sell.n_pieces > 0
+    raw = plan.raw_wts.view(-1, k).cpu().numpy()
+    slots = plan.slots.cpu().numpy()
+    clamped = (slots == v - k) & (raw[:, 0] == 0) & (raw[:, k - 1] != 0)
+    assert clamped.any()
+    bf = dtype == torch.bfloat16
+    x = torch.rand((v, width), generator=torch.Generator().manual_seed(24)).to(cuda).to(dtype)
+    before = dict(spmm.SPMV_LAUNCHES)
+    got = spmm.spmv(plan, x, mode, table_scale)
+    assert torch.equal(got, spmm.spmv(plan, x, mode, table_scale))
+    assert spmm.SPMV_LAUNCHES[mode] == before[mode] + 2
+    rows = spmm.spmv(spmm.row_tiles(plan), x, mode, table_scale)
+    lane = torch.ones(v + 1, dtype=torch.bool, device=cuda)
+    lane[plan.sell.hub_rows.long()] = False
+    assert torch.equal(got[lane], rows[lane])
+    assert not got[[v - 4, v - 3, v - 2, v]].any()
+    plain = spmm.spmv_plain(plan, x, mode, table_scale)
+    ha, hb = got[~lane].float().cpu().numpy(), plain[~lane].float().cpu().numpy()
+    tol = _bf16_ulp(np.maximum(abs(ha), abs(hb))) if bf else 1e-5
+    assert (np.abs(ha - hb) <= tol).all()
+    xh = x.float().cpu().numpy()
+    orows = np.unique(np.concatenate([np.random.default_rng(25).choice(v, 200), [0, 1, v - 1]]))
+    oracle = spmm.spmm_oracle(g, xh if table_scale is None else _pinned(xh, table_scale),
+                              rows=orows)
+    _check(got, plain, orows, oracle, bf16=bf)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_weighted_seg_stays_on_row_tiles(cuda, k):
+    """A weighted seg-k stream's coefficients differ within a row: no sliced
+    layout, row tiles, within 1e-5 of the plain version."""
+    g = _seg_graph()
+    rng = np.random.default_rng(26)
+    rp, col, _, _ = g.host
+    src = np.repeat(np.arange(g.n_nodes), np.diff(rp))
+    keep = src < col
+    gw = gt.build_graph(np.stack([src[keep], col[keep]], 1),
+                        weights=(rng.random(int(keep.sum())) + 0.1).astype(np.float32),
+                        n_nodes=g.n_nodes)
+    plan = spmm.build_spmv_segments(gw, weighted=True, k=k, device=cuda)
+    assert not plan.mask_uniform and plan.sell is None and spmm.spmv_design(plan) == "rows"
+    x = torch.rand((g.n_nodes, 520), generator=torch.Generator().manual_seed(27)).to(cuda)
+    for mode in ("kahan", "fast"):
+        got = spmm.spmv(plan, x, mode, 0.6)
+        assert (got - spmm.spmv_plain(plan, x, mode, 0.6)).abs().max().item() <= 1e-5

@@ -182,16 +182,19 @@ def test_launch_args_follow_the_kernels_struct():
 
 
 def test_compact_only_for_unweighted_single_rows():
-    """The panel's layout holds 16-bit slots and one weight per row: only a
-    uniform seg-1 stream has one."""
+    """The panel's layout holds 16-bit entries and one weight per row: a
+    uniform seg-1 stream and an unweighted seg-2 stream (its coefficients
+    masks of one value a row) have one, weighted streams do not."""
     g = _graph(3, 60, 300, 8, False)
     lay = spmm.build_sell_layout(_stream(g), 6, 16)
     assert lay.slots.dtype == torch.int16
     assert spmm.runs_panel(_stream(g))
-    assert not spmm.runs_panel(_stream(g, 2))
+    assert spmm.runs_panel(_stream(g, 2))
+    assert spmm.build_sell_layout(_stream(g, 2), 6, 16).slots.dtype == torch.int16
     gw = _graph(3, 60, 300, 8, True)
     assert not spmm.runs_panel(_stream(gw, 1, True))
-    for s in (_stream(g, 2), _stream(gw, 1, True)):
+    assert not spmm.runs_panel(_stream(gw, 2, True))
+    for s in (_stream(gw, 2, True), _stream(gw, 1, True)):
         with pytest.raises(ValueError, match="uniform seg-1"):
             spmm.build_sell_layout(s)
 

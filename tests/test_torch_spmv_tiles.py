@@ -175,7 +175,7 @@ def _uniform(v, d=1, block_items=1):
     ("hub share just below", "tiles"),
     ("hub share at the threshold", "packed"),
     ("hub share at the threshold, reads past the panel", "rows"),
-    ("seg-2", "rows"),
+    ("seg-2", "panel"),     # unweighted, V = 400: the column panel's seg-k walk
     ("weighted", "tiles"),
     ("weighted, hub share above", "rows"),
 ])

@@ -1,0 +1,9 @@
+"""Host ms of the benchmark's span ``write`` around the program's call
+(named in the traffic file), median over the window's units."""
+
+from statistics import median
+
+
+def read(rec):
+    xs = rec["spans"].get("write")
+    return median(xs) if xs else None

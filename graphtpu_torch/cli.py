@@ -7,8 +7,11 @@ quiet move to the CPU) on all but ``generate``; ``simrank`` adds
 ``--n-nodes`` (default: the largest id + 1) and
 ``uniwalk``/``topsim``/``sweep``/``deepsim`` add ``--seed`` (the random
 streams' key, default 0).  ``node2vec``, ``uniwalk``, ``topsim``,
-``deepsim``, ``sdne`` and ``le`` print their wall time split into stages;
-``simrank --engine spmm`` prints its hand kernels' launches.
+``deepsim``, ``sdne``, ``le`` and ``simrank`` print their wall time split
+into stages; ``simrank --engine spmm`` also prints its hand kernels'
+launches, and ``simrank --profile DIR`` writes a ``torch.profiler`` trace
+of the job, its stages and the card's kernels on one timeline, to
+``DIR/trace.json``.
 """
 
 from __future__ import annotations
@@ -75,6 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
     sr.add_argument(
         "--n-nodes", type=int, default=None,
         help="node count (default: largest id + 1); extra ids are isolated",
+    )
+    sr.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="write a torch.profiler trace of the job to DIR/trace.json",
     )
 
     uw = sub.add_parser("uniwalk", help="single-walk MC SimRank")
@@ -201,6 +208,12 @@ def node2vec_main(args) -> int:
 
 
 def simrank_main(args) -> int:
+    """Prints the job's stages (``StageClock``): ``read``, ``relabel``
+    (where asked: the graph, then the rows and ids back), ``fetch`` (the
+    top-k to the host) and ``write`` on the host clock, the card
+    synchronised at each one's end; ``simrank`` and ``topk`` by CUDA events
+    on a card.  The four calls are module attributes looked up when the
+    job runs."""
     from graphtpu_torch.core.config import SimRankConfig
     from graphtpu_torch.core.device import resolve_device
     from graphtpu_torch.core.graph import read_edgelist_graph
@@ -208,50 +221,62 @@ def simrank_main(args) -> int:
     from graphtpu_torch.kernels.spmm import SPMV_LAUNCHES
     from graphtpu_torch.kernels.topk import topk_rows
     from graphtpu_torch.simrank.exact import exact_simrank, exact_simrank_spmm
+    from graphtpu_torch.utils.metrics import StageClock, trace_profile
 
     device = resolve_device(args.device)
     launched = dict(SPMV_LAUNCHES)
-    g = read_edgelist_graph(
-        args.input, delimiter=args.delimiter, weighted=args.weighted,
-        n_nodes=args.n_nodes,
-    )
-    cfg = SimRankConfig(c=args.c, iterations=args.iterations)
-    order = None
-    if args.relabel != "none":
-        from graphtpu_torch.core.reorder import (
-            bfs_order,
-            degree_order,
-            rcm_order,
-            relabel_graph,
-        )
+    times = {}
+    clock = StageClock(times, device)
+    with trace_profile(args.profile):
+        with clock.span("read"):
+            g = read_edgelist_graph(
+                args.input, delimiter=args.delimiter, weighted=args.weighted,
+                n_nodes=args.n_nodes,
+            )
+        cfg = SimRankConfig(c=args.c, iterations=args.iterations)
+        order = None
+        if args.relabel != "none":
+            from graphtpu_torch.core.reorder import (
+                bfs_order,
+                degree_order,
+                rcm_order,
+                relabel_graph,
+            )
 
-        ofn = {"bfs": bfs_order, "rcm": rcm_order, "degree": degree_order}[args.relabel]
-        order = np.asarray(ofn(g), np.int64)
-        g, inv = relabel_graph(g, order)
-    if args.engine == "spmm":
-        sim = exact_simrank_spmm(
-            g, cfg, weighted=args.weighted,
-            spmv_mode="fast" if args.mode == "fast16" else args.mode,
-            dtype=torch.bfloat16 if args.mode == "fast16" else torch.float32,
-            spmv_seg=args.seg, device=device,
-        )
-    else:
-        sim = exact_simrank(g, cfg, weighted=args.weighted, device=device)
-    vals, idx = topk_rows(sim, args.topk)
-    del sim
-    vals = vals.float().cpu().numpy()
-    idx = idx.cpu().numpy()
-    if order is not None:
-        # row new_i is original order[new_i]; neighbour new_j is order[new_j]
-        inv_rows = np.asarray(inv, np.int64)  # inv[old] = new
-        vals = vals[inv_rows]
-        idx = order[idx[inv_rows]].astype(np.int32)
-    write_topk_files(args.output, idx, vals)
+            ofn = {"bfs": bfs_order, "rcm": rcm_order, "degree": degree_order}[args.relabel]
+            with clock.span("relabel"):
+                order = np.asarray(ofn(g), np.int64)
+                g, inv = relabel_graph(g, order)
+        if args.engine == "spmm":
+            sim = clock.stage(
+                "simrank", exact_simrank_spmm, g, cfg, weighted=args.weighted,
+                spmv_mode="fast" if args.mode == "fast16" else args.mode,
+                dtype=torch.bfloat16 if args.mode == "fast16" else torch.float32,
+                spmv_seg=args.seg, device=device,
+            )
+        else:
+            sim = clock.stage("simrank", exact_simrank, g, cfg, weighted=args.weighted,
+                              device=device)
+        vals, idx = clock.stage("topk", topk_rows, sim, args.topk)
+        del sim
+        clock.close()
+        with clock.span("fetch"):
+            vals = vals.float().cpu().numpy()
+            idx = idx.cpu().numpy()
+        if order is not None:
+            with clock.span("relabel"):
+                # row new_i is original order[new_i]; neighbour new_j is order[new_j]
+                inv_rows = np.asarray(inv, np.int64)  # inv[old] = new
+                vals = vals[inv_rows]
+                idx = order[idx[inv_rows]].astype(np.int32)
+        with clock.span("write"):
+            write_topk_files(args.output, idx, vals)
     note = ""
     if args.engine == "spmm":
         note = " (kernel launches: " + ", ".join(
             f"{k} {SPMV_LAUNCHES[k] - launched[k]}" for k in SPMV_LAUNCHES) + ")"
-    print(f"wrote {args.output}(.sim.txt){note}")
+    stages = _stages({k: ms / 1e3 for k, ms in times.items()})
+    print(f"wrote {args.output}(.sim.txt) ({stages}){note}")
     return 0
 
 

@@ -323,24 +323,3 @@ def spawn(
     if bad:
         raise RuntimeError(f"ranks exited with codes {bad}")
     return out
-
-
-class Stages:
-    """Host-clock ms per named stage into ``times`` (a dict, or None for no
-    timing).  On a CUDA device the device is synchronised before and after
-    each stage, so a stage's time is its whole cost: a product's kernels,
-    or a collective with gloo's staging through host memory."""
-
-    def __init__(self, times: Optional[dict], device: torch.device):
-        self.times = times
-        self.sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-
-    def __call__(self, name: str, fn, *args, **kw):
-        if self.times is None:
-            return fn(*args, **kw)
-        self.sync()
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        self.sync()
-        self.times[name] = self.times.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
-        return out

@@ -44,9 +44,10 @@ import torch
 from graphtpu_torch.core.config import SGNSConfig
 from graphtpu_torch.core.device import full_fp32
 from graphtpu_torch.dist.frontier import _local_rows
-from graphtpu_torch.dist.mesh import Stages, all_gather, psum
+from graphtpu_torch.dist.mesh import all_gather, psum
 from graphtpu_torch.kernels.topk import segment_rows_sum
 from graphtpu_torch.models.sgns import sgns_closed_form
+from graphtpu_torch.utils.metrics import StageClock
 
 GATHER_ROWS = 1 << 16  # rows per all-gather when tables are assembled on the host
 
@@ -135,10 +136,10 @@ def sharded_sgns_step(
     its row shards ``params`` (syn0, syn1), each [rows, D]; the shards are
     updated in place (graphtpu donates them) and returned.  See the module
     docstring for the steps.  ``stage_times``: ms of "lookup", "compute"
-    and "update" (:class:`~graphtpu_torch.dist.mesh.Stages`, the device
+    and "update" (:class:`~graphtpu_torch.utils.metrics.StageClock`, the device
     synchronised around each) and the bytes this rank puts into the
     all-reduces, "lookup_bytes" and "update_bytes", are added to it."""
-    stages = Stages(stage_times, shards.device)
+    stages = StageClock(stage_times, shards.device, sync=True)
     syn0, syn1 = params
     d = syn0.shape[1]
     nc = contexts.numel()
@@ -174,9 +175,9 @@ def sharded_sgns_step(
         syn1.sub_(lr * (buf[:, d + 1: 2 * d + 1] / buf[:, 2 * d + 1].clamp(min=1)[:, None]))
         return buf.numel() * buf.element_size()
 
-    u0, inv0, u1, inv1, (l0, l1) = stages("lookup", lookup)
-    g0, c0, g1, c1 = stages("compute", compute)
-    update_bytes = stages("update", update)
+    u0, inv0, u1, inv1, (l0, l1) = stages.stage("lookup", lookup)
+    g0, c0, g1, c1 = stages.stage("compute", compute)
+    update_bytes = stages.stage("update", update)
     if stage_times is not None:
         lookup_bytes = (len(u0) + len(u1)) * d * syn0.element_size() if shards.n_model > 1 else 0
         stage_times["lookup_bytes"] = stage_times.get("lookup_bytes", 0) + lookup_bytes

@@ -20,8 +20,9 @@ import torch
 from graphtpu_torch.core.config import SimRankConfig
 from graphtpu_torch.core.device import matmul_precision as precision
 from graphtpu_torch.core.graph import Graph, dense_adjacency, row_normalized
-from graphtpu_torch.dist.mesh import Stages, all_gather
+from graphtpu_torch.dist.mesh import all_gather
 from graphtpu_torch.dist.spmm_sharded import SimBlock
+from graphtpu_torch.utils.metrics import StageClock
 
 
 def sharded_exact_simrank(
@@ -41,19 +42,20 @@ def sharded_exact_simrank(
     axis = mesh.axis_names[0]
     n, me = mesh.axis_size(axis), mesh.axis_index(axis)
     group = mesh.groups[axis]
-    stages = Stages(stage_times, mesh.device)
+    stages = StageClock(stage_times, mesh.device, sync=True)
     v = g.n_nodes
     per = -(-v // n)
     lo, hi = min(me * per, v), min((me + 1) * per, v)
-    w = stages("plan", lambda: row_normalized(dense_adjacency(g, device=mesh.device)).to(dtype))
+    w = stages.stage("plan",
+                     lambda: row_normalized(dense_adjacency(g, device=mesh.device)).to(dtype))
     w_me = w[lo:hi]
     eye = torch.eye(v, dtype=dtype, device=mesh.device)[lo:hi]
     s = eye.clone()
     with precision(matmul_precision):
         for _ in range(cfg.iterations):
-            t = stages("matmul", torch.matmul, s, w.T)                    # (S·Wᵀ)[r_me]
+            t = stages.stage("matmul", torch.matmul, s, w.T)              # (S·Wᵀ)[r_me]
             t = torch.cat([t, t.new_zeros((per - t.shape[0], v))])
-            m = stages("wire", all_gather, t, group).reshape(n * per, v)[:v]
-            s = cfg.c * stages("matmul", torch.matmul, w_me, m)
+            m = stages.stage("wire", all_gather, t, group).reshape(n * per, v)[:v]
+            s = cfg.c * stages.stage("matmul", torch.matmul, w_me, m)
             s = s * (1 - eye) + eye
     return SimBlock(values=s * (1 - eye), row_lo=lo, col_lo=0, n_nodes=v)

@@ -39,8 +39,9 @@ import torch.distributed as dist
 
 from graphtpu_torch.core.config import SimRankConfig
 from graphtpu_torch.core.graph import Graph, graph_from_numpy, host_csr, pad_graph_nodes
-from graphtpu_torch.dist.mesh import Stages, all_gather, ppermute
+from graphtpu_torch.dist.mesh import all_gather, ppermute
 from graphtpu_torch.kernels.spmm import ReductionTree, build_reduction_tree, tree_from_numpy, tree_spmm
+from graphtpu_torch.utils.metrics import StageClock
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +197,7 @@ class ShardedIter:
     group: object
     cfg: SimRankConfig
     dtype: torch.dtype
-    stages: Stages
+    stages: StageClock
 
     @property
     def rows_per(self) -> int:
@@ -223,15 +224,15 @@ class ShardedIter:
         blk = x_blk
         for k in range(n):
             c = (self.me + k) % n  # the block in hand started at rank me + k
-            tile = self.stages("b3", tree_spmm, self.tree, blk)
+            tile = self.stages.stage("b3", tree_spmm, self.tree, blk)
             y[:, c * rp: (c + 1) * rp] = tile
             if k + 1 < n:
-                blk = self.stages("wire", ppermute, blk, self.group)
+                blk = self.stages.stage("wire", ppermute, blk, self.group)
         return y
 
     def one_iter(self, s_blk: torch.Tensor) -> torch.Tensor:
         ps_rows = self.ring_product(s_blk)                     # (P·S)[r_me, :]
-        z_blk = self.stages("local", lambda x: x.t().contiguous(), ps_rows)
+        z_blk = self.stages.stage("local", lambda x: x.t().contiguous(), ps_rows)
         del ps_rows
         # graphtpu's weak-typed c takes the iterate's dtype
         c = torch.tensor(self.cfg.c, dtype=self.dtype, device=z_blk.device)
@@ -242,7 +243,7 @@ class ShardedIter:
         out_rows[:, lo: lo + self.rows_per].fill_diagonal_(1.0)
         # S' is symmetric: the output ROW block transposed is the next input
         # COLUMN block
-        return self.stages("local", lambda x: x.t().contiguous(), out_rows)
+        return self.stages.stage("local", lambda x: x.t().contiguous(), out_rows)
 
     def run_n(self, s: torch.Tensor, n_iters: int) -> torch.Tensor:
         for _ in range(n_iters):
@@ -267,14 +268,15 @@ def make_sharded_iter(
     the ring shifts ("wire") and the local transposes ("local") are added
     (the device synchronised around each)."""
     n_dev = mesh.size
-    stages = Stages(stage_times, mesh.device)
+    stages = StageClock(stage_times, mesh.device, sync=True)
     v = padded_nodes(g.n_nodes, 128 * n_dev)
     if plan is None:
         gp = pad_graph_nodes(g, v) if v != g.n_nodes else g
-        plan = stages("plan", build_sharded_tree_plan, gp, n_dev, width=width, weighted=weighted)
+        plan = stages.stage("plan", build_sharded_tree_plan, gp, n_dev, width=width,
+                            weighted=weighted)
     ensure_kernels(mesh)
-    return ShardedIter(plan=plan, v=v, tree=stages("plan", plan.local_tree, mesh.coords[0],
-                                                   mesh.device),
+    return ShardedIter(plan=plan, v=v, tree=stages.stage("plan", plan.local_tree, mesh.coords[0],
+                                                         mesh.device),
                        me=mesh.coords[0], group=mesh.groups[mesh.axis_names[0]], cfg=cfg,
                        dtype=dtype, stages=stages)
 

@@ -36,7 +36,7 @@ import torch
 
 from graphtpu_torch.core.config import SimRankConfig
 from graphtpu_torch.core.graph import DiGraph, Graph, graph_from_numpy, host_csr, pad_graph_nodes
-from graphtpu_torch.dist.mesh import Stages, all_to_all, make_2d_mesh, ppermute, psum_scatter
+from graphtpu_torch.dist.mesh import all_to_all, make_2d_mesh, ppermute, psum_scatter
 from graphtpu_torch.dist.spmm_sharded import (
     SimBlock,
     ensure_kernels,
@@ -44,6 +44,7 @@ from graphtpu_torch.dist.spmm_sharded import (
     padded_nodes,
 )
 from graphtpu_torch.kernels.spmm import ReductionTree, build_reduction_tree, tree_from_numpy, tree_spmm
+from graphtpu_torch.utils.metrics import StageClock
 
 __all__ = ["SummaPlan", "build_summa_plan", "make_2d_mesh", "make_summa_iter",
            "summa_simrank_spmm"]
@@ -139,7 +140,7 @@ class SummaIter:
     pc: object
     cfg: SimRankConfig
     dtype: torch.dtype
-    stages: Stages
+    stages: StageClock
 
     @property
     def rows_per(self) -> int:
@@ -172,14 +173,14 @@ class SummaIter:
         blk = x_blk
         for t in range(r):
             m = (self.mi + t) % r  # the column block in hand
-            w_full = self.stages("b3", tree_spmm, self.tree, blk)
+            w_full = self.stages.stage("b3", tree_spmm, self.tree, blk)
             # sum the c k-block partials, each rank keeping 1/c of the rows,
             # in the block's dtype on the wire
-            y[:, m * rp: (m + 1) * rp] = self.stages(
+            y[:, m * rp: (m + 1) * rp] = self.stages.stage(
                 "wire", psum_scatter, w_full.to(x_blk.dtype), self.pc)
             del w_full
             if t + 1 < r:
-                blk = self.stages("wire", ppermute, blk, self.pr)
+                blk = self.stages.stage("wire", ppermute, blk, self.pr)
         return y
 
     def strip_to_input(self, y: torch.Tensor) -> torch.Tensor:
@@ -187,8 +188,8 @@ class SummaIter:
         all_to_all along "pc" (V²/n bytes a rank)."""
         c, kc = self.plan.c, self.kc
         send = y.to(self.dtype).reshape(y.shape[0], c, kc).transpose(0, 1)  # [c, strip, kc]
-        recv = self.stages("wire", all_to_all, send.contiguous(), self.pc)  # Y[cr_mi, kc_mj]
-        return self.stages("local", lambda x: x.reshape(-1, kc).t().contiguous(), recv)
+        recv = self.stages.stage("wire", all_to_all, send.contiguous(), self.pc)  # Y[cr_mi, kc_mj]
+        return self.stages.stage("local", lambda x: x.reshape(-1, kc).t().contiguous(), recv)
 
     def one_iter(self, s_blk: torch.Tensor) -> torch.Tensor:
         z = self.strip_to_input(self.ring_product(s_blk))        # (P·S)ᵀ blocks
@@ -223,14 +224,15 @@ def make_summa_iter(
     if tuple(mesh.axis_names) != ("pr", "pc"):
         raise ValueError(f"SUMMA needs a ('pr', 'pc') mesh, got {mesh.axis_names}")
     r, c = mesh.shape
-    stages = Stages(stage_times, mesh.device)
+    stages = StageClock(stage_times, mesh.device, sync=True)
     v = padded_nodes(g.n_nodes, r * c * 8)
     if plan is None:
         gp = pad_graph_nodes(g, v) if v != g.n_nodes else g
-        plan = stages("plan", build_summa_plan, gp, r, c, width=width, weighted=weighted)
+        plan = stages.stage("plan", build_summa_plan, gp, r, c, width=width, weighted=weighted)
     ensure_kernels(mesh)
     mi, mj = mesh.coords
-    return SummaIter(plan=plan, v=v, tree=stages("plan", plan.local_tree, mi, mj, mesh.device),
+    return SummaIter(plan=plan, v=v,
+                     tree=stages.stage("plan", plan.local_tree, mi, mj, mesh.device),
                      mi=mi, mj=mj, pr=mesh.groups["pr"], pc=mesh.groups["pc"], cfg=cfg,
                      dtype=dtype, stages=stages)
 

@@ -677,7 +677,8 @@ class SpmvStream:
     nonzero raw coefficients are 1.0, the folded ones nonzero exactly
     there and all equal, so the column panel's one weight a row and
     unweighted sums give the row tiles' terms; ``uniform`` stays False,
-    as graphtpu has it.
+    as graphtpu has it.  ``host_ms``: host time of the numpy build, up to
+    the uploads of :func:`stream_from_numpy`.
     """
 
     slots: torch.Tensor     # int32[T]
@@ -695,6 +696,7 @@ class SpmvStream:
     sell: Optional[SellLayout] = None
     tiles: Optional[TilePlan] = None
     packed: Optional[PackedLayout] = None
+    host_ms: float = 0.0
 
     def to(self, device) -> "SpmvStream":
         move = {
@@ -709,11 +711,14 @@ class SpmvStream:
 
 def stream_from_numpy(
     slots, wts, pos, raw_wts, scales, n_nodes, n_items, block_items, uniform,
-    seg_k=1, device="cpu",
+    seg_k=1, device="cpu", t0=None,
 ) -> SpmvStream:
     """An :class:`SpmvStream` from host arrays (the fields of the JAX
     package's stream after ``np.asarray``), adding the per-row item offsets
-    and, on a CUDA device, the sliced layout where the panel runs it."""
+    and, on a CUDA device, the sliced layout where the panel runs it.
+    ``host_ms`` counts from ``t0`` (a ``time.perf_counter()`` reading; by
+    default this call's start) to the uploads."""
+    t0 = time.perf_counter() if t0 is None else t0
     pos = np.asarray(pos, np.int32)
     row_items = np.searchsorted(pos, np.arange(n_nodes + 2)).astype(np.int64)
     masks = seg_k > 1 and _mask_uniform(wts, raw_wts, pos, seg_k)
@@ -721,6 +726,7 @@ def stream_from_numpy(
     def t(a, dt):
         return torch.tensor(np.asarray(a, dtype=dt), device=device)
 
+    host_ms = 1e3 * (time.perf_counter() - t0)
     return _with_layout(SpmvStream(
         slots=t(slots, np.int32),
         wts=t(wts, np.float32),
@@ -734,6 +740,7 @@ def stream_from_numpy(
         uniform=bool(uniform),
         seg_k=int(seg_k),
         mask_uniform=bool(masks),
+        host_ms=host_ms,
     ))
 
 
@@ -763,6 +770,7 @@ def build_spmv_stream(
     g: Graph, weighted: bool = False, block_items: int = 1024, device=None
 ) -> SpmvStream:
     """One item per CSR slot, one dummy item per isolated row (numpy)."""
+    t0 = time.perf_counter()
     rp_h, col_h, w_h, _ = g.host
     rp = rp_h.astype(np.int64)
     col = col_h.astype(np.int64)
@@ -800,7 +808,7 @@ def build_spmv_stream(
     uniform = bool(np.all(wsrc == 1.0))
     return stream_from_numpy(
         slots, wts, pos, raw, scales, v, t_real, block_items, uniform,
-        device=device or g.device,
+        device=device or g.device, t0=t0,
     )
 
 
@@ -817,6 +825,7 @@ def build_spmv_segments(
         return build_spmv_stream(
             g, weighted=weighted, block_items=block_items, device=device
         )
+    t0 = time.perf_counter()
     rp_h, col_h, w_h, _ = g.host
     rp = rp_h.astype(np.int64)
     col = col_h.astype(np.int64)
@@ -889,7 +898,7 @@ def build_spmv_segments(
         start_c, w_fold.reshape(-1), seg_row.astype(np.int32),
         w_raw.reshape(-1), seg_scales, v, t_real, block_items,
         False,  # segment coefficients are masks: always multiply
-        seg_k=k, device=device or g.device,
+        seg_k=k, device=device or g.device, t0=t0,
     )
 
 

@@ -16,7 +16,6 @@ A :class:`DiGraph` gets directed SimRank over in-neighbours (the in-CSR).
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -34,6 +33,7 @@ from graphtpu_torch.kernels.spmm import (
     tree_spmm,
 )
 from graphtpu_torch.kernels.topk import topk_rows
+from graphtpu_torch.utils.metrics import StageClock
 
 
 def _simrank_iterate(w: torch.Tensor, c: float, iterations: int) -> torch.Tensor:
@@ -69,39 +69,6 @@ def exact_simrank(
     w = row_normalized(a).to(dtype)
     with precision(matmul_precision):
         return _simrank_iterate(w, cfg.c, cfg.iterations)
-
-
-class _StageClock:
-    """Adds each stage's time to ``times[name]`` in ms: CUDA events on a
-    CUDA device (read once, after the loop), the host clock otherwise."""
-
-    def __init__(self, times: Optional[dict], device: torch.device):
-        self.times = times
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def stage(self, name, fn, *args, **kw):
-        if self.times is None:
-            return fn(*args, **kw)
-        if self.cuda:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = fn(*args, **kw)
-            b.record()
-            self.marks.append((name, a, b))
-            return out
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        self.times[name] = self.times.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
-        return out
-
-    def close(self):
-        if self.times is None or not self.marks:
-            return
-        torch.cuda.synchronize()
-        for name, a, b in self.marks:
-            self.times[name] = self.times.get(name, 0.0) + a.elapsed_time(b)
 
 
 def exact_simrank_spmm(
@@ -140,12 +107,17 @@ def exact_simrank_spmm(
 
     Runs on ``device`` (default ``cuda``, see :func:`resolve_device`).
     ``stage_times``: a dict to which the ms of the two products
-    ("product1", "product2") and the transpose are added; in the tree
-    branch "product2" includes the scale, the pin and the cast.  Both
-    branches also set "layout_host", the host ms of the plan's kernel
-    layouts: the stream's sliced or packed layout or tile plan, or the tree
-    levels' compact plans (0 where the kernels run row tiles only, or on the CPU,
-    and build none).
+    ("product1", "product2") and the transpose are added
+    (:class:`~graphtpu_torch.utils.metrics.StageClock`: CUDA events on a
+    card); in the tree branch "product2" includes the scale, the pin and
+    the cast.  Both branches also set "plan", the host ms of the call that
+    builds the plan (the device synchronised at its end), and "layout_host",
+    the host ms of the plan's kernel layouts within it: the stream's sliced
+    or packed layout or tile plan, or the tree levels' compact plans (0
+    where the kernels run row tiles only, or on the CPU, and build none).
+    The stream branch also sets "stream_host", the host ms of the stream's
+    numpy build before its uploads (:attr:`SpmvStream.host_ms`).  Where the
+    profiler records, each stage is a ``record_function`` range of its name.
     """
     if isinstance(g, DiGraph):
         g = g.in_
@@ -157,19 +129,21 @@ def exact_simrank_spmm(
             "impl='tree' takes neither"
         )
     device = resolve_device(device)
-    clock = _StageClock(stage_times, device)
+    clock = StageClock(stage_times, device)
     if impl == "tree":
         out = _tree_iterate(g, cfg, weighted, dtype, width, col_block, device, clock)
         clock.close()
         return out
     v = g.n_nodes
-    if spmv_seg > 1:
-        plan = build_spmv_segments(g, weighted=weighted, k=spmv_seg, device=device)
-    else:
-        plan = build_spmv_stream(g, weighted=weighted, device=device)
+    with clock.span("plan"):
+        if spmv_seg > 1:
+            plan = build_spmv_segments(g, weighted=weighted, k=spmv_seg, device=device)
+        else:
+            plan = build_spmv_stream(g, weighted=weighted, device=device)
     if stage_times is not None:
         built = layout_of(plan)
         stage_times["layout_host"] = built.host_ms if built is not None else 0.0
+        stage_times["stream_host"] = plan.host_ms
 
     s = torch.eye(v, dtype=dtype, device=device)
     for k in range(cfg.iterations):
@@ -189,7 +163,8 @@ def exact_simrank_spmm(
 
 def _tree_iterate(g, cfg, weighted, dtype, width, col_block, device, clock):
     """The tree branch's loop (graphtpu/simrank/exact.py:429-458)."""
-    plan = build_reduction_tree(g, width=width, weighted=weighted, device=device)
+    with clock.span("plan"):
+        plan = build_reduction_tree(g, width=width, weighted=weighted, device=device)
     if clock.times is not None:
         clock.times["layout_host"] = plan.layout_host_ms
 

@@ -203,13 +203,18 @@ def _rank_cases(device, tmp):
 
     # exact SimRank: the 1-D ring (f32, weighted, bf16) and the dense form
     cfg3, cfg4 = SimRankConfig(iterations=3), SimRankConfig(iterations=4)
-    out["ring_f32"] = gather_sim(sharded_simrank_spmm(small, mesh, cfg4)).numpy()
+    ring_times, dense_times, sgns_times = {}, {}, {}
+    out["ring_f32"] = gather_sim(sharded_simrank_spmm(small, mesh, cfg4,
+                                                      stage_times=ring_times)).numpy()
+    out["ring_stages"] = set(ring_times)
     out["ring_weighted"] = gather_sim(sharded_simrank_spmm(wgraph, mesh, cfg3,
                                                            weighted=True)).numpy()
     b16 = sharded_simrank_spmm(build_graph(bf16_edges(), n_nodes=256), mesh, cfg3,
                                dtype=torch.bfloat16)
     out["ring_bf16"] = (b16.values.dtype, gather_sim(b16).float().numpy())
-    out["dense"] = gather_sim(sharded_exact_simrank(small, mesh, cfg3)).numpy()
+    out["dense"] = gather_sim(sharded_exact_simrank(small, mesh, cfg3,
+                                                    stage_times=dense_times)).numpy()
+    out["dense_stages"] = set(dense_times)
 
     # UniWalk, the reuse form, TopSim
     out["uniwalk"] = distributed_uniwalk_simrank(small, mesh, UniWalkConfig(sample=6000, step=3,
@@ -256,7 +261,9 @@ def _rank_cases(device, tmp):
                                                                  si["v"])
     params = shard_params((si["p0"], si["p1"]))
     batch = shard_batch(si["centers"], si["contexts"], si["mask"], si["negs"])
-    out["sgns_step"] = tuple(p.numpy() for p in train_step(params, *batch, 0.05))
+    out["sgns_step"] = tuple(p.numpy() for p in train_step(params, *batch, 0.05,
+                                                           stage_times=sgns_times))
+    out["sgns_stages"] = set(sgns_times)
     walks = sgns_walks()
     out["sgns_dp"] = train_sgns_dp(walks, 64, mesh, SGNS_CFG)
     ck, snap = os.path.join(tmp, "sgns_dp.ckpt"), os.path.join(tmp, "snap.ckpt")
@@ -502,6 +509,7 @@ def test_ring_equals_graphtpu(gt, ranks):
     got = ranks["ring_f32"]
     np.testing.assert_allclose(got, want, atol=TOL_F32)
     np.testing.assert_allclose(got, exact(small_edges(), 64, iterations=4), atol=TOL_DENSE)
+    assert ranks["ring_stages"] == {"plan", "b3", "wire", "local"}
 
 
 def test_weighted_ring_equals_graphtpu(gt, ranks):
@@ -534,6 +542,7 @@ def test_bf16_ring_equals_graphtpu(gt, ranks):
 
 def test_sharded_dense_simrank(ranks):
     np.testing.assert_allclose(ranks["dense"], exact(small_edges(), 64), atol=TOL_DENSE)
+    assert ranks["dense_stages"] == {"plan", "matmul", "wire"}
 
 
 # ---------------------------------------------------------------------------
@@ -667,6 +676,8 @@ def test_sgns_step_equals_graphtpu(gt, ranks):
                                    ja(si["negs"])), 0.05)
     for a, b in zip(ranks["sgns_step"], want):
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-5)
+    assert ranks["sgns_stages"] == {"lookup", "compute", "update", "lookup_bytes",
+                                    "update_bytes"}
 
 
 def test_train_sgns_dp_equals_single_device(ranks):

@@ -143,8 +143,10 @@ def test_spmm_stage_times_and_topk(small_random):
     times = {}
     sim = texact.exact_simrank_spmm(g, SimRankConfig(iterations=2), stage_times=times,
                                     device="cpu")
-    assert set(times) == {"product1", "transpose", "product2", "layout_host"}
+    assert set(times) == {"product1", "transpose", "product2", "layout_host", "plan",
+                          "stream_host"}
     assert all(t >= 0 for t in times.values())
+    assert times["plan"] >= times["stream_host"] + times["layout_host"]
     vals, idx = texact.simrank_topk(sim, 5)
     jvals, jidx = jexact.simrank_topk(jnp.asarray(sim.numpy()), 5)
     np.testing.assert_array_equal(vals, jvals)

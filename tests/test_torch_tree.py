@@ -239,7 +239,7 @@ def test_simrank_tree_stage_times_and_bad_impl(small_random):
     times = {}
     texact.exact_simrank_spmm(g, SimRankConfig(iterations=2), impl="tree",
                               stage_times=times, device="cpu")
-    assert set(times) == {"product1", "transpose", "product2", "layout_host"}
+    assert set(times) == {"product1", "transpose", "product2", "layout_host", "plan"}
     assert all(t >= 0 for t in times.values())
     assert times["layout_host"] == 0.0  # no compact plans on the CPU
     with pytest.raises(ValueError, match="impl"):

@@ -212,19 +212,20 @@ def simrank_main(args) -> int:
     (where asked: the graph, then the rows and ids back), ``fetch`` (the
     top-k to the host) and ``write`` on the host clock, the card
     synchronised at each one's end; ``simrank`` and ``topk`` by CUDA events
-    on a card.  The four calls are module attributes looked up when the
-    job runs."""
+    on a card; then the rows the writer formatted by each path
+    (``simfile.WRITE_ROWS``).  The four calls are module attributes looked
+    up when the job runs."""
     from graphtpu_torch.core.config import SimRankConfig
     from graphtpu_torch.core.device import resolve_device
     from graphtpu_torch.core.graph import read_edgelist_graph
-    from graphtpu_torch.io.simfile import write_topk_files
+    from graphtpu_torch.io.simfile import WRITE_ROWS, write_topk_files
     from graphtpu_torch.kernels.spmm import SPMV_LAUNCHES
     from graphtpu_torch.kernels.topk import topk_rows
     from graphtpu_torch.simrank.exact import exact_simrank, exact_simrank_spmm
     from graphtpu_torch.utils.metrics import StageClock, trace_profile
 
     device = resolve_device(args.device)
-    launched = dict(SPMV_LAUNCHES)
+    launched, written = dict(SPMV_LAUNCHES), dict(WRITE_ROWS)
     times = {}
     clock = StageClock(times, device)
     with trace_profile(args.profile):
@@ -276,7 +277,8 @@ def simrank_main(args) -> int:
         note = " (kernel launches: " + ", ".join(
             f"{k} {SPMV_LAUNCHES[k] - launched[k]}" for k in SPMV_LAUNCHES) + ")"
     stages = _stages({k: ms / 1e3 for k, ms in times.items()})
-    print(f"wrote {args.output}(.sim.txt) ({stages}){note}")
+    rows = ", ".join(f"{k} {WRITE_ROWS[k] - written[k]}" for k in WRITE_ROWS)
+    print(f"wrote {args.output}(.sim.txt) ({stages}; rows written: {rows}){note}")
     return 0
 
 

@@ -171,8 +171,9 @@ def topsim_simrank(
         lost.append(dropped)
         return targets, vals
 
-    out = run_source_tiles(items, g.n_nodes, sources, min(cfg.source_tile, len(sources)),
-                           cfg.topk, 0 if key is None else key, dense, dev)
+    out = run_source_tiles([("items", items)], g.n_nodes, sources,
+                           min(cfg.source_tile, len(sources)), cfg.topk,
+                           0 if key is None else key, dense, dev)
     if stats is not None:  # the padded last tile's pad sources are not counted
         stats["dropped_mass"] = float(torch.cat(lost)[: len(sources)].double().sum())
     return out

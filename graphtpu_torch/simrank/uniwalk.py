@@ -12,7 +12,15 @@ Sources go in tiles (the batched-source windows of
 2*STEP+1] walks come from one batched walk call, the first-meet test is a
 mask over step prefixes, and the increments reduce to each source's top-k
 by :func:`segment_topk` (a sort, no scatter, no [T, V] tile).  Tile ``lo``
-walks on stream ``key_for(key, lo)``.
+walks on stream ``key_for(key, lo)``.  A tile runs in three stages,
+``walks``, ``items`` (the first-meet masks and values) and ``reduce``
+(:func:`segment_topk`); given ``stage_times``, each is timed by
+:class:`~graphtpu_torch.utils.metrics.StageClock` under that name, and the
+same kernels run as without it.  :func:`uniwalk_walks_topk` is the
+estimator alone, on walks the caller gives.
+
+Every call adds to :data:`UNIWALK_COUNTS`, read as a difference around a
+call, as ``kernels.spmm.SPMV_LAUNCHES`` is.
 
 Path reuse (``SingleRandomWalkOptimal2.java:49-64``): one physical walk of
 length (times-1) + 2*STEP feeds every offset o as a fresh sample for source
@@ -37,7 +45,16 @@ from graphtpu_torch.kernels.topk import (
     segment_topk,
     topk_rows,
 )
+from graphtpu_torch.utils.metrics import StageClock
 from graphtpu_torch.walks.walker import uniform_walks
+
+# What uniwalk_simrank has walked: the walkers of the walks its tiles made
+# (the last tile's pad sources count, as they are walked) and the hops of
+# the walks that reached their last node, 2*step each, counted on the device
+# a tile and read once a call.  A walk stops only at a node with no
+# neighbour, which on an undirected graph is its source alone, so there the
+# hops are every hop taken.
+UNIWALK_COUNTS = {"walkers": 0, "hops": 0}
 
 
 def _first_meet_mask(walks: torch.Tensor, i: int) -> torch.Tensor:
@@ -93,44 +110,68 @@ def _tile_walks(g: Graph, src_tile: torch.Tensor, key: int, sample: int, step: i
     return walks.reshape(src_tile.shape[0], sample, 2 * step + 1)
 
 
-def _uniwalk_items(g: Graph, src_tile: torch.Tensor, key: int, cfg: UniWalkConfig):
-    walks = _tile_walks(g, src_tile, key, cfg.sample, cfg.step)
-    return _tile_items(g.deg, walks, cfg.step, cfg.c, cfg.sample)
+def _walk_items(g: Graph, walks: torch.Tensor, cfg: UniWalkConfig):
+    """The items of [T, SAMPLE, 2*step+1] walks, SAMPLE their second dim."""
+    if walks.shape[-1] != 2 * cfg.step + 1:
+        raise ValueError(f"walks of {walks.shape[-1]} nodes; step {cfg.step} needs "
+                         f"{2 * cfg.step + 1}")
+    return _tile_items(g.deg, walks, cfg.step, cfg.c, walks.shape[1])
+
+
+def uniwalk_walks_topk(g: Graph, walks: torch.Tensor, cfg: UniWalkConfig):
+    """(vals [T, topk], int32 idx [T, topk]) of the estimator on given walks
+    [T, SAMPLE, 2*step+1] (column 0 each source, -1 past a dead end), on the
+    walks' device: the items and the reduce of :func:`uniwalk_simrank`'s
+    tiles, SAMPLE read from ``walks`` and C, step and top-k from ``cfg``."""
+    return segment_topk(*_walk_items(g, walks, cfg), cfg.topk, g.n_nodes)
 
 
 def uniwalk_tile_topk(g: Graph, src_tile: torch.Tensor, key: int, cfg: UniWalkConfig):
     """(vals [T, topk], idx [T, topk]) of one source tile on the graph's
     device; the diagonal is excluded by the items (target != source)."""
-    return segment_topk(*_uniwalk_items(g, src_tile, key, cfg), cfg.topk, g.n_nodes)
+    return uniwalk_walks_topk(g, _tile_walks(g, src_tile, key, cfg.sample, cfg.step), cfg)
 
 
-def run_source_tiles(items, n_nodes: int, sources: np.ndarray, tile: int, topk: int,
-                     key: int, dense: bool, dev):
-    """Each tile's ``items(src_tile, key_for(key, lo)) -> (targets, values)``
-    reduced to its sources' top-k (:func:`segment_topk`) or, when
-    ``dense``, scattered into [T, V] rows with each source's own column
-    zeroed (``SingleRandomWalk.java:44``).  The last tile is padded with
-    source 0 to the tile's width, as in graphtpu.  Returns host (vals, idx)
-    or the dense [N, V] rows."""
+def run_source_tiles(stages, n_nodes: int, sources: np.ndarray, tile: int, topk: int,
+                     key: int, dense: bool, dev, stage_times: Optional[dict] = None):
+    """Each tile's item stream reduced to its sources' top-k (:func:`segment_topk`)
+    or, when ``dense``, scattered into [T, V] rows with each source's own
+    column zeroed (``SingleRandomWalk.java:44``).  ``stages`` are a tile's
+    named steps: the first called as ``fn(src_tile, key_for(key, lo))``, each
+    later one on the output of the one before, the last giving (targets,
+    values).  The last tile is padded with source 0 to the tile's width, as
+    in graphtpu.  ``stage_times``: the ms of each stage and, in the top-k
+    form, of ``reduce`` (:class:`StageClock`).
+    Returns host (vals, idx) or the dense [N, V] rows."""
+    clock = StageClock(stage_times, dev)
     n = len(sources)
     out_vals = torch.zeros((n, topk), dtype=torch.float32, device=dev)
     out_idx = torch.zeros((n, topk), dtype=torch.int32, device=dev)
     out_dense = np.zeros((n, n_nodes), np.float32) if dense else None
+    padded = np.zeros(-(-n // tile) * tile, np.int32)
+    padded[:n] = sources
+    # one upload for all tiles: a copy from pageable host memory waits for the
+    # device, and one a tile idles the card while the host queues the tile's
+    # first launches, so that the solve runs at the host's speed
+    all_src = torch.from_numpy(padded).to(dev)
+    (first_name, first), *rest = stages
     for lo in range(0, n, tile):
         m = min(tile, n - lo)
-        chunk = np.zeros(tile, np.int32)
-        chunk[:m] = sources[lo:lo + m]
-        src = torch.from_numpy(chunk).to(dev)
-        targets, vals = items(src, key_for(key, lo))
+        src = all_src[lo:lo + tile]
+        out = clock.stage(first_name, first, src, key_for(key, lo))
+        for name, fn in rest:
+            out = clock.stage(name, fn, out)
+        targets, vals = out
         if dense:
             sim = _dense_tile(targets, vals, n_nodes)
             sim[torch.arange(tile, device=dev), src.long()] = 0.0
             vk, ik = topk_rows(sim, topk)
             out_dense[lo:lo + m] = sim[:m].cpu().numpy()
         else:
-            vk, ik = segment_topk(targets, vals, topk, n_nodes)
+            vk, ik = clock.stage("reduce", segment_topk, targets, vals, topk, n_nodes)
         out_vals[lo:lo + m] = vk[:m]
         out_idx[lo:lo + m] = ik[:m]
+    clock.close()
     if dense:
         return out_dense
     return out_vals.cpu().numpy(), out_idx.cpu().numpy()
@@ -143,19 +184,35 @@ def uniwalk_simrank(
     sources: Optional[np.ndarray] = None,
     dense: bool = False,
     device=None,
+    stage_times: Optional[dict] = None,
 ):
     """UniWalk SimRank for all (or the given) sources, on ``device``
     (default ``cuda``).
 
     Returns ``(topk_values [N, topk], topk_indices [N, topk])`` numpy arrays
-    in source order, or the dense [N, V] matrix when ``dense``."""
+    in source order, or the dense [N, V] matrix when ``dense``.
+    ``stage_times``, when given, receives the ms of the stages ``walks``,
+    ``items`` and ``reduce``.  The call adds its walkers and hops to
+    :data:`UNIWALK_COUNTS`."""
     dev = resolve_device(device)
     g = g.to(dev)
     sources = (np.arange(g.n_nodes, dtype=np.int32) if sources is None
                else np.asarray(sources, np.int32))
-    return run_source_tiles(
-        lambda src, k: _uniwalk_items(g, src, k, cfg), g.n_nodes, sources,
-        min(cfg.source_tile, len(sources)), cfg.topk, 0 if key is None else key, dense, dev)
+    ended = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def walks(src, k):
+        w = _tile_walks(g, src, k, cfg.sample, cfg.step)
+        UNIWALK_COUNTS["walkers"] += w.shape[0] * w.shape[1]
+        # the last node alone: a count over every node took 0.24 ms a tile on
+        # an H100, 2.4% of a solve
+        ended.add_((w[..., -1] >= 0).sum())
+        return w
+
+    out = run_source_tiles([("walks", walks), ("items", lambda w: _walk_items(g, w, cfg))],
+                           g.n_nodes, sources, min(cfg.source_tile, len(sources)), cfg.topk,
+                           0 if key is None else key, dense, dev, stage_times)
+    UNIWALK_COUNTS["hops"] += int(ended) * 2 * cfg.step
+    return out
 
 
 def _reuse_items(deg: torch.Tensor, walks: torch.Tensor, step: int, c: float, times: int):

@@ -38,6 +38,12 @@ Phases (any failure raises and the run exits non-zero):
      beside level 0; the whole tree product against the float64 oracle
      and, f32 and bf16, bit-equal to the row tiles alone
      (``dataclasses.replace(tree, layouts=())``).
+     4b: the transpose T1 (``kernels/transpose.py``) bit-equal to
+     ``x.t().contiguous()`` at ragged and whole-chunk shapes, f32 and bf16,
+     and at the gold cells' V = 32,768 (the first V rows of a [V+1, V]
+     product): CUDA-event times of kernel, plain version and a
+     device-to-device ``copy_`` of the same bytes, with the bound.  Phases
+     5-7 count its launches: one an iteration of every CLI run.
   5. main path: ``python -m graphtpu_torch simrank --engine spmm`` for
      modes kahan, fast and fast16 on the blog-shaped graph; launch counts,
      files read back, scores against the dense fp32 engine, the host ms of
@@ -856,6 +862,39 @@ def check_sim_file(sim_path, dense_top, tol, tag):
     return sims, file_err
 
 
+def phase_transpose(dev, report):
+    """T1 (``kernels/transpose.py``): bits against ``x.t().contiguous()``
+    at ragged shapes (the element path), whole-chunk shapes and a pointer
+    off 16 bytes, f32 and bf16; then its times at V = 32,768
+    (``bench/transpose_probe.py``).  Returns the f32 and bf16 cases."""
+    from graphtpu_torch.bench.transpose_probe import transpose_times
+    from graphtpu_torch.kernels import transpose
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((1, 300), (33, 65), (257, 4097), (2056, 4104), "offset"):
+            if shape == "offset":
+                x = torch.randn(1 + 96 * 200, generator=gen, device=dev).to(dtype)[1:]
+                x = x.view(96, 200)
+            else:
+                x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            got = transpose.transpose_2d(x)
+            torch.cuda.synchronize()
+            check(torch.equal(got, x.t().contiguous()),
+                  f"transpose {tuple(x.shape)} {dtype}: differs from x.t().contiguous()")
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        c = transpose_times(dev, 32_768, dtype)
+        say(f"transpose [{c['v']}, {c['v']}] {c['dtype']}: kernel {c['ms']:.3f} ms, plain "
+            f"{c['plain_ms']:.3f} ms, copy_ of the same bytes {c['copy_ms']:.3f} ms, bound "
+            f"{c['bound_ms']:.3f} ms ({c['bound_by']}); the kernel at {100 * c['of_copy']:.1f}% "
+            f"of the copy's rate, {100 * c['of_bound']:.1f}% of the bound")
+        cases.append(c)
+        torch.cuda.empty_cache()
+    report["transpose"] = cases
+    return cases
+
+
 @contextlib.contextmanager
 def forced_row_tiles():
     """``exact_simrank_spmm`` builds its streams without a layout or plan
@@ -884,7 +923,7 @@ def run_main_path(dev, path, n_nodes, modes, report, tag, want_design,
     from graphtpu_torch.core.config import SimRankConfig
     from graphtpu_torch.core.reorder import rcm_order, relabel_graph
     from graphtpu_torch.io.simfile import read_topk_ids
-    from graphtpu_torch.kernels import spmm
+    from graphtpu_torch.kernels import spmm, transpose
     from graphtpu_torch.kernels.topk import topk_rows
     from graphtpu_torch.simrank.exact import exact_simrank, exact_simrank_spmm
 
@@ -911,10 +950,14 @@ def run_main_path(dev, path, n_nodes, modes, report, tag, want_design,
                 "--n-nodes", str(n_nodes)] + seg_args
         for k in spmm.SPMV_LAUNCHES:
             spmm.SPMV_LAUNCHES[k] = 0
+        transposed = transpose.TRANSPOSE_LAUNCHES["transpose"]
         t0 = time.perf_counter()
         check(cli_main(argv) == 0, f"{tag} {mode}: CLI exit code")
         cli_s = time.perf_counter() - t0
         rise = dict(spmm.SPMV_LAUNCHES)
+        transposed = transpose.TRANSPOSE_LAUNCHES["transpose"] - transposed
+        check(transposed == cfg.iterations,
+              f"{tag} {mode}: transpose launches {transposed}, expected {cfg.iterations}")
         for k in launches:
             launches[k] += rise[k]
         want = {k: (2 * cfg.iterations if k == kernel else 0) for k in rise}
@@ -2957,7 +3000,14 @@ def main(argv=None) -> int:
     say("== phase 4: kernel B3 against its plain version")
     tree_cases = phase_tree_kernel(dev, report)
 
+    say("== phase 4b: the transpose T1 against its plain version")
+    transpose_cases = phase_transpose(dev, report)
+    torch.cuda.empty_cache()
+
     from graphtpu_torch.io.edgelist import write_edgelist
+    from graphtpu_torch.kernels import transpose
+
+    transposed = transpose.TRANSPOSE_LAUNCHES["transpose"]
 
     with tempfile.TemporaryDirectory() as tmp:
         say("== phase 5: main path (blog-shaped graph)")
@@ -2989,6 +3039,7 @@ def main(argv=None) -> int:
                                        [torch.float32, torch.bfloat16], report)
     rmat_tree_launches = run_tree_path(dev, rmat14_graph(), "rmat", [torch.float32], report)
     launches["gather"] += rmat_tree_launches
+    launches["transpose"] = transpose.TRANSPOSE_LAUNCHES["transpose"] - transposed
 
     say("== phase 8: SpMV item-rate probe")
     rate_launches, rate_cases = phase_rate_probe(dev, report)
@@ -3113,6 +3164,15 @@ def main(argv=None) -> int:
         bound_ms=[c["bound_ms"] for c in rmat_levels],
         bound_by=[c["bound_by"] for c in rmat_levels], library_ms=rmat_levels[0]["library_ms"])
     summary.append(b3)
+    # T1 at V = 32,768: f32 as the entry, bf16 beside it; the library
+    # column is a copy_ of the same bytes, a yardstick and not the same function
+    t1 = transpose_cases[0]
+    x = entry("transpose_2d (T1)", "graphtpu_torch/kernels/csrc/transpose.cu",
+              "none (graphtpu/simrank/exact.py:154-169 leaves it to XLA)", "transpose", [0.0],
+              t1, bounds.transpose_work(t1["v"], t1["v"], 4), t1["copy_ms"])
+    x.update(library_call="copy_ of the same bytes", shape=[t1["v"], t1["v"]],
+             bf16={k: transpose_cases[1][k] for k in ("ms", "plain_ms", "copy_ms", "bound_ms")})
+    summary.append(x)
     for key, label, replaces in RATE_KERNELS:
         mine = [c for c in rate_cases if c["kernel"] == key]
         timed = next(c for c in mine if c["graph"] == "blog")

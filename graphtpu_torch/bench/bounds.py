@@ -42,6 +42,12 @@ def spmv_work(n_items: int, seg_k: int, v: int, c: int, itemsize: int, mode: str
     return float(nbytes), float(ops) * c
 
 
+def transpose_work(rows: int, cols: int, itemsize: int) -> Tuple[float, float]:
+    """(bytes, operations) of one transpose of a [rows, cols] tensor into a
+    new one: each element read once and written once, no arithmetic."""
+    return float(2 * rows * cols * itemsize), 0.0
+
+
 def stream_terms(stream) -> int:
     """The terms of an item stream: its items (seg-1), or its real items'
     sub-rows with a nonzero raw coefficient (seg-k)."""

@@ -8,7 +8,8 @@ is S' = C·P·S·Pᵀ, run two ways:
 * :func:`exact_simrank`: two dense matmuls per iteration, in full fp32
   by default (TF32 off), the gold;
 * :func:`exact_simrank_spmm`: two sparse products per iteration and one
-  transpose, through the item stream (:func:`graphtpu_torch.kernels.spmm.spmv`)
+  transpose (:func:`graphtpu_torch.kernels.transpose.transpose_2d`),
+  through the item stream (:func:`graphtpu_torch.kernels.spmm.spmv`)
   or the reduction tree (:func:`graphtpu_torch.kernels.spmm.tree_spmm`).
 
 A :class:`DiGraph` gets directed SimRank over in-neighbours (the in-CSR).
@@ -33,6 +34,7 @@ from graphtpu_torch.kernels.spmm import (
     tree_spmm,
 )
 from graphtpu_torch.kernels.topk import topk_rows
+from graphtpu_torch.kernels.transpose import transpose_2d
 from graphtpu_torch.utils.metrics import StageClock
 
 
@@ -150,7 +152,7 @@ def exact_simrank_spmm(
         pin = None if k == 0 else cfg.c
         ps = clock.stage("product1", spmv, plan, s, spmv_mode, table_scale=pin)
         del s
-        pst = clock.stage("transpose", lambda x: x[:v].t().contiguous(), ps)
+        pst = clock.stage("transpose", lambda x: transpose_2d(x[:v]), ps)
         del ps
         s = clock.stage("product2", spmv, plan, pst, spmv_mode)  # raw, V+1 rows
         del pst
@@ -177,7 +179,7 @@ def _tree_iterate(g, cfg, weighted, dtype, width, col_block, device, clock):
     for _ in range(cfg.iterations):
         ps = clock.stage("product1", tree_spmm, plan, s, col_block)  # f32
         del s
-        pst = clock.stage("transpose", lambda x: x.t().contiguous(), ps)
+        pst = clock.stage("transpose", transpose_2d, ps)
         del ps
         s = clock.stage("product2", product2, pst)
         del pst

@@ -1,5 +1,7 @@
 """Kernels B1/B2 of graphtpu_torch on an NVIDIA GPU, against their plain
-PyTorch version and the float64 oracle.  Every test needs a card and skips
+PyTorch version and the float64 oracle, and the transpose between an exact
+SimRank iteration's two products (``kernels/transpose.py``) against
+``x.t().contiguous()``.  Every test needs a card and skips
 without one.  This file imports neither jax nor graphtpu, so it also runs
 where only the port is installed:
 
@@ -16,7 +18,9 @@ import graphtpu_torch as gt
 from graphtpu_torch.cli import main as cli_main
 from graphtpu_torch.io.edgelist import write_edgelist
 from graphtpu_torch.io.simfile import read_sim_file
-from graphtpu_torch.kernels import spmm
+from graphtpu_torch.core.config import SimRankConfig
+from graphtpu_torch.kernels import spmm, transpose
+from graphtpu_torch.simrank import exact
 from graphtpu_torch.simrank.exact import exact_simrank, exact_simrank_spmm
 
 pytestmark = pytest.mark.cuda
@@ -595,3 +599,72 @@ def test_weighted_seg_stays_on_row_tiles(cuda, k):
     for mode in ("kahan", "fast"):
         got = spmm.spmv(plan, x, mode, 0.6)
         assert (got - spmm.spmv_plain(plan, x, mode, 0.6)).abs().max().item() <= 1e-5
+
+
+# ragged shapes (scalar path where R, C or the pointer miss 16 bytes'
+# worth), whole-chunk shapes, several tiles and runs of tile rows
+TRANSPOSE_SHAPES = [(1, 300), (300, 1), (33, 65), (257, 4097), (96, 200), (2056, 4104),
+                    "offset", "v32768"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TRANSPOSE_SHAPES)
+def test_transpose_kernel_equals_plain(cuda, shape, dtype):
+    """The kernel's bits against ``x.t().contiguous()``; "offset" starts one
+    element past a 16-byte boundary, "v32768" is the first 32,768 rows of a
+    [32,769, 32,768] product, the stream branch's ``ps[:v]`` at the gold
+    cells' V."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    if shape == "offset":
+        x = torch.randn(1 + 96 * 200, generator=gen, device=cuda).to(dtype)[1:].view(96, 200)
+        assert x.data_ptr() % 16 != 0
+    elif shape == "v32768":
+        x = torch.randn((32_769, 32_768), generator=gen, device=cuda).to(dtype)[:32_768]
+    else:
+        x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    before = transpose.TRANSPOSE_LAUNCHES["transpose"]
+    got = transpose.transpose_2d(x)
+    torch.cuda.synchronize()
+    assert transpose.TRANSPOSE_LAUNCHES["transpose"] == before + 1
+    assert got.shape == (x.shape[1], x.shape[0]) and got.is_contiguous()
+    assert torch.equal(got, x.t().contiguous())
+
+
+def test_transpose_rejects_on_the_card(cuda):
+    with pytest.raises(ValueError):
+        transpose.transpose_2d(torch.zeros((8, 8), device=cuda)[:, ::2])
+    with pytest.raises(TypeError):
+        transpose.transpose_2d(torch.zeros((8, 8), dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError):
+        transpose.transpose_2d(torch.zeros((2, 8, 8), device=cuda))
+
+
+@pytest.mark.parametrize("graph", ["small", "v1030", "v3000"])
+@pytest.mark.parametrize("case", ["kahan", "kahan_tiles", "kahan_rows", "fast16", "tree"])
+def test_simrank_spmm_transpose_kernel_bit_equal(cuda, case, graph, monkeypatch):
+    """A solve's scores with the kernel equal those with the plain
+    transpose, bit for bit, on the stream's own design (the column panel),
+    the L2 column tiles and row tiles (as chip_smoke.forced_row_tiles
+    forces), fast16's bf16 iterates and the tree branch; one launch an
+    iteration.  V = 1,030 runs the kernel's element path, 3,000 whole
+    chunks over several runs of tile rows."""
+    g = {"small": _small_random,
+         "v1030": lambda: _graph(v=1030, e=12_000, seed=32),
+         "v3000": lambda: _graph(v=3000, e=30_000, seed=33)}[graph]()
+    kw = {"fast16": dict(spmv_mode="fast", dtype=torch.bfloat16),
+          "tree": dict(impl="tree")}.get(case, {})
+    build = exact.build_spmv_stream
+    if case == "kahan_tiles":
+        monkeypatch.setattr(exact, "build_spmv_stream", lambda *a, **k: _tiled(build(*a, **k)))
+    if case == "kahan_rows":
+        monkeypatch.setattr(exact, "build_spmv_stream",
+                            lambda *a, **k: spmm.row_tiles(build(*a, **k)))
+    cfg = SimRankConfig(iterations=4)
+    before = transpose.TRANSPOSE_LAUNCHES["transpose"]
+    got = exact_simrank_spmm(g, cfg, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert transpose.TRANSPOSE_LAUNCHES["transpose"] == before + cfg.iterations
+    monkeypatch.setattr(exact, "transpose_2d", transpose.transpose_2d_plain)
+    plain = exact_simrank_spmm(g, cfg, device=cuda, **kw)
+    assert transpose.TRANSPOSE_LAUNCHES["transpose"] == before + cfg.iterations
+    assert torch.equal(got, plain)

@@ -310,14 +310,15 @@ def phase_kernels(dev, report):
     seg2 = spmm.build_spmv_segments(g2, k=2, device=dev)
     seg4 = spmm.build_spmv_segments(g2, k=4, device=dev)
     say(f"blog stream: V={g.n_nodes} slots={g.n_edges} items={plan.n_items} "
-        f"max_degree={g.max_degree}; sliced layout: {plan.sell.n_chunks} chunks, "
-        f"{plan.sell.hub_rows.numel()} hub rows, built in {plan.sell.host_ms:.1f} ms (host)")
+        f"max_degree={g.max_degree}; sliced layout: {plan.layout.n_chunks} chunks, "
+        f"{plan.layout.hub_rows.numel()} hub rows, built in {plan.layout.host_ms:.1f} ms (host)")
     for name, sk in (("seg-2", seg2), ("seg-4", seg4)):
         check(spmm.spmv_design(sk) == spmm.spmv_design(sk, torch.bfloat16) == "panel"
-              and sk.sell.hub_rows.numel() == 0,
+              and sk.layout.hub_rows.numel() == 0,
               f"rcm {name}: expected the column panel with lane rows only")
         say(f"rcm {name} stream: items={sk.n_items}, {bounds.stream_terms(sk)} nonzero sub-rows; "
-            f"sliced layout {sk.sell.n_chunks} chunks, built in {sk.sell.host_ms:.1f} ms (host)")
+            f"sliced layout {sk.layout.n_chunks} chunks, built in {sk.layout.host_ms:.1f} ms "
+            "(host)")
     x_np = np.random.default_rng(1).random((BLOG_NODES, BLOG_NODES), dtype=np.float32)
     x = torch.from_numpy(x_np).to(dev)
     xb = x.bfloat16()
@@ -521,8 +522,8 @@ def phase_kernels_large(dev, report):
         say(f"{tag} stream: V={v} slots={g.n_edges} items={plan.n_items} max_degree="
             f"{g.max_degree}; hub rows hold {spmm.hub_share(plan):.3f} of the items; "
             f"f32 design {spmm.spmv_design(plan)}"
-            + ("" if plan.tiles is None else
-               f" ({plan.tiles.n_pieces} hub pieces, plan {plan.tiles.host_ms:.1f} ms host)"))
+            + ("" if not isinstance(plan.layout, spmm.TilePlan) else
+               f" ({plan.layout.n_pieces} hub pieces, plan {plan.layout.host_ms:.1f} ms host)"))
         x = torch.rand((v, v), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
         for name, mode, dtype, ts in (("kahan_f32", "kahan", torch.float32, None),
                                       ("kahan_f32_pin", "kahan", torch.float32, 0.6),
@@ -1218,8 +1219,8 @@ def phase_rate_probe(dev, report):
         buf = torch.rand((spmv_rate.N_BUF, g.n_nodes), generator=gen, device=dev)
         rows_st = spmm.row_tiles(stream)
         lane = np.arange(g.n_nodes + 1)
-        if stream.sell is not None:
-            lane = np.setdiff1d(lane, stream.sell.hub_rows.cpu().numpy())
+        if isinstance(stream.layout, spmm.SellLayout):
+            lane = np.setdiff1d(lane, stream.layout.hub_rows.cpu().numpy())
         lane = torch.as_tensor(lane, device=dev)
         for key, label, _ in RATE_KERNELS:
             fn = getattr(spmv_rate, key)
@@ -1281,22 +1282,22 @@ def phase_rate_probe(dev, report):
             check(ok, f"{tag} {label}: kernel vs plain version outside {bound}")
             check(unequal_rows in (None, 0), f"{tag} {label}: the panel and the row tiles differ")
             del out, plain
-        if stream.sell is None:
+        if not isinstance(stream.layout, spmm.SellLayout):
             # X2 over the sliced layout of a table past the panel, as the
             # probe ran it: the row tiles' bits on lane rows, and every row
             # within two plain f32 sums' error bound of its plain version,
             # 2·(n - 1)·2^-24·sum|terms| for n items (R-MAT's rows of up to
             # 4,086 items, summed in two orders, differ by more than TOL_RATE)
-            sliced = dataclasses.replace(rows_st, sell=spmm.build_sell_layout(stream))
+            sliced = spmm.with_layout(stream, spmm.build_sell_layout(stream))
             out = spmv_rate.accumulate_only(sliced, buf)
             plain = spmv_rate.accumulate_only_plain(stream, buf)
             lane = torch.as_tensor(np.setdiff1d(np.arange(g.n_nodes + 1),
-                                                sliced.sell.hub_rows.cpu().numpy()), device=dev)
+                                                sliced.layout.hub_rows.cpu().numpy()), device=dev)
             unequal = int((out[lane] != spmv_rate.accumulate_only(rows_st, buf)[lane]).sum())
             n = torch.diff(stream.row_items).clamp(min=2).float()[:, None]
             within = bool(((out - plain).abs() <= 2 * (n - 1) * 2.0**-24 * plain).all())
             err = (out - plain).abs().max().item()
-            say(f"{tag} X2 over its sliced layout ({sliced.sell.n_chunks} chunks, no panel): "
+            say(f"{tag} X2 over its sliced layout ({sliced.layout.n_chunks} chunks, no panel): "
                 f"err vs plain {err:.3e} (bound 2(n-1)2^-24 sum|terms| a row); {unequal} "
                 "elements unequal to the row tiles' (lane rows)")
             check(within and unequal == 0,

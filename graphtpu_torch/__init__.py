@@ -30,9 +30,9 @@ Each module sits opposite its ``graphtpu`` counterpart:
   pipelines_deepsim  DeepSim: ``.sim.txt`` + walks -> autoencoder -> W1
   viz       PNG plots of the LE flows (matplotlib, imported when used)
   dryrun    every dist entry point once on N local ranks
-  bench/    synthetic graph generators, the SpMV item-rate probe, the
-            embedding path's and the engines' profiles, walk
-            diagnostics, gold-standard sweeps, the 10M flagship
+  bench/    synthetic graph generators, kernel bounds and timing, the
+            SpMV item-rate probe, the packed-lane and transpose probes,
+            walk diagnostics, gold-standard sweeps, the 10M flagship
 This package imports neither ``jax`` nor ``graphtpu``.
 """
 

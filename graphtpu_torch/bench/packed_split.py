@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import dataclasses
 import json
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
@@ -106,9 +105,9 @@ def main(argv=None) -> dict:
             libs = dict(zip(CUTS, ex.map(lambda p: cut_library(p, tmp), CUTS)))
         rmat = spmm.build_spmv_stream(rmat14_graph(), device=dev)
         blog = spmm.build_spmv_stream(blog_shaped_graph(), device=dev)
-        blog = dataclasses.replace(spmm.row_tiles(blog), packed=spmm.build_packed_layout(blog))
+        blog = spmm.with_layout(blog, spmm.build_packed_layout(blog))
         for tag, st in (("rmat", rmat), ("blog", blog)):
-            lay = st.packed
+            lay = st.layout
             print(f"{tag}: design {spmm.spmv_design(st)}, {lay.n_chunks} chunks, "
                   f"{lay.n_pieces} pieces, layout {lay.host_ms:.1f} ms (host)", flush=True)
             x = torch.rand((st.n_nodes, st.n_nodes), generator=torch.Generator(device=dev)

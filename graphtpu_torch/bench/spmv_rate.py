@@ -21,9 +21,10 @@ the hand kernels of ``kernels/csrc/spmv_rate.cu``:
 It prints ns per stream item and the rate of row reads for each, the
 median of 9 timed runs, the design each kernel ran and, for the panel
 designs, ns per chunk of their layout and 16-byte slab (a block walks every
-chunk once for its slab).  The streams are built on the card with their
-sliced layout where B2's column panel takes them (blog; not R-MAT), and
-the rate kernels run the design the stream gives them (:func:`design`).
+chunk once for its slab).  The streams are built on the card with the
+``layout`` of their design (blog: a sliced one for B2's column panel;
+R-MAT: a packed one), and the rate kernels run the design the stream
+gives them (:func:`design`).
 At blog that is B2's column panel: X1 is the panel
 with a max in place of the add (its reads alone), X2 the panel's launch,
 ring and walk with each item's term taken from a buffer in registers (its
@@ -36,18 +37,17 @@ thread, X3 with 8, X2 with its buffer tile in registers; and X2 runs once
 more over R-MAT's sliced layout (:func:`build_sell_layout`, whose table
 does not fit the panel: X2 reads none), which gives that layout's walk,
 flushes and hub join without panel reads, beside blog's.
-``dataclasses.replace(stream, sell=None)`` forces row tiles.  Each
-wrapper runs its plain PyTorch version on a CPU tensor and launches its
-kernel on a CUDA tensor, or raises; the probe itself needs a card.  The
-TPU tool's ring-depth and block-size grid and its transpose timings are
-TPU staging and have no counterpart here.
+``spmm.row_tiles(stream)`` forces row tiles.  Each wrapper runs its plain
+PyTorch version on a CPU tensor and launches its kernel on a CUDA tensor,
+or raises; the probe itself needs a card.  The TPU tool's ring-depth and
+block-size grid and its transpose timings are TPU staging and have no
+counterpart here.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import dataclasses
 import json
 from typing import Dict, List
 
@@ -56,14 +56,16 @@ import torch
 from graphtpu_torch.bench.generators import blog_shaped_graph, rmat14_graph
 from graphtpu_torch.bench.timing import cuda_ms
 from graphtpu_torch.kernels.spmm import (
+    SellLayout,
     SpmvStream,
+    _check_placed,
     build_sell_layout,
     build_spmv_stream,
-    row_tiles,
     scatter_rows_plain,
     sell_launch_args,
     spmv,
     spmv_design,
+    with_layout,
 )
 
 # kernel launches, counted where a wrapper launches its kernel
@@ -112,11 +114,11 @@ def unroll8_plain(stream: SpmvStream, table: torch.Tensor) -> torch.Tensor:
 
 def design(name: str, stream: SpmvStream) -> str:
     """The design kernel ``name`` (a key of RATE_LAUNCHES) runs on
-    ``stream``: "panel" over a stream with a sliced layout, as B2 does,
-    else "rows"."""
+    ``stream``: "panel" over a stream whose ``layout`` is a sliced one, as
+    B2 does, else "rows"."""
     if name not in RATE_LAUNCHES:
         raise ValueError(f"unknown rate kernel {name!r}")
-    return "panel" if stream.sell is not None else "rows"
+    return "panel" if isinstance(stream.layout, SellLayout) else "rows"
 
 
 def _launch(name: str, stream: SpmvStream, first: torch.Tensor, x: torch.Tensor):
@@ -124,13 +126,8 @@ def _launch(name: str, stream: SpmvStream, first: torch.Tensor, x: torch.Tensor)
 
     if not x.is_contiguous():
         raise ValueError("table and buffer must be contiguous")
-    lay = stream.sell
-    fields = (first, stream.row_items) + (() if lay is None else (
-        lay.slots, lay.lane_row, lay.lane_cnt, lay.lane_base, lay.unit_hub, lay.ss_chunks,
-        lay.hub_rows, lay.hub_piece, lay.row_wts, lay.row_scale))
-    for f in fields:
-        if f.device != x.device or not f.is_contiguous():
-            raise ValueError("stream tensors must be contiguous on the table's device")
+    lay = stream.layout if design(name, stream) == "panel" else None
+    _check_placed(x.device, (first, stream.row_items), lay)
     v, c = stream.n_nodes, x.shape[1]
     out = torch.empty((v + 1, c), dtype=torch.float32, device=x.device)
     if c == 0:
@@ -140,7 +137,7 @@ def _launch(name: str, stream: SpmvStream, first: torch.Tensor, x: torch.Tensor)
     # the panel's layout and scratch, held until the launch is enqueued; X2
     # weighs each item by its row's folded weight
     sell = hub_acc = None
-    if design(name, stream) == "panel":
+    if lay is not None:
         sell, hub_acc = sell_launch_args(lay, c, name == "accumulate_only", x.device)
     with torch.cuda.device(x.device):
         cu_stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -200,18 +197,18 @@ def probe(stream: SpmvStream, table: torch.Tensor, buf: torch.Tensor) -> List[Di
          lambda: accumulate_only(stream, buf), 0),
         ("X3 unroll", design("unroll8", stream), lambda: unroll8(stream, table), 4),
     ]
-    walks = {"panel": stream.sell, "packed": stream.packed}
-    if stream.sell is None and stream.uniform:
+    walks = {spmv_design(stream): stream.layout}
+    if not isinstance(stream.layout, SellLayout) and stream.uniform:
         # X2 over the sliced layout of a stream whose table no panel holds
-        sliced = dataclasses.replace(row_tiles(stream), sell=build_sell_layout(stream))
-        walks["panel"] = sliced.sell
+        sliced = with_layout(stream, build_sell_layout(stream))
+        walks["panel"] = sliced.layout
         cases.append(("X2 sliced layout", "panel", lambda: accumulate_only(sliced, buf), 0))
     rows = []
     for name, used, fn, elem_bytes in cases:
         ms = cuda_ms(fn, runs=RUNS)
         row = dict(kernel=name, design=used, ms=ms, ns_per_item=ms * 1e6 / items,
                    read_gb_per_s=items * c * elem_bytes / (ms * 1e6))
-        if walks.get(used) is not None:
+        if hasattr(walks.get(used), "n_chunks"):  # a panel's layout
             # every block walks every chunk of the layout once for its
             # 16-byte slab (4 f32 or 8 bf16 columns)
             slabs = -(-c // (8 if elem_bytes == 2 else 4))

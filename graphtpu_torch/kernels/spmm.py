@@ -7,9 +7,8 @@ gathered rows per output row.  The host builds one plan per graph, in one
 of two forms:
 
 * an :class:`SpmvStream` of (slot, weight, output row) items sorted by
-  output row, on the card with its sliced layout (:class:`SellLayout`)
-  where the column panel runs it or its tile plan (:class:`TilePlan`)
-  where the L2 column tiles do (:func:`design_rule`), run by :func:`spmv`
+  output row, on the card with the ``layout`` its :func:`design_rule`
+  gives it (:func:`with_layout` sets another), run by :func:`spmv`
   — on a CUDA tensor through the hand kernels of ``csrc/spmv.cu``, B1
   (Kahan-compensated row sums, the gold mode) and B2 (plain f32 row sums,
   f32 or bf16 tables); on a CPU tensor through :func:`spmv_plain`, the
@@ -31,7 +30,7 @@ import ctypes
 import dataclasses
 import heapq
 import time
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -84,16 +83,14 @@ def runs_panel(stream: "SpmvStream") -> bool:
 
 def spmv_design(stream: "SpmvStream", dtype=torch.float32) -> str:
     """The design B1/B2 run ``stream`` in on the card over a ``dtype``
-    table: "panel" (the column panel over its sliced layout), "packed" (the
-    packed-lane panel over its :class:`PackedLayout`), "tiles" (the L2
-    column tiles over its :class:`TilePlan`, f32 tables only) or "rows"
-    (row tiles).  A stream built on the card gets the layout or plan of its
-    :func:`design_rule`; :func:`row_tiles` forces the last."""
-    if stream.sell is not None:
-        return "panel"
-    if stream.packed is not None:
-        return "packed"
-    return "tiles" if stream.tiles is not None and dtype == torch.float32 else "rows"
+    table, from the type of its ``layout``: "panel" (the column panel over
+    a :class:`SellLayout`), "packed" (the packed-lane panel over a
+    :class:`PackedLayout`), "tiles" (the L2 column tiles over a
+    :class:`TilePlan`, f32 tables only) or "rows" (row tiles).  A stream
+    built on the card gets the layout of its :func:`design_rule`;
+    :func:`with_layout` sets another, :func:`row_tiles` none."""
+    design = _DESIGNS[type(stream.layout)][0] if stream.layout is not None else "rows"
+    return "rows" if design == "tiles" and dtype != torch.float32 else design
 
 
 # A slot entry of the sliced layout: the table row in bits 0-13 (V <=
@@ -103,8 +100,22 @@ SELL_END = 0x8000
 SELL_ROW = 0x3FFF
 
 
+class _Tensors:
+    """``to`` for a frozen dataclass of tensors and plain values."""
+
+    def to(self, device):
+        return dataclasses.replace(self, **{
+            n: t.to(device) for n, t in _tensor_fields(self).items()})
+
+
+def _tensor_fields(obj) -> dict:
+    """The tensor fields of dataclass ``obj``, by name."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)}
+
+
 @dataclasses.dataclass(frozen=True)
-class SellLayout:
+class SellLayout(_Tensors):
     """A :func:`panel_stream` in the sliced order kernels B1/B2 walk as the
     column panel (SELL-32-σ).
 
@@ -158,14 +169,6 @@ class SellLayout:
     n_pieces: int
     host_ms: float
 
-    def to(self, device) -> "SellLayout":
-        move = {
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)
-        }
-        return dataclasses.replace(self, **move)
-
 
 def _walk_positions(stream: "SpmvStream"):
     """The column panel's positions of a seg-k ``stream`` in stream order,
@@ -193,9 +196,7 @@ def build_sell_layout(stream: "SpmvStream", hub=SELL_HUB, sigma=SELL_SIGMA) -> S
     numpy work); the positions are found and expanded on the stream's
     device."""
     t0 = time.perf_counter()
-    if not panel_stream(stream):
-        raise ValueError("the sliced layout takes a uniform seg-1 stream or a mask-uniform "
-                         "seg-2 or seg-4 stream")
+    _admit(stream, SellLayout)
     dev, k = stream.slots.device, stream.seg_k
     if k == 1:  # a position is an item
         p_code, p_coef, row_pos = stream.slots, None, stream.row_items.cpu().numpy()
@@ -305,7 +306,7 @@ def build_sell_layout(stream: "SpmvStream", hub=SELL_HUB, sigma=SELL_SIGMA) -> S
 # and whose panel rows take at least PACK_HOT_SHARE of the reads: on an
 # H100 every f32 and bf16 form beat the row tiles at R-MAT 14, 99.7% of
 # the reads; with the panel cut to 10,240 rows (99.3%) B2 f32 unpinned
-# lost (bench/spmv_ab.py --hot, PERF.md).
+# lost (PERF.md §6).
 PACK_ROWS = (SMEM_BYTES - SELL_BARRIER_BYTES - SELL_STAGES * SELL_CHUNK * 2) // 16  # 11,448
 PACK_COLD = 0x4000
 PACK_MAX_V = PACK_COLD  # the entry's 14-bit table row
@@ -332,7 +333,7 @@ def runs_packed(stream: "SpmvStream") -> bool:
 
 
 @dataclasses.dataclass(frozen=True)
-class PackedLayout:
+class PackedLayout(_Tensors):
     """A uniform seg-1 item stream in the order the packed-lane panel of
     kernels B1/B2 walks it.
 
@@ -383,11 +384,6 @@ class PackedLayout:
     n_pieces: int
     host_ms: float
 
-    def to(self, device) -> "PackedLayout":
-        move = {f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
-                if isinstance(getattr(self, f.name), torch.Tensor)}
-        return dataclasses.replace(self, **move)
-
 
 def _deal_units(u_len: np.ndarray, n_warps: int):
     """Units (lengths, longest first) dealt to ``n_warps`` warps, each next
@@ -419,8 +415,7 @@ def build_packed_layout(stream: "SpmvStream", hot: Optional[int] = None) -> Pack
     panel holds the ``hot`` most-read table rows (default: as many as fit,
     PACK_ROWS), most reads first, ties to the lower row."""
     t0 = time.perf_counter()
-    if stream.seg_k != 1 or not stream.uniform:
-        raise ValueError("the packed layout takes a uniform seg-1 stream")
+    _admit(stream, PackedLayout)
     v = stream.n_nodes
     if not 1 <= v <= PACK_MAX_V:
         raise ValueError(f"the packed layout's 16-bit entry takes 1 <= V <= {PACK_MAX_V}, "
@@ -564,7 +559,7 @@ def hub_share(stream: "SpmvStream") -> float:
 
 
 @dataclasses.dataclass(frozen=True)
-class TilePlan:
+class TilePlan(_Tensors):
     """What the L2 column tiles need besides the stream: rows of more than
     ``SELL_HUB`` items (``hub_rows``, ascending) are cut into pieces of
     ``SELL_HUB`` items in row order; hub row ``hub_rows[h]`` sums pieces
@@ -579,18 +574,12 @@ class TilePlan:
     n_pieces: int
     host_ms: float
 
-    def to(self, device) -> "TilePlan":
-        move = {f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
-                if isinstance(getattr(self, f.name), torch.Tensor)}
-        return dataclasses.replace(self, **move)
-
 
 def build_tile_plan(stream: "SpmvStream") -> TilePlan:
     """The :class:`TilePlan` of a seg-1 ``stream`` (host numpy from its row
     offsets), on its device."""
     t0 = time.perf_counter()
-    if stream.seg_k != 1:
-        raise ValueError("the L2 column tiles take a seg-1 stream")
+    _admit(stream, TilePlan)
     row_items = stream.row_items.cpu().numpy()
     cnt = np.diff(row_items)
     hub_ids = np.flatnonzero(cnt > SELL_HUB)
@@ -613,9 +602,41 @@ def build_tile_plan(stream: "SpmvStream") -> TilePlan:
     )
 
 
+# Each layout type: its design, its build, and the streams that design
+# takes (its admission rule, held by the build, :func:`with_layout` and the
+# launch).
+_DESIGNS = {
+    SellLayout: ("panel", build_sell_layout, panel_stream,
+                 "a uniform seg-1 stream or a mask-uniform seg-2 or seg-4 stream"),
+    PackedLayout: ("packed", build_packed_layout, lambda s: s.seg_k == 1 and s.uniform,
+                   "a uniform seg-1 stream"),
+    TilePlan: ("tiles", build_tile_plan, lambda s: s.seg_k == 1, "a seg-1 stream"),
+}
+
+
+def _admit(stream: "SpmvStream", kind: type) -> None:
+    """Raise unless the design of layout type ``kind`` takes ``stream``."""
+    if kind not in _DESIGNS:
+        raise TypeError(f"a stream's layout is a SellLayout, PackedLayout or TilePlan, "
+                        f"got {kind.__name__}")
+    design, _, takes, what = _DESIGNS[kind]
+    if not takes(stream):
+        raise ValueError(f"a {kind.__name__} ({design} design) takes {what}")
+
+
+def with_layout(stream: "SpmvStream", layout) -> "SpmvStream":
+    """``stream`` carrying ``layout`` (a :class:`SellLayout`,
+    :class:`PackedLayout` or :class:`TilePlan`) in place of whatever layout
+    it had, or none for None (row tiles); raises where ``layout``'s design
+    does not take the stream."""
+    if layout is not None:
+        _admit(stream, type(layout))
+    return dataclasses.replace(stream, layout=layout)
+
+
 def row_tiles(stream: "SpmvStream") -> "SpmvStream":
-    """``stream`` without its layout or plan: B1/B2 run it as row tiles."""
-    return dataclasses.replace(stream, sell=None, packed=None, tiles=None)
+    """``stream`` without its layout: B1/B2 run it as row tiles."""
+    return with_layout(stream, None)
 
 
 def design_rule(stream: "SpmvStream") -> str:
@@ -633,27 +654,13 @@ def design_rule(stream: "SpmvStream") -> str:
     return "rows"
 
 
-def layout_of(stream: "SpmvStream"):
-    """The stream's sliced layout, packed layout or tile plan, or None."""
-    built = [f for f in (stream.sell, stream.packed, stream.tiles) if f is not None]
-    if len(built) > 1:
-        raise ValueError("a stream takes one of a sliced layout, a packed layout and a tile plan")
-    return built[0] if built else None
-
-
 def _with_layout(stream: "SpmvStream") -> "SpmvStream":
-    """``stream`` with the layout or plan of its :func:`design_rule` where
-    it lies on a CUDA device and has neither; unchanged otherwise."""
-    if layout_of(stream) is not None or not stream.slots.is_cuda:
+    """``stream`` with the layout of its :func:`design_rule` where it lies
+    on a CUDA device and has none; unchanged otherwise."""
+    if stream.layout is not None or not stream.slots.is_cuda:
         return stream
-    design = design_rule(stream)
-    if design == "panel":
-        return dataclasses.replace(stream, sell=build_sell_layout(stream))
-    if design == "packed":
-        return dataclasses.replace(stream, packed=build_packed_layout(stream))
-    if design == "tiles":
-        return dataclasses.replace(stream, tiles=build_tile_plan(stream))
-    return stream
+    build = {d: b for d, b, _, _ in _DESIGNS.values()}.get(design_rule(stream))
+    return stream if build is None else dataclasses.replace(stream, layout=build(stream))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -667,18 +674,18 @@ class SpmvStream:
     carry one (slot 0, weight 0) dummy item; items padding the stream to a
     ``block_items`` multiple run in the dummy output row V.
     ``row_items[r] .. row_items[r+1]`` are the items of output row r
-    (int64[V+2]).  ``sell``: on a CUDA device, the same stream in the
-    sliced order of the column panel (:class:`SellLayout`), ``packed``:
-    in the order of the packed-lane panel (:class:`PackedLayout`), and
-    ``tiles``: the plan of the L2 column tiles (:class:`TilePlan`), each
-    where :func:`design_rule` gives the stream that design, built beside
-    these fields; else None.  ``mask_uniform`` (seg_k > 1, decided on the
-    host from the weights when the stream is made): in every row the
-    nonzero raw coefficients are 1.0, the folded ones nonzero exactly
-    there and all equal, so the column panel's one weight a row and
-    unweighted sums give the row tiles' terms; ``uniform`` stays False,
-    as graphtpu has it.  ``host_ms``: host time of the numpy build, up to
-    the uploads of :func:`stream_from_numpy`.
+    (int64[V+2]).  ``layout``: on a CUDA device, what the design that
+    :func:`design_rule` gives the stream walks, built beside these fields:
+    the stream in the sliced order of the column panel (:class:`SellLayout`)
+    or in the order of the packed-lane panel (:class:`PackedLayout`), or
+    the plan of the L2 column tiles (:class:`TilePlan`); None for row
+    tiles.  ``mask_uniform`` (seg_k > 1, decided on the host from the
+    weights when the stream is made): in every row the nonzero raw
+    coefficients are 1.0, the folded ones nonzero exactly there and all
+    equal, so the column panel's one weight a row and unweighted sums give
+    the row tiles' terms; ``uniform`` stays False, as graphtpu has it.
+    ``host_ms``: host time of the numpy build, up to the uploads of
+    :func:`stream_from_numpy`.
     """
 
     slots: torch.Tensor     # int32[T]
@@ -693,9 +700,7 @@ class SpmvStream:
     uniform: bool           # all raw weights == 1 (fast mode skips the multiply)
     seg_k: int = 1          # table rows per item
     mask_uniform: bool = False  # seg-k: coefficients are masks of one value a row
-    sell: Optional[SellLayout] = None
-    tiles: Optional[TilePlan] = None
-    packed: Optional[PackedLayout] = None
+    layout: Union[SellLayout, PackedLayout, TilePlan, None] = None
     host_ms: float = 0.0
 
     def to(self, device) -> "SpmvStream":
@@ -703,9 +708,8 @@ class SpmvStream:
             f: getattr(self, f).to(device)
             for f in ("slots", "wts", "pos", "raw_wts", "scales", "row_items")
         }
-        for f in ("sell", "tiles", "packed"):
-            if getattr(self, f) is not None:
-                move[f] = getattr(self, f).to(device)
+        if self.layout is not None:
+            move["layout"] = self.layout.to(device)
         return _with_layout(dataclasses.replace(self, **move))
 
 
@@ -715,7 +719,7 @@ def stream_from_numpy(
 ) -> SpmvStream:
     """An :class:`SpmvStream` from host arrays (the fields of the JAX
     package's stream after ``np.asarray``), adding the per-row item offsets
-    and, on a CUDA device, the sliced layout where the panel runs it.
+    and, on a CUDA device, the layout of its :func:`design_rule`.
     ``host_ms`` counts from ``t0`` (a ``time.perf_counter()`` reading; by
     default this call's start) to the uploads."""
     t0 = time.perf_counter() if t0 is None else t0
@@ -1019,9 +1023,10 @@ def spmv(
     A CPU table runs :func:`spmv_plain`.  A CUDA table launches kernel B1
     (``mode="kahan"``) or B2 (``mode="fast"``) on the current stream, or
     raises; there is no other path.  The kernel runs the design of
-    :func:`spmv_design` (``csrc/spmv.cu``): the column panel over the
-    stream's sliced layout, the packed-lane panel over its packed layout,
-    the L2 column tiles over its tile plan, or row tiles.
+    :func:`spmv_design` (``csrc/spmv.cu``), set by ``stream.layout``: the
+    column panel over a :class:`SellLayout`, the packed-lane panel over a
+    :class:`PackedLayout`, the L2 column tiles over a :class:`TilePlan`, or
+    row tiles.
     """
     _check_mode(mode, table)
     if table.device.type == "cpu":
@@ -1101,6 +1106,15 @@ def tiles_launch_args(plan: TilePlan, c: int, kahan: bool, device):
     return ctypes.byref(args), acc
 
 
+def _check_placed(device, tensors, layout=None) -> None:
+    """Raise unless ``tensors`` and the tensor fields of ``layout`` (a
+    stream's layout, or None) are contiguous on ``device``."""
+    more = () if layout is None else _tensor_fields(layout).values()
+    for f in (*tensors, *more):
+        if f.device != device or not f.is_contiguous():
+            raise ValueError("stream tensors must be contiguous on the table's device")
+
+
 def _spmv_cuda(stream, table, mode, table_scale):
     from graphtpu_torch.kernels import _build
 
@@ -1115,32 +1129,17 @@ def _spmv_cuda(stream, table, mode, table_scale):
     kahan = mode == "kahan"
     items = (stream.slots, stream.wts if kahan else stream.raw_wts, stream.scales,
              stream.row_items)
-    layout_of(stream)  # raises where a stream carries two
-    lay, packed = stream.sell, stream.packed
-    plan = stream.tiles if spmv_design(stream, table.dtype) == "tiles" else None
-    if plan is not None and k != 1:
-        raise ValueError("a tile plan needs a seg-1 stream")
-    fields = () if lay is None else (
-        lay.slots, lay.lane_row, lay.lane_cnt, lay.unit_hub, lay.ss_chunks, lay.hub_rows,
-        lay.hub_piece, lay.row_wts if kahan else lay.row_scale)
-    if packed is not None:
-        fields = tuple(getattr(packed, f.name) for f in dataclasses.fields(packed)
-                       if f.name != "item" and isinstance(getattr(packed, f.name), torch.Tensor))
-    if plan is not None:
-        fields = (plan.hub_rows, plan.hub_piece, plan.piece_row, plan.piece_beg)
-    for f in items + fields:
-        if f.device != table.device or not f.is_contiguous():
-            raise ValueError("stream tensors must be contiguous on the table's device")
-    if lay is not None and not panel_stream(stream):
-        raise ValueError("a sliced layout needs a uniform seg-1 or mask-uniform seg-2/4 stream")
-    if packed is not None and (k != 1 or not stream.uniform):
-        raise ValueError("a packed layout needs a uniform seg-1 stream")
+    lay = stream.layout
+    _check_placed(table.device, items, lay)
+    if lay is not None:
+        _admit(stream, type(lay))  # a stream edited after the attach
+    design = spmv_design(stream, table.dtype)
     out = torch.empty((v + 1, c), dtype=table.dtype, device=table.device)
     if c == 0:
         return out
     lib = _build.load()
     sell = hub_acc = None  # the layout and its scratch, held until the launch is enqueued
-    if lay is not None:
+    if design == "panel":
         sell, hub_acc = sell_launch_args(lay, c, kahan, table.device)
     slots, wts, scales, row_items = (f.data_ptr() for f in items)
     pin = table_scale is not None
@@ -1149,12 +1148,12 @@ def _spmv_cuda(stream, table, mode, table_scale):
     bf16 = int(table.dtype == torch.bfloat16)
     with torch.cuda.device(table.device):
         cu_stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        if packed is not None:
-            args, hub_acc = packed_launch_args(packed, c, kahan, table.device)
+        if design == "packed":
+            args, hub_acc = packed_launch_args(lay, c, kahan, table.device)
             rc = lib.gt_spmv_packed(args, table.data_ptr(), out.data_ptr(), v, c, int(kahan),
                                     int(pin), scale, bf16, cu_stream)
-        elif plan is not None:
-            tiles, hub_acc = tiles_launch_args(plan, c, kahan, table.device)
+        elif design == "tiles":
+            tiles, hub_acc = tiles_launch_args(lay, c, kahan, table.device)
             rc = lib.gt_spmv_tiles(
                 slots, wts, scales, row_items, tiles, table.data_ptr(), out.data_ptr(), v, c,
                 int(pin), scale, mul, int(kahan), cu_stream,
@@ -1204,7 +1203,7 @@ def gather_fits(n_table: int, width: int) -> bool:
 
 
 @dataclasses.dataclass(frozen=True)
-class GatherLayout:
+class GatherLayout(_Tensors):
     """One tree level as the compact plan kernel B3's column panel reads.
 
     ``data`` holds ``n_chunks`` chunks of :func:`gather_chunk_bytes` bytes;
@@ -1222,9 +1221,6 @@ class GatherLayout:
     n_table: int
     n_chunks: int
     host_ms: float
-
-    def to(self, device) -> "GatherLayout":
-        return dataclasses.replace(self, data=self.data.to(device))
 
 
 def build_gather_layout(slots: np.ndarray, weights: np.ndarray) -> Optional[GatherLayout]:

@@ -29,7 +29,6 @@ from graphtpu_torch.kernels.spmm import (
     build_reduction_tree,
     build_spmv_segments,
     build_spmv_stream,
-    layout_of,
     spmv,
     tree_spmm,
 )
@@ -143,8 +142,7 @@ def exact_simrank_spmm(
         else:
             plan = build_spmv_stream(g, weighted=weighted, device=device)
     if stage_times is not None:
-        built = layout_of(plan)
-        stage_times["layout_host"] = built.host_ms if built is not None else 0.0
+        stage_times["layout_host"] = plan.layout.host_ms if plan.layout is not None else 0.0
         stage_times["stream_host"] = plan.host_ms
 
     s = torch.eye(v, dtype=dtype, device=device)

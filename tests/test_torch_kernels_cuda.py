@@ -8,7 +8,6 @@ where only the port is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -120,7 +119,7 @@ def test_kahan_hub_beats_plain_sum(cuda, d):
     vals = (1 + np.random.default_rng(0).random(width)).astype(np.float32)
     x = torch.from_numpy(np.broadcast_to(vals, (d + 1, width)).copy()).to(cuda)
     plan = spmm.build_spmv_stream(g, device=cuda)
-    assert (plan.sell is not None) == (d == 11_000)
+    assert (spmm.spmv_design(plan) == "panel") == (d == 11_000)
     oracle = spmm.spmm_oracle(g, x.cpu().numpy(), rows=[0])[0]
     kahan = spmm.spmv(plan, x, "kahan")[0].cpu().numpy()
     lo, hi = plan.row_items[:2].tolist()
@@ -128,7 +127,7 @@ def test_kahan_hub_beats_plain_sum(cuda, d):
     seq = np.cumsum(terms.astype(np.float32), axis=0, dtype=np.float32)[-1]
     assert np.abs(kahan - oracle).max() <= 1e-5
     assert np.abs(seq - oracle).max() > 1e-5
-    if plan.sell is not None:
+    if spmm.spmv_design(plan) == "panel":
         fast = spmm.spmv(plan, x, "fast")[0].cpu().numpy()
         assert np.abs(fast - oracle).max() <= 1e-5
 
@@ -195,7 +194,7 @@ def test_kernel_beyond_one_panel(cuda, mode):
     hub = np.stack([np.full(3000, 7), rng.choice(v, 3000, replace=False)], 1)
     g = gt.build_graph(np.concatenate([edges[edges[:, 0] != edges[:, 1]], hub]), n_nodes=v)
     plan = spmm.build_spmv_stream(g, device=cuda)
-    assert plan.sell is None and spmm.spmv_design(plan) == "tiles"
+    assert isinstance(plan.layout, spmm.TilePlan) and spmm.spmv_design(plan) == "tiles"
     x = torch.rand((v, width), generator=torch.Generator().manual_seed(4)).to(cuda)
     got = spmm.spmv(plan, x, mode, 0.6)
     rows = np.unique(np.concatenate([rng.choice(v, 300), [7, 0, v - 1]]))
@@ -213,7 +212,7 @@ def test_kernel_narrowed_slab(cuda, dtype):
     assert not spmm.sell_fits(v)
     g = _graph(v=v, e=120_000, seed=5)
     plan = spmm.build_spmv_stream(g, device=cuda)
-    assert plan.sell is None
+    assert not isinstance(plan.layout, spmm.SellLayout)
     x = torch.rand((v, width), generator=torch.Generator().manual_seed(5)).to(cuda).to(dtype)
     got = spmm.spmv(plan, x, "fast", 0.6)
     rows = np.unique(np.concatenate([np.random.default_rng(5).choice(v, 300), [0, v - 1]]))
@@ -231,15 +230,15 @@ def test_panel_matches_row_tiles(cuda, mode, dtype, table_scale):
     within 1e-5 (bf16: one ulp)."""
     g = _graph(v=3000, e=40_000, seed=10)
     plan = spmm.build_spmv_stream(g, device=cuda)
-    assert plan.sell is not None and plan.sell.hub_rows.numel() > 0
-    rows = dataclasses.replace(plan, sell=None)
+    assert isinstance(plan.layout, spmm.SellLayout) and plan.layout.hub_rows.numel() > 0
+    rows = spmm.row_tiles(plan)
     x = torch.rand((3000, 530), generator=torch.Generator().manual_seed(10)).to(cuda).to(dtype)
     a = spmm.spmv(plan, x, mode, table_scale)
     b = spmm.spmv(rows, x, mode, table_scale)
-    lane = np.setdiff1d(np.arange(3001), plan.sell.hub_rows.cpu().numpy())
+    lane = np.setdiff1d(np.arange(3001), plan.layout.hub_rows.cpu().numpy())
     lane = torch.as_tensor(lane, device=cuda)
     assert torch.equal(a[lane], b[lane])
-    hub = plan.sell.hub_rows.long()
+    hub = plan.layout.hub_rows.long()
     ha, hb = a[hub].float().cpu().numpy(), b[hub].float().cpu().numpy()
     tol = _bf16_ulp(np.maximum(abs(ha), abs(hb))) if dtype == torch.bfloat16 else 1e-5
     assert (np.abs(ha - hb) <= tol).all()
@@ -255,7 +254,7 @@ def test_kernel_rows_at_thresholds(cuda, mode):
     v = len(degrees) + 6000
     g = _degree_graph(degrees, v)
     plan = spmm.build_spmv_stream(g, device=cuda)
-    hubs = set(plan.sell.hub_rows.tolist())
+    hubs = set(plan.layout.hub_rows.tolist())
     assert {1, 3, 4} <= hubs and not {0, 2} & hubs
     x = torch.rand((v, 40), generator=torch.Generator().manual_seed(6)).to(cuda)
     got = spmm.spmv(plan, x, mode)
@@ -280,7 +279,7 @@ def test_kernel_uniform_fast_skips_padded_slots(cuda):
     pad positions (slot 0) must not be summed into short rows."""
     g = _degree_graph([1, 2, 5, 9, 40, 90] * 20, 2000, seed=8)
     plan = spmm.build_spmv_stream(g, device=cuda)
-    assert plan.uniform and (plan.sell.item < 0).any()
+    assert plan.uniform and (plan.layout.item < 0).any()
     x = torch.rand((2000, 64), generator=torch.Generator().manual_seed(8)).to(cuda)
     x[0] = 4.0  # a summed pad would show
     got = spmm.spmv(plan, x, "fast")
@@ -300,7 +299,7 @@ def test_kernel_is_deterministic(cuda, mode):
 
 def _tiled(plan):
     """``plan`` run as the L2 column tiles, whatever its design."""
-    return dataclasses.replace(spmm.row_tiles(plan), tiles=spmm.build_tile_plan(plan))
+    return spmm.with_layout(plan, spmm.build_tile_plan(plan))
 
 
 def _star_plus(v, hub_degree, e, seed):
@@ -364,7 +363,7 @@ def test_tiles_are_deterministic_and_counted(cuda):
     g = _star_plus(12_000, 3 * spmm.SELL_HUB + 5, 30_000, 17)
     plan = spmm.build_spmv_stream(g, device=cuda)
     assert spmm.spmv_design(plan) == "tiles"
-    assert plan.tiles.hub_rows[0].item() == 0 and plan.tiles.hub_piece[1].item() == 4
+    assert plan.layout.hub_rows[0].item() == 0 and plan.layout.hub_piece[1].item() == 4
     x = torch.rand((12_000, 520), generator=torch.Generator().manual_seed(17)).to(cuda)
     before = dict(spmm.SPMV_LAUNCHES)
     for mode in ("kahan", "fast"):
@@ -426,7 +425,7 @@ def _rmat14(cuda, hot=None):
     plan = spmm.build_spmv_stream(g, device=cuda)
     assert spmm.spmv_design(plan) == spmm.spmv_design(plan, torch.bfloat16) == "packed"
     if hot is not None:
-        plan = dataclasses.replace(plan, packed=spmm.build_packed_layout(plan, hot=hot))
+        plan = spmm.with_layout(plan, spmm.build_packed_layout(plan, hot=hot))
     return g, plan
 
 
@@ -478,7 +477,7 @@ def test_packed_writes_rows_with_no_items(cuda, mode):
     st = spmm.stream_from_numpy(slots, 1.0 / deg[pos], pos, np.ones(n), 1.0 / deg[pos], v, n,
                                 1, True, device=cuda)
     assert spmm.spmv_design(st) == "packed"
-    assert set(st.packed.empty_rows.tolist()) == {3, 7, 200, v}
+    assert set(st.layout.empty_rows.tolist()) == {3, 7, 200, v}
     x = torch.rand((v, 264), generator=torch.Generator().manual_seed(20)).to(cuda)
     got = spmm.spmv(st, x, mode, 0.6)
     assert not got[[3, 7, 200, v]].any()
@@ -554,7 +553,7 @@ def test_seg_panel_matches_row_tiles(cuda, k, mode, dtype, table_scale, width):
     g = _seg_graph()
     v = g.n_nodes
     plan = spmm.build_spmv_segments(g, k=k, device=cuda)
-    assert spmm.spmv_design(plan, dtype) == "panel" and plan.sell.n_pieces > 0
+    assert spmm.spmv_design(plan, dtype) == "panel" and plan.layout.n_pieces > 0
     raw = plan.raw_wts.view(-1, k).cpu().numpy()
     slots = plan.slots.cpu().numpy()
     clamped = (slots == v - k) & (raw[:, 0] == 0) & (raw[:, k - 1] != 0)
@@ -567,7 +566,7 @@ def test_seg_panel_matches_row_tiles(cuda, k, mode, dtype, table_scale, width):
     assert spmm.SPMV_LAUNCHES[mode] == before[mode] + 2
     rows = spmm.spmv(spmm.row_tiles(plan), x, mode, table_scale)
     lane = torch.ones(v + 1, dtype=torch.bool, device=cuda)
-    lane[plan.sell.hub_rows.long()] = False
+    lane[plan.layout.hub_rows.long()] = False
     assert torch.equal(got[lane], rows[lane])
     assert not got[[v - 4, v - 3, v - 2, v]].any()
     plain = spmm.spmv_plain(plan, x, mode, table_scale)
@@ -594,7 +593,7 @@ def test_weighted_seg_stays_on_row_tiles(cuda, k):
                         weights=(rng.random(int(keep.sum())) + 0.1).astype(np.float32),
                         n_nodes=g.n_nodes)
     plan = spmm.build_spmv_segments(gw, weighted=True, k=k, device=cuda)
-    assert not plan.mask_uniform and plan.sell is None and spmm.spmv_design(plan) == "rows"
+    assert not plan.mask_uniform and plan.layout is None and spmm.spmv_design(plan) == "rows"
     x = torch.rand((g.n_nodes, 520), generator=torch.Generator().manual_seed(27)).to(cuda)
     for mode in ("kahan", "fast"):
         got = spmm.spmv(plan, x, mode, 0.6)

@@ -7,7 +7,6 @@ jax nor graphtpu:
     python -m pytest --noconftest -m cuda tests/test_torch_rate_cuda.py
 """
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -44,13 +43,13 @@ def _stream(dev, block_items):
     hub = np.stack([np.zeros(9_000, np.int64), 1 + rng.permutation(V - 4)[:9_000]], 1)
     g = gt.build_graph(np.concatenate([edges, hub]), n_nodes=V)
     st = spmm.build_spmv_stream(g, block_items=block_items, device=dev)
-    assert st.sell is not None and st.sell.n_chunks > spmm.SELL_STAGES
-    assert st.sell.n_pieces >= 3
+    assert isinstance(st.layout, spmm.SellLayout) and st.layout.n_chunks > spmm.SELL_STAGES
+    assert st.layout.n_pieces >= 3
     return st
 
 
 def _lane_rows(st, dev):
-    lane = np.setdiff1d(np.arange(V + 1), st.sell.hub_rows.cpu().numpy())
+    lane = np.setdiff1d(np.arange(V + 1), st.layout.hub_rows.cpu().numpy())
     return torch.as_tensor(lane, device=dev)
 
 
@@ -61,7 +60,7 @@ def test_x1_panel_equals_plain_and_row_tiles(cuda, block_items, c):
     the same bits, hub rows, isolated rows and the pad row V included; a
     row with no items is 0."""
     st = _stream(cuda, block_items)
-    rows_st = dataclasses.replace(st, sell=None)
+    rows_st = spmm.row_tiles(st)
     assert spmv_rate.design("gather_only", st) == "panel"
     assert spmv_rate.design("gather_only", rows_st) == "rows"
     x = torch.rand((V, c), device=cuda)
@@ -92,7 +91,7 @@ def test_x2_panel_matches_plain_and_row_tiles(cuda, block_items, c):
     version on lane rows; there (one lane a row, items in order, the row's
     folded weight equal to each item's) bit-equal to the row tiles."""
     st = _stream(cuda, block_items)
-    rows_st = dataclasses.replace(st, sell=None)
+    rows_st = spmm.row_tiles(st)
     assert spmv_rate.design("accumulate_only", st) == "panel"
     buf = torch.rand((spmv_rate.N_BUF, c), device=cuda)
     got = spmv_rate.accumulate_only(st, buf)
@@ -119,7 +118,8 @@ def test_x1_x2_row_tiles_where_no_panel_fits(cuda, c):
     hub = np.stack([np.zeros(500, np.int64), 1 + rng.permutation(v - 1)[:500]], 1)
     g = gt.build_graph(np.concatenate([edges[edges[:, 0] != edges[:, 1]], hub]), n_nodes=v)
     st = spmm.build_spmv_stream(g, device=cuda)
-    assert st.sell is None and spmv_rate.design("accumulate_only", st) == "rows"
+    assert not isinstance(st.layout, spmm.SellLayout)
+    assert spmv_rate.design("accumulate_only", st) == "rows"
     x = torch.rand((v, c), device=cuda)
     assert torch.equal(spmv_rate.gather_only(st, x), spmv_rate.gather_only_plain(st, x))
     buf = torch.rand((spmv_rate.N_BUF, c), device=cuda)
@@ -130,7 +130,7 @@ def test_x1_x2_row_tiles_where_no_panel_fits(cuda, c):
 
 def test_rate_launch_counts_by_design(cuda):
     st = _stream(cuda, 64)
-    rows_st = dataclasses.replace(st, sell=None)
+    rows_st = spmm.row_tiles(st)
     x = torch.rand((V, 64), device=cuda)
     buf = torch.rand((spmv_rate.N_BUF, 64), device=cuda)
     before = dict(spmv_rate.RATE_LAUNCHES)
@@ -145,7 +145,7 @@ def test_rate_launch_counts_by_design(cuda):
 
 def test_panel_wrappers_check_the_layouts_device(cuda):
     st = _stream(cuda, 64)
-    moved = dataclasses.replace(st, sell=st.sell.to("cpu"))
+    moved = spmm.with_layout(st, st.layout.to("cpu"))
     with pytest.raises(ValueError, match="device"):
         spmv_rate.gather_only(moved, torch.rand((V, 64), device=cuda))
     with pytest.raises(ValueError, match="device"):
@@ -163,7 +163,7 @@ def test_x2_over_a_layout_past_the_panel(cuda):
 
     st = spmm.build_spmv_stream(generators.rmat14_graph(), device=cuda)
     assert not spmm.sell_fits(st.n_nodes)
-    laid = dataclasses.replace(spmm.row_tiles(st), sell=spmm.build_sell_layout(st))
+    laid = spmm.with_layout(st, spmm.build_sell_layout(st))
     assert spmv_rate.design("accumulate_only", laid) == "panel"
     buf = torch.rand((spmv_rate.N_BUF, 264), generator=torch.Generator().manual_seed(23))
     buf = buf.to(cuda)
@@ -172,7 +172,7 @@ def test_x2_over_a_layout_past_the_panel(cuda):
     plain = spmv_rate.accumulate_only_plain(laid, buf)
     n = torch.diff(laid.row_items).clamp(min=2).double()[:, None]
     assert bool(((got - plain).abs().double() <= 2 * (n - 1) * 2.0**-24 * plain.double()).all())
-    lane = np.setdiff1d(np.arange(st.n_nodes + 1), laid.sell.hub_rows.cpu().numpy())
+    lane = np.setdiff1d(np.arange(st.n_nodes + 1), laid.layout.hub_rows.cpu().numpy())
     lane = torch.as_tensor(lane, device=cuda)
     rows = spmv_rate.accumulate_only(spmm.row_tiles(st), buf)
     assert torch.equal(got[lane], rows[lane])

@@ -4,6 +4,7 @@ order each lane walks, give every output row one lane (or, for hub rows, a
 warp), name each lane's first item, and sum to the float64 oracle."""
 
 import dataclasses
+import itertools
 import re
 from pathlib import Path
 
@@ -216,9 +217,58 @@ def test_stream_builds_a_layout_only_where_the_panel_fits():
     version runs and a layout changes nothing."""
     small = _graph(0, 40, 200, 8, False)
     s = spmm.build_spmv_stream(small)
-    assert s.sell is None and s.to("cpu").sell is None
+    assert s.layout is None and s.to("cpu").layout is None
     assert spmm.runs_panel(s)
     assert not spmm.runs_panel(spmm.build_spmv_segments(small, k=3))  # no kernel takes seg_k 3
     x = torch.rand((40, 4), generator=torch.Generator().manual_seed(0))
-    with_layout = dataclasses.replace(s, sell=spmm.build_sell_layout(s))
-    assert torch.equal(spmm.spmv(with_layout, x, "kahan"), spmm.spmv(s, x, "kahan"))
+    laid = spmm.with_layout(s, spmm.build_sell_layout(s))
+    assert torch.equal(spmm.spmv(laid, x, "kahan"), spmm.spmv(s, x, "kahan"))
+
+
+# a layout, the stream it is put on (seg_k, weighted) and what its refusal names
+_REFUSALS = {
+    "sliced on weighted seg-2": ("sliced seg-2", (2, True), "mask-uniform"),
+    "packed on seg-2": ("packed", (2, False), "uniform seg-1"),
+    "packed on weighted": ("packed", (1, True), "uniform seg-1"),
+    "tiles on seg-2": ("tiles", (2, False), "seg-1"),
+}
+_DESIGN_OF = {"sliced": "panel", "packed": "packed", "tiles": "tiles"}
+
+
+@pytest.mark.parametrize("case", ["replaces", "row_tiles", "to", "not a layout", *_REFUSALS])
+def test_with_layout(case):
+    """``with_layout`` puts one layout on a stream in place of the one it
+    had, and no other object; ``row_tiles`` drops it; ``to`` moves it; each
+    design refuses a stream it does not take, in ``with_layout`` and at the
+    launch (a stream edited after the attach)."""
+    g, gw = _graph(3, 60, 300, 8, False), _graph(3, 60, 300, 8, True)
+    s = _stream(g)
+    lays = {"sliced": spmm.build_sell_layout(s), "sliced seg-2": spmm.build_sell_layout(_stream(g, 2)),
+            "packed": spmm.build_packed_layout(s), "tiles": spmm.build_tile_plan(s)}
+    if case == "not a layout":
+        with pytest.raises(TypeError, match="SellLayout, PackedLayout or TilePlan"):
+            spmm.with_layout(s, spmm.build_gather_layout(np.zeros((4, 2), np.int32),
+                                                         np.ones((4, 2), np.float32)))
+        return
+    if case in _REFUSALS:
+        name, (k, weighted), what = _REFUSALS[case]
+        bad = _stream(gw if weighted else g, k, weighted)
+        with pytest.raises(ValueError, match=what):
+            spmm.with_layout(bad, lays[name])
+        edited = dataclasses.replace(bad, layout=lays[name])
+        with pytest.raises(ValueError, match=what):
+            spmm._spmv_cuda(edited, torch.zeros((g.n_nodes, 4)), "kahan", None)
+        return
+    for a, b in itertools.permutations(_DESIGN_OF, 2):
+        laid = spmm.with_layout(spmm.with_layout(s, lays[a]), lays[b])
+        if case == "replaces":
+            assert laid.layout is lays[b] and spmm.spmv_design(laid) == _DESIGN_OF[b]
+        elif case == "row_tiles":
+            assert spmm.row_tiles(laid).layout is None
+            assert spmm.spmv_design(spmm.row_tiles(laid)) == "rows"
+        else:
+            moved = laid.to("cpu").layout
+            assert type(moved) is type(lays[b]) and moved is not lays[b]
+            for f in dataclasses.fields(moved):
+                want, got = getattr(lays[b], f.name), getattr(moved, f.name)
+                assert torch.equal(got, want) if isinstance(want, torch.Tensor) else got == want

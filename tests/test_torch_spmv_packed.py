@@ -364,20 +364,20 @@ def test_design_rule_packed(case, want):
 def test_packed_stream_design_and_cpu_run():
     """A stream with a packed layout runs "packed" for f32 and bf16 tables
     on the card; ``row_tiles`` drops it; on the CPU the layout changes
-    nothing; ``to`` moves it; a stream takes one layout."""
+    nothing; ``to`` moves it; a stream carries one layout."""
     s, _ = _streams(8, 1200, 9)
-    packed = dataclasses.replace(s, packed=spmm.build_packed_layout(s))
+    packed = spmm.with_layout(s, spmm.build_packed_layout(s))
     assert spmm.spmv_design(packed) == spmm.spmv_design(packed, torch.bfloat16) == "packed"
     assert spmm.spmv_design(spmm.row_tiles(packed)) == "rows"
-    assert spmm.layout_of(packed) is packed.packed and spmm.layout_of(s) is None
+    assert isinstance(packed.layout, spmm.PackedLayout) and s.layout is None
     moved = packed.to("cpu")
-    assert torch.equal(moved.packed.codes, packed.packed.codes)
+    assert torch.equal(moved.layout.codes, packed.layout.codes)
     x = torch.rand((s.n_nodes, 16), generator=torch.Generator().manual_seed(0))
     for mode in ("kahan", "fast"):
         assert torch.equal(spmm.spmv(packed, x, mode, 0.6), spmm.spmv(s, x, mode, 0.6))
-    both = dataclasses.replace(packed, tiles=spmm.build_tile_plan(s))
-    with pytest.raises(ValueError, match="one of"):
-        spmm.layout_of(both)
+    plan = spmm.build_tile_plan(s)
+    tiled = spmm.with_layout(packed, plan)
+    assert tiled.layout is plan and spmm.spmv_design(tiled) == "tiles"
 
 
 def test_packed_launch_args_follow_the_kernels_struct():

@@ -3,7 +3,6 @@ X1-X3 against graphtpu's X3 (tools/exp_spmv_rate.py, interpret mode) and
 numpy forms of X1's and X2's stated outputs, the wrappers' dispatch rules
 and the probe's arguments."""
 
-import dataclasses
 import importlib.util
 import os
 
@@ -131,8 +130,8 @@ def test_design_follows_the_stream_layout(name):
     """Every rate kernel runs B2's design: the column panel over a stream
     with a sliced layout, row tiles without one."""
     ts = _stream()
-    assert ts.sell is None and spmv_rate.design(name, ts) == "rows"
-    laid = dataclasses.replace(ts, sell=tspmm.build_sell_layout(ts))
+    assert ts.layout is None and spmv_rate.design(name, ts) == "rows"
+    laid = tspmm.with_layout(ts, tspmm.build_sell_layout(ts))
     assert spmv_rate.design(name, laid) == "panel"
     with pytest.raises(ValueError, match="unknown rate kernel"):
         spmv_rate.design(name + "_x", laid)

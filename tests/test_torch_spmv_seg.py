@@ -331,7 +331,7 @@ def test_seg_launch_args_follow_the_kernels_struct():
             assert args.row_w == w.data_ptr() and args.hub_acc == hub_acc.data_ptr()
             assert hub_acc.numel() == (2 if kahan else 1) * lay.n_pieces * 5
             assert (args.n_chunks, args.n_pieces) == (lay.n_chunks, lay.n_pieces)
-        weighted = dataclasses.replace(s, mask_uniform=False, sell=lay)
+        weighted = dataclasses.replace(spmm.with_layout(s, lay), mask_uniform=False)
         with pytest.raises(ValueError, match="mask-uniform"):
             spmm._spmv_cuda(weighted, torch.zeros((tg.n_nodes, 4)), "kahan", None)
 

@@ -5,7 +5,6 @@ kernel's order matches graphtpu's B1 and B2 (Pallas interpret mode) and,
 on rows of at most SELL_HUB items, sums in the row tiles' order; the rule
 that gives each stream its design; the plan's ctypes mirror."""
 
-import dataclasses
 import re
 from pathlib import Path
 
@@ -204,7 +203,7 @@ def test_tile_plan_runs_f32_only():
     """A stream with a tile plan runs the tiles for f32 tables and row tiles
     for bf16 ones; on the CPU the plan changes nothing."""
     _, s, _ = _streams()
-    tiled = dataclasses.replace(s, tiles=spmm.build_tile_plan(s))
+    tiled = spmm.with_layout(s, spmm.build_tile_plan(s))
     assert spmm.spmv_design(tiled) == "tiles"
     assert spmm.spmv_design(tiled, torch.bfloat16) == "rows"
     assert spmm.spmv_design(spmm.row_tiles(tiled)) == "rows"

@@ -224,7 +224,7 @@ def test_x3_panel_matches_plain_and_row_tiles(cuda, c):
     a row, items in order) bit-equal to the row tiles."""
     st = _stream(cuda)
     assert spmv_rate.design("unroll8", st) == "panel"
-    rows_st = dataclasses.replace(st, sell=None)
+    rows_st = spmm.row_tiles(st)
     assert spmv_rate.design("unroll8", rows_st) == "rows"
     x = torch.rand((300, c), device=cuda)
     got = spmv_rate.unroll8(st, x)
@@ -233,7 +233,7 @@ def test_x3_panel_matches_plain_and_row_tiles(cuda, c):
     assert got.shape == (301, c)
     assert ((got - plain).abs() <= 1e-5 * plain.abs()).all()
     assert torch.equal(got, spmv_rate.unroll8(st, x))  # the same bits on every run
-    lane = np.setdiff1d(np.arange(301), st.sell.hub_rows.cpu().numpy())
+    lane = np.setdiff1d(np.arange(301), st.layout.hub_rows.cpu().numpy())
     lane = torch.as_tensor(lane, device=cuda)
     assert torch.equal(got[lane], rows[lane])
     # V past one panel: the stream carries no layout and X3 runs row tiles

@@ -44,6 +44,14 @@ Phases (any failure raises and the run exits non-zero):
      product): CUDA-event times of kernel, plain version and a
      device-to-device ``copy_`` of the same bytes, with the bound.  Phases
      5-7 count its launches: one an iteration of every CLI run.
+     4c: the row top-k S1 (``kernels/topk.py``) bit-equal to the first k
+     of a stable descending ``torch.sort`` at short, ragged, tied,
+     misaligned and long (120,001) rows, f32 and bf16, k 1 to 1,024;
+     then its times (``bench/topk_probe.py``) on the gold cells'
+     [32,768, 32,768] scores (uniform and R-MAT graphs) and UniWalk's
+     [256, 50,000] tile: kernel, plain sort and ``torch.topk`` (the
+     library yardstick; its tie order is not the contract), with the
+     bound.  Phases 5-7 count its launches: one a CLI run.
   5. main path: ``python -m graphtpu_torch simrank --engine spmm`` for
      modes kahan, fast and fast16 on the blog-shaped graph; launch counts,
      files read back, scores against the dense fp32 engine, the host ms of
@@ -893,6 +901,42 @@ def phase_transpose(dev, report):
         cases.append(c)
         torch.cuda.empty_cache()
     report["transpose"] = cases
+    return cases
+
+
+def phase_topk(dev, report):
+    """S1 (``kernels/topk.py``): values' bits and indices against the first
+    k of a stable descending ``torch.sort`` at short, ragged, tied,
+    misaligned and long rows, f32 and bf16; then its times beside the
+    plain sort and ``torch.topk`` (``bench/topk_probe.py``).  Returns the
+    timed inputs: urand's scores first."""
+    from graphtpu_torch.bench.topk_probe import probe
+    from graphtpu_torch.kernels import topk
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, k in (((5, 1), 1), ((64, 33), 20), ((64, 1_001), 1_001),
+                         ((32, 4_097), 1_024), ((8, 120_001), 20), ("offset", 20)):
+            if shape == "offset":
+                x = torch.randn(1 + 96 * 200, generator=gen, device=dev).to(dtype)[1:]
+                x = x.view(96, 200)
+            else:
+                x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for rows in (x, (x * 2).round()):
+                vals, idx = topk._stable_topk(rows, k)
+                sv, si = torch.sort(rows, dim=1, descending=True, stable=True)
+                torch.cuda.synchronize()
+                bits = torch.int32 if dtype == torch.float32 else torch.int16
+                check(torch.equal(idx, si[:, :k]) and
+                      torch.equal(vals.view(bits), sv[:, :k].contiguous().view(bits)),
+                      f"top-k {tuple(x.shape)} k {k} {dtype}: differs from the stable sort")
+    cases = probe(dev)
+    for c in cases:
+        say(f"top-k {c['input']} {c['shape']} {c['dtype']} k {c['k']}: kernel {c['ms']:.3f} "
+            f"ms, plain sort {c['plain_ms']:.3f} ms, torch.topk {c['library_ms']:.3f} ms, "
+            f"bound {c['bound_ms']:.3f} ms ({c['bound_by']}); the kernel at "
+            f"{100 * c['of_bound']:.1f}% of the bound; memory rise {c['rise_bytes']}")
+    report["topk"] = cases
     return cases
 
 
@@ -3005,10 +3049,15 @@ def main(argv=None) -> int:
     transpose_cases = phase_transpose(dev, report)
     torch.cuda.empty_cache()
 
+    say("== phase 4c: the row top-k S1 against its plain version")
+    topk_cases = phase_topk(dev, report)
+    torch.cuda.empty_cache()
+
     from graphtpu_torch.io.edgelist import write_edgelist
-    from graphtpu_torch.kernels import transpose
+    from graphtpu_torch.kernels import topk, transpose
 
     transposed = transpose.TRANSPOSE_LAUNCHES["transpose"]
+    selected = topk.TOPK_LAUNCHES["topk"]
 
     with tempfile.TemporaryDirectory() as tmp:
         say("== phase 5: main path (blog-shaped graph)")
@@ -3041,6 +3090,7 @@ def main(argv=None) -> int:
     rmat_tree_launches = run_tree_path(dev, rmat14_graph(), "rmat", [torch.float32], report)
     launches["gather"] += rmat_tree_launches
     launches["transpose"] = transpose.TRANSPOSE_LAUNCHES["transpose"] - transposed
+    launches["topk"] = topk.TOPK_LAUNCHES["topk"] - selected
 
     say("== phase 8: SpMV item-rate probe")
     rate_launches, rate_cases = phase_rate_probe(dev, report)
@@ -3173,6 +3223,18 @@ def main(argv=None) -> int:
               t1, bounds.transpose_work(t1["v"], t1["v"], 4), t1["copy_ms"])
     x.update(library_call="copy_ of the same bytes", shape=[t1["v"], t1["v"]],
              bf16={k: transpose_cases[1][k] for k in ("ms", "plain_ms", "copy_ms", "bound_ms")})
+    summary.append(x)
+    # S1 on urand's [32,768, 32,768] scores, k 20; R-MAT's and UniWalk's
+    # inputs beside it; the library column is torch.topk, whose tie order
+    # is not the contract
+    s1 = topk_cases[0]
+    x = entry("topk_rows (S1)", "graphtpu_torch/kernels/csrc/topk.cu",
+              "none (graphtpu leaves top-k to lax.top_k)", "topk", [0.0], s1,
+              bounds.topk_work(*s1["shape"], s1["k"], 4), s1["library_ms"])
+    x.update(library_call="torch.topk", shape=s1["shape"],
+             inputs={c["input"]: {k: c[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                   "bound_ms", "rise_bytes")}
+                     for c in topk_cases})
     summary.append(x)
     for key, label, replaces in RATE_KERNELS:
         mine = [c for c in rate_cases if c["kernel"] == key]

@@ -48,6 +48,13 @@ def transpose_work(rows: int, cols: int, itemsize: int) -> Tuple[float, float]:
     return float(2 * rows * cols * itemsize), 0.0
 
 
+def topk_work(rows: int, n: int, k: int, itemsize: int) -> Tuple[float, float]:
+    """(bytes, operations) of one row top-k: the [rows, n] input read once,
+    the [rows, k] values and int64 indices written once, no arithmetic
+    counted."""
+    return float(rows * n * itemsize + rows * k * (itemsize + 8)), 0.0
+
+
 def stream_terms(stream) -> int:
     """The terms of an item stream: its items (seg-1), or its real items'
     sub-rows with a nonzero raw coefficient (seg-k)."""

@@ -164,6 +164,8 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.gt_transpose_2d.argtypes = [p, p, i64, i64, i32, p]
     lib.gt_transpose_2d.restype = ctypes.c_int
+    lib.gt_topk_rows.argtypes = [p, p, p, i64, i64, i32, i32, i64, p]
+    lib.gt_topk_rows.restype = ctypes.c_int
     lib.gt_error_string.argtypes = [ctypes.c_int]
     lib.gt_error_string.restype = ctypes.c_char_p
     _lib = lib

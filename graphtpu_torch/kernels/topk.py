@@ -3,8 +3,12 @@
 
 ``lax.top_k`` puts the lower index first among equal scores, and SimRank
 has many exact ties between structurally equal nodes; ``torch.topk``
-promises no order.  So every top-k here takes a stable descending sort,
-which keeps equal scores in index order.
+promises no order.  So every top-k here is the first k of a stable
+descending sort, which keeps equal scores in index order.  On a CUDA
+tensor the hand kernel of ``csrc/topk.cu`` (``gt_topk_rows``: a bound
+from one read of each row, then a selection among the few entries above
+it; no sort of the row) gives those k, bit for bit, or the call raises; on any other device :func:`stable_topk_plain`
+sorts the rows (``torch.sort``).
 
 The Monte-Carlo engines accumulate item streams (target, value) into
 per-source sums without a scatter: a stable sort brings each key's items
@@ -19,15 +23,23 @@ capacity-bounded FixedCacheMap.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
-# rows per sort call, sized so one call sorts at most ~2^27 elements
+# rows per sort call of the plain version, sized so one call sorts at most
+# ~2^27 elements
 _SORT_ELEMS = 1 << 27
+# kernel launches, counted where the wrapper launches its kernel
+TOPK_LAUNCHES = {"topk": 0}
+TOPK_DTYPES = (torch.float32, torch.bfloat16)
+TOPK_MAX_K = 1024  # the kernel's most entries a row (its slots in shared memory)
 
 
-def _stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def stable_topk_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: the first k of each row of a stable descending
+    ``torch.sort``, a chunk of rows a call; (values, int64 indices)."""
     b, v = x.shape
     rows = max(1, _SORT_ELEMS // max(v, 1))
     vals, idx = [], []
@@ -40,6 +52,61 @@ def _stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.cat(vals), torch.cat(idx)
 
 
+def check_topk_args(x: torch.Tensor, k: int, exclude_diag_offset: Optional[int] = None) -> None:
+    """Raise on what the kernel does not take: anything but a contiguous
+    2-D float32 or bfloat16 tensor, more than ``TOPK_MAX_K`` entries a row,
+    or a masked diagonal that leaves the row.  Checks only: runs before any
+    launch, on any device."""
+    if x.dim() != 2:
+        raise ValueError(f"the top-k kernel takes 2-D rows, got shape {tuple(x.shape)}")
+    if x.dtype not in TOPK_DTYPES:
+        raise TypeError(f"the top-k kernel takes float32 or bfloat16 rows, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("the top-k kernel takes contiguous row-major rows")
+    b, n = x.shape
+    if k < 0 or min(k, n) > TOPK_MAX_K:
+        raise ValueError(f"the top-k kernel keeps at most {TOPK_MAX_K} entries a row, "
+                         f"asked for {k} of {n}")
+    if exclude_diag_offset is not None and b > 0 and not (
+            0 <= exclude_diag_offset and exclude_diag_offset + b <= n):
+        raise ValueError(f"masked columns {exclude_diag_offset} .. "
+                         f"{exclude_diag_offset + b - 1} leave rows of {n}")
+
+
+def _topk_cuda(x: torch.Tensor, k: int, diag: Optional[int] = None):
+    """The kernel on the current stream: (values, int64 indices) of the
+    first min(k, N) of each row, column ``diag + i`` of row i read as -inf.
+    The outputs are the one allocation."""
+    from graphtpu_torch.kernels import _build
+
+    check_topk_args(x, k, diag)
+    b, n = x.shape
+    kk = min(k, n)
+    if b == 0:
+        return x.new_empty((0, k)), torch.empty((0, k), dtype=torch.int64, device=x.device)
+    vals = torch.empty((b, kk), dtype=x.dtype, device=x.device)
+    idx = torch.empty((b, kk), dtype=torch.int64, device=x.device)
+    if kk == 0:
+        return vals, idx
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        cu_stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = lib.gt_topk_rows(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, n, kk,
+                              x.element_size(), -1 if diag is None else diag, cu_stream)
+    if rc != 0:
+        raise RuntimeError(f"top-k kernel launch failed: {_build.error_string(rc)}")
+    TOPK_LAUNCHES["topk"] += 1
+    return vals, idx
+
+
+def _stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, int64 indices): the first k of each row under a stable
+    descending sort; the kernel on a CUDA tensor, else the plain version."""
+    if x.device.type == "cuda":
+        return _topk_cuda(x, k)
+    return stable_topk_plain(x, k)
+
+
 def topk_rows(
     scores: torch.Tensor,
     k: int,
@@ -47,14 +114,19 @@ def topk_rows(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, int32 indices) of the k largest entries per row of [B, V],
     ties in index order.  ``exclude_diag_offset=r`` masks column ``r + i``
-    in row i.  When k > V the result is padded with value 0, index -1."""
-    if exclude_diag_offset is not None:
-        b = scores.shape[0]
-        rows = torch.arange(b, device=scores.device)
-        scores = scores.clone()
-        scores[rows, exclude_diag_offset + rows] = float("-inf")
+    in row i (on a CUDA tensor the kernel reads it as -inf; elsewhere a
+    masked copy is sorted).  When k > V the result is padded with value 0,
+    index -1."""
     k_eff = min(k, scores.shape[-1])
-    vals, idx = _stable_topk(scores, k_eff)
+    if scores.device.type == "cuda":
+        vals, idx = _topk_cuda(scores, k_eff, exclude_diag_offset)
+    else:
+        if exclude_diag_offset is not None:
+            b = scores.shape[0]
+            rows = torch.arange(b, device=scores.device)
+            scores = scores.clone()
+            scores[rows, exclude_diag_offset + rows] = float("-inf")
+        vals, idx = stable_topk_plain(scores, k_eff)
     idx = idx.to(torch.int32)
     if k_eff < k:
         pad = k - k_eff

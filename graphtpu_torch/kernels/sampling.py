@@ -37,8 +37,14 @@ def row_spans(g: Graph, cur: torch.Tensor):
 
 def uniform_neighbor(g: Graph, cur: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     """One uniform neighbour per walker; -1 for dead/invalid walkers."""
+    return neighbor_at(g, cur, torch.rand(cur.shape, generator=gen, device=cur.device))
+
+
+def neighbor_at(g: Graph, cur: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The neighbour of each walker's row at its uniform draw ``u`` in [0, 1)
+    (position floor(u * degree), kept inside the row); -1 for dead/invalid
+    walkers."""
     _, deg, lo = row_spans(g, cur)
-    u = torch.rand(cur.shape, generator=gen, device=cur.device)
     idx = torch.minimum((u * deg).int(), (deg - 1).clamp(min=0))
     nxt = g.col[lo + idx]
     alive = (cur >= 0) & (deg > 0)

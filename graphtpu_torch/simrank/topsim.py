@@ -22,12 +22,25 @@ W defaults to 2*sample + 8, a bound on the children (sum(children) <=
 sum(mass) + #sampled parents), so the default never drops mass.  The
 dropped mass is reported (``stats``), where graphtpu computes and discards
 it.  Tile ``lo`` draws depth ``d`` from stream ``key_for(key, lo, d)``.
+
+Tiles run side by side in groups (:data:`GROUP_SLOTS`), each tile on its
+own streams, so that its answer is the one it has alone.  A group runs in
+three stages: ``expand`` (the 2*step expansions, keeping the frontiers of
+the even depths), ``items`` (the first-meet masks and values over those
+frontiers) and ``reduce`` (:func:`segment_topk`, a tile at a time); given
+``stage_times``, each is timed by
+:class:`~graphtpu_torch.utils.metrics.StageClock` under that name, and the
+same kernels run as without it.  :func:`topsim_tile_frontiers` makes a
+tile's frontiers at every depth from its key, as the tile loop does, and
+:func:`topsim_frontiers_topk` is the estimator alone, on frontiers the
+caller gives.  Every call adds to :data:`TOPSIM_COUNTS`, read as a
+difference around a call, as ``uniwalk.UNIWALK_COUNTS`` is.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,11 +49,27 @@ from graphtpu_torch.core.config import TopSimConfig
 from graphtpu_torch.core.device import resolve_device
 from graphtpu_torch.core.graph import Graph
 from graphtpu_torch.core.prng import generator, key_for
-from graphtpu_torch.kernels.sampling import uniform_neighbor
+from graphtpu_torch.kernels.sampling import neighbor_at
+from graphtpu_torch.kernels.topk import segment_topk
 from graphtpu_torch.simrank.uniwalk import _first_meet_mask, run_source_tiles
 
 # graphtpu's cap on the enumerate frontier (d_max ** (2 * step) slots)
 ENUMERATE_MAX_SLOTS = 1 << 17
+
+# What topsim_simrank has spread: the sources of its groups of tiles (the
+# last group's pad sources count, as they are spread), the frontier slots
+# its expansions filled (W a source, 2*step depths) and the live ones among
+# them, the slots holding a path with mass, counted on the device a group
+# and read once a call.
+TOPSIM_COUNTS = {"sources": 0, "slots": 0, "live": 0}
+
+# Tiles spread side by side until a launch covers about this many frontier
+# slots.  On an H100 80GB HBM3, a solve of GAP's Urand at scale 15 at SAMPLE
+# 10,000 (640,256 slots a tile of 32 sources) took 7.6-10.2 s with one tile
+# a launch, left to the host's dispatch (~700 launches a tile, the card ~35%
+# busy); with 8, 16 or 32 tiles a launch 2.64, 2.51 or 2.41 s, set by the
+# card, at a peak of 2.0, 3.9 or 7.8 GB.
+GROUP_SLOTS = 10 << 20
 
 
 def _expand_frontier(
@@ -48,10 +77,14 @@ def _expand_frontier(
     paths: torch.Tensor,  # [T, W, L]
     mass: torch.Tensor,   # [T, W]
     depth: int,
-    key: int,
+    key: Union[int, Sequence[int]],
     enumerate_all: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One budget-splitting step; returns (paths', mass', dropped [T]).
+
+    The sampled children draw from stream ``key``; a sequence of keys gives
+    each of as many equal blocks of rows its own stream, drawn as the block
+    alone would draw it.
 
     ``dropped`` is the mass of the children that found no slot: 0 unless
     the frontier overflows W.  (graphtpu's third value is the parents' mass
@@ -86,7 +119,12 @@ def _expand_frontier(
     base = g.row_ptr[p_cur.clamp(min=0)].long()
     split_node = g.col[(base + rank).clamp(0, max(g.n_edges - 1, 0))]
     # sampled children: independent uniform neighbour draws
-    samp_node = uniform_neighbor(g, p_cur.reshape(-1), generator(key, dev)).reshape(t, w)
+    keys = [key] if isinstance(key, int) else list(key)
+    u = torch.empty(t * w, device=dev)
+    block = u.numel() // len(keys)
+    for i, k in enumerate(keys):
+        u[i * block:(i + 1) * block].uniform_(generator=generator(k, dev))
+    samp_node = neighbor_at(g, p_cur.reshape(-1), u).reshape(t, w)
     node = torch.where(p_split, split_node, samp_node)
     node = torch.where(valid, node, -1)
     child_mass = torch.where(valid, p_mass / p_nchild.clamp(min=1), 0.0)
@@ -113,27 +151,47 @@ def frontier_capacity(g: Graph, cfg: TopSimConfig) -> int:
     return 2 * math.ceil(cfg.sample) + 8
 
 
-def topsim_tile_items(g: Graph, src_tile: torch.Tensor, key: int, cfg: TopSimConfig,
-                      cap: int):
-    """([T, cap*step] targets, values, dropped mass [T]) of one source tile."""
-    tile, dev = src_tile.shape[0], src_tile.device
-    length = 2 * cfg.step + 1
-    paths = torch.full((tile, cap, length), -1, dtype=torch.int32, device=dev)
-    paths[:, 0, 0] = src_tile
+def _spread(g: Graph, src: torch.Tensor, keys: Sequence[int], cfg: TopSimConfig, cap: int):
+    """The frontiers at depths 0..2*step of len(keys) tiles side by side
+    (``src`` their sources, tile i drawing depth d+1 from
+    ``key_for(keys[i], d)``), and the dropped mass of each source."""
+    tile, dev = src.shape[0], src.device
+    paths = torch.full((tile, cap, 2 * cfg.step + 1), -1, dtype=torch.int32, device=dev)
+    paths[:, 0, 0] = src
     mass = torch.zeros((tile, cap), dtype=torch.float32, device=dev)
     mass[:, 0] = cfg.sample
     lost = torch.zeros(tile, dtype=torch.float32, device=dev)
-    tgt_list, val_list = [], []
+    frontiers = [(paths, mass)]
     for depth in range(2 * cfg.step):
-        paths, mass, dropped = _expand_frontier(g, paths, mass, depth, key_for(key, depth),
+        paths, mass, dropped = _expand_frontier(g, paths, mass, depth,
+                                                [key_for(k, depth) for k in keys],
                                                 enumerate_all=cfg.enumerate_all)
         lost += dropped
-        lvl = depth + 1
-        if lvl % 2:
-            continue
-        i = lvl // 2
+        frontiers.append((paths, mass))
+    return frontiers, lost
+
+
+def topsim_tile_frontiers(g: Graph, src_tile: torch.Tensor, key: int, cfg: TopSimConfig,
+                          cap: Optional[int] = None):
+    """One source tile's frontiers as :func:`topsim_simrank`'s tiles make
+    them: ([(paths [T, W, 2*step+1] int32, mass [T, W] float32) at depths
+    0, 1, ..., 2*step], dropped mass [T]).  ``key`` is the tile's
+    (``key_for(key, lo)`` of the call's), depth d+1 drawn from
+    ``key_for(key, d)``; W is ``cap`` (default :func:`frontier_capacity`).
+    A slot holds a path while its mass is above 0; empty slots read -1."""
+    return _spread(g, src_tile, [key], cfg, cap or frontier_capacity(g, cfg))
+
+
+def _frontier_items(g: Graph, frontiers, cfg: TopSimConfig):
+    """([T, W*step] targets, values) of the frontiers at depths 2, 4, ...,
+    2*step; invalid items carry target -1."""
+    if len(frontiers) != cfg.step or frontiers[0][0].shape[-1] != 2 * cfg.step + 1:
+        raise ValueError(f"step {cfg.step} wants {cfg.step} frontiers of paths of "
+                         f"{2 * cfg.step + 1} nodes")
+    tgt_list, val_list = [], []
+    for i, (paths, mass) in enumerate(frontiers, start=1):
         inter, target = paths[:, :, i], paths[:, :, 2 * i]
-        ok = ((mass > 0) & (target >= 0) & (target != src_tile[:, None])
+        ok = ((mass > 0) & (target >= 0) & (target != paths[:, :, 0])
               & _first_meet_mask(paths[:, :, : 2 * i + 1], i))
         val = (mass * (cfg.c ** i) * g.deg[inter.clamp(min=0)].float()
                / g.deg[target.clamp(min=0)].clamp(min=1).float())
@@ -141,7 +199,22 @@ def topsim_tile_items(g: Graph, src_tile: torch.Tensor, key: int, cfg: TopSimCon
             val = val / cfg.sample
         tgt_list.append(torch.where(ok, target, -1))
         val_list.append(torch.where(ok, val, 0.0))
-    return torch.cat(tgt_list, dim=1), torch.cat(val_list, dim=1), lost
+    return torch.cat(tgt_list, dim=1), torch.cat(val_list, dim=1)
+
+
+def topsim_frontiers_topk(g: Graph, frontiers, cfg: TopSimConfig):
+    """(vals [T, topk], int32 idx [T, topk]) of the estimator on given
+    frontiers, those of depths 2, 4, ..., 2*step (``topsim_tile_frontiers(
+    ...)[0][2::2]``), on their device: the items and the reduce of
+    :func:`topsim_simrank`'s tiles, C, SAMPLE, step and top-k from ``cfg``."""
+    return segment_topk(*_frontier_items(g, frontiers, cfg), cfg.topk, g.n_nodes)
+
+
+def topsim_tile_items(g: Graph, src_tile: torch.Tensor, key: int, cfg: TopSimConfig,
+                      cap: int):
+    """([T, cap*step] targets, values, dropped mass [T]) of one source tile."""
+    frontiers, lost = topsim_tile_frontiers(g, src_tile, key, cfg, cap)
+    return (*_frontier_items(g, frontiers[2::2], cfg), lost)
 
 
 def topsim_simrank(
@@ -152,28 +225,40 @@ def topsim_simrank(
     dense: bool = False,
     device=None,
     stats: Optional[dict] = None,
+    stage_times: Optional[dict] = None,
 ):
     """TopSim_singleSample (or, with ``cfg.enumerate_all``, TopSim_Enumerate)
     for all (or the given) sources, on ``device`` (default ``cuda``).
 
     Returns (topk_values, topk_indices) numpy arrays or the dense [N, V]
     matrix.  ``stats``, when given, receives ``dropped_mass``: the mass the
-    frontier could not hold, summed over sources and depths."""
+    frontier could not hold, summed over sources and depths.
+    ``stage_times``, when given, receives the ms of the stages ``expand``,
+    ``items`` and ``reduce``.  The call adds to :data:`TOPSIM_COUNTS`."""
     dev = resolve_device(device)
     g = g.to(dev)
     sources = (np.arange(g.n_nodes, dtype=np.int32) if sources is None
                else np.asarray(sources, np.int32))
     cap = frontier_capacity(g, cfg)
+    tile = min(cfg.source_tile, len(sources))
+    tiles = -(-len(sources) // tile)
+    groups = -(-tiles // max(1, GROUP_SLOTS // (tile * cap)))
+    group = -(-tiles // groups)  # tiles a launch, spread evenly over the groups
     lost = []
+    live = torch.zeros((), dtype=torch.int64, device=dev)
 
-    def items(src, k):
-        targets, vals, dropped = topsim_tile_items(g, src, k, cfg, cap)
+    def expand(src, keys):
+        frontiers, dropped = _spread(g, src, keys, cfg, cap)
         lost.append(dropped)
-        return targets, vals
+        live.add_(torch.stack([m for _, m in frontiers[1:]]).count_nonzero())
+        return frontiers[2::2]
 
-    out = run_source_tiles([("items", items)], g.n_nodes, sources,
-                           min(cfg.source_tile, len(sources)), cfg.topk,
-                           0 if key is None else key, dense, dev)
+    out = run_source_tiles([("expand", expand), ("items", lambda f: _frontier_items(g, f, cfg))],
+                           g.n_nodes, sources, tile, cfg.topk, 0 if key is None else key,
+                           dense, dev, stage_times, group=group)
+    TOPSIM_COUNTS["sources"] += groups * group * tile
+    TOPSIM_COUNTS["slots"] += groups * group * tile * cap * 2 * cfg.step
+    TOPSIM_COUNTS["live"] += int(live)
     if stats is not None:  # the padded last tile's pad sources are not counted
         stats["dropped_mass"] = float(torch.cat(lost)[: len(sources)].double().sum())
     return out

@@ -43,7 +43,6 @@ from graphtpu_torch.kernels.topk import (
     pair_topk_by_source,
     segment_sum_1d,
     segment_topk,
-    topk_rows,
 )
 from graphtpu_torch.utils.metrics import StageClock
 from graphtpu_torch.walks.walker import uniform_walks
@@ -133,44 +132,52 @@ def uniwalk_tile_topk(g: Graph, src_tile: torch.Tensor, key: int, cfg: UniWalkCo
 
 
 def run_source_tiles(stages, n_nodes: int, sources: np.ndarray, tile: int, topk: int,
-                     key: int, dense: bool, dev, stage_times: Optional[dict] = None):
+                     key: int, dense: bool, dev, stage_times: Optional[dict] = None,
+                     group: int = 1):
     """Each tile's item stream reduced to its sources' top-k (:func:`segment_topk`)
     or, when ``dense``, scattered into [T, V] rows with each source's own
-    column zeroed (``SingleRandomWalk.java:44``).  ``stages`` are a tile's
-    named steps: the first called as ``fn(src_tile, key_for(key, lo))``, each
-    later one on the output of the one before, the last giving (targets,
-    values).  The last tile is padded with source 0 to the tile's width, as
-    in graphtpu.  ``stage_times``: the ms of each stage and, in the top-k
-    form, of ``reduce`` (:class:`StageClock`).
+    column zeroed (``SingleRandomWalk.java:44``).  Tiles run ``group`` at a
+    time, side by side: ``stages`` are their named steps, the first called
+    as ``fn(src, keys)`` on the group's [group*tile] sources and each tile's
+    stream ``key_for(key, lo)``, each later one on the output of the one
+    before, the last giving (targets, values) a source; each tile's rows are
+    then reduced alone, so a tile's answer is the same in any group.  The
+    sources are padded with source 0 to whole groups, as graphtpu pads the
+    last tile.  ``stage_times``: the ms of each stage and, in the top-k form,
+    of ``reduce`` (:class:`StageClock`).
     Returns host (vals, idx) or the dense [N, V] rows."""
     clock = StageClock(stage_times, dev)
     n = len(sources)
+    span = tile * group
     out_vals = torch.zeros((n, topk), dtype=torch.float32, device=dev)
     out_idx = torch.zeros((n, topk), dtype=torch.int32, device=dev)
     out_dense = np.zeros((n, n_nodes), np.float32) if dense else None
-    padded = np.zeros(-(-n // tile) * tile, np.int32)
+    padded = np.zeros(-(-n // span) * span, np.int32)
     padded[:n] = sources
     # one upload for all tiles: a copy from pageable host memory waits for the
     # device, and one a tile idles the card while the host queues the tile's
     # first launches, so that the solve runs at the host's speed
     all_src = torch.from_numpy(padded).to(dev)
     (first_name, first), *rest = stages
-    for lo in range(0, n, tile):
-        m = min(tile, n - lo)
-        src = all_src[lo:lo + tile]
-        out = clock.stage(first_name, first, src, key_for(key, lo))
+    for lo in range(0, n, span):
+        src = all_src[lo:lo + span]
+        out = clock.stage(first_name, first, src,
+                          [key_for(key, lo + s) for s in range(0, span, tile)])
         for name, fn in rest:
             out = clock.stage(name, fn, out)
         targets, vals = out
         if dense:
+            m = min(span, n - lo)
             sim = _dense_tile(targets, vals, n_nodes)
-            sim[torch.arange(tile, device=dev), src.long()] = 0.0
-            vk, ik = topk_rows(sim, topk)
+            sim[torch.arange(span, device=dev), src.long()] = 0.0
             out_dense[lo:lo + m] = sim[:m].cpu().numpy()
-        else:
-            vk, ik = clock.stage("reduce", segment_topk, targets, vals, topk, n_nodes)
-        out_vals[lo:lo + m] = vk[:m]
-        out_idx[lo:lo + m] = ik[:m]
+            continue
+        for s in range(0, min(span, n - lo), tile):
+            m = min(tile, n - lo - s)
+            vk, ik = clock.stage("reduce", segment_topk, targets[s:s + tile], vals[s:s + tile],
+                                 topk, n_nodes)
+            out_vals[lo + s:lo + s + m] = vk[:m]
+            out_idx[lo + s:lo + s + m] = ik[:m]
     clock.close()
     if dense:
         return out_dense
@@ -200,8 +207,8 @@ def uniwalk_simrank(
                else np.asarray(sources, np.int32))
     ended = torch.zeros((), dtype=torch.int64, device=dev)
 
-    def walks(src, k):
-        w = _tile_walks(g, src, k, cfg.sample, cfg.step)
+    def walks(src, keys):
+        w = _tile_walks(g, src, keys[0], cfg.sample, cfg.step)
         UNIWALK_COUNTS["walkers"] += w.shape[0] * w.shape[1]
         # the last node alone: a count over every node took 0.24 ms a tile on
         # an H100, 2.4% of a solve

@@ -52,6 +52,12 @@ Phases (any failure raises and the run exits non-zero):
      [256, 50,000] tile: kernel, plain sort and ``torch.topk`` (the
      library yardstick; its tie order is not the contract), with the
      bound.  Phases 5-7 count its launches: one a CLI run.
+     4d: TopSim's frontier expansion TS1 (``simrank/topsim.py``) at its
+     cell's shape (``bench/expand_probe.py``: T = 512, W = 20,008, L = 7,
+     depths 0-5 of a spread of one group on a uniform random graph of
+     32,768 nodes): paths and masses bit-equal to the plain version's at
+     every depth; kernel, whole call (draws and launch) and plain version
+     timed beside the bound.  Phase 12 counts its launches.
   5. main path: ``python -m graphtpu_torch simrank --engine spmm`` for
      modes kahan, fast and fast16 on the blog-shaped graph; launch counts,
      files read back, scores against the dense fp32 engine, the host ms of
@@ -937,6 +943,23 @@ def phase_topk(dev, report):
             f"bound {c['bound_ms']:.3f} ms ({c['bound_by']}); the kernel at "
             f"{100 * c['of_bound']:.1f}% of the bound; memory rise {c['rise_bytes']}")
     report["topk"] = cases
+    return cases
+
+
+def phase_expand(dev, report):
+    """TS1 (``simrank/topsim.py``): paths and masses against the plain
+    version, bit for bit, at every depth of a spread at the TopSim cell's
+    shape, and the times of kernel, call and plain version
+    (``bench/expand_probe.py``).  Returns the depths' results."""
+    from graphtpu_torch.bench.expand_probe import expand_times
+
+    cases = expand_times(dev)
+    for c in cases:
+        say(f"expand depth {c['depth']} {c['shape']}: {c['live_parents']} live parents, "
+            f"{c['live_children']} children; kernel {c['ms']:.3f} ms, call {c['call_ms']:.3f} "
+            f"ms, plain {c['plain_ms']:.3f} ms, bound {c['bound_ms']:.3f} ms ({c['bound_by']}); "
+            f"the kernel at {100 * c['of_bound']:.1f}% of the bound")
+    report["expand"] = cases
     return cases
 
 
@@ -3053,6 +3076,10 @@ def main(argv=None) -> int:
     topk_cases = phase_topk(dev, report)
     torch.cuda.empty_cache()
 
+    say("== phase 4d: TopSim's expansion TS1 against its plain version")
+    expand_cases = phase_expand(dev, report)
+    torch.cuda.empty_cache()
+
     from graphtpu_torch.io.edgelist import write_edgelist
     from graphtpu_torch.kernels import topk, transpose
 
@@ -3111,7 +3138,12 @@ def main(argv=None) -> int:
         phase_cli(tmp, report)
 
     say("== phase 12: Monte-Carlo SimRank engines (UniWalk, TopSim, reuse windows)")
+    from graphtpu_torch.simrank import topsim
+
+    expanded = topsim.EXPAND_LAUNCHES["expand"]
     phase_mc(dev, report)
+    launches["expand"] = topsim.EXPAND_LAUNCHES["expand"] - expanded
+    check(launches["expand"] > 0, "kernel expand was never launched on its path")
     torch.cuda.empty_cache()
 
     say("== phase 13: python -m graphtpu_torch uniwalk, topsim and sweep")
@@ -3235,6 +3267,16 @@ def main(argv=None) -> int:
              inputs={c["input"]: {k: c[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                                    "bound_ms", "rise_bytes")}
                      for c in topk_cases})
+    summary.append(x)
+    # TS1 at the TopSim cell's shape: the depth with the most live parents as
+    # the entry, every depth beside it; no PyTorch call computes the same
+    # function, so no library time
+    e1 = max(expand_cases, key=lambda c: c["live_parents"])
+    x = entry("expand_frontier (TS1)", "graphtpu_torch/kernels/csrc/expand.cu",
+              "none (graphtpu/simrank/topsim.py leaves the expansion to XLA)", "expand", [0.0],
+              e1, bounds.expand_work(*e1["shape"]), None)
+    x.update(shape=e1["shape"], depths=[{k: c[k] for k in (
+        "depth", "live_parents", "ms", "call_ms", "plain_ms", "bound_ms")} for c in expand_cases])
     summary.append(x)
     for key, label, replaces in RATE_KERNELS:
         mine = [c for c in rate_cases if c["kernel"] == key]

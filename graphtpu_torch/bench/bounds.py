@@ -55,6 +55,15 @@ def topk_work(rows: int, n: int, k: int, itemsize: int) -> Tuple[float, float]:
     return float(rows * n * itemsize + rows * k * (itemsize + 8)), 0.0
 
 
+def expand_work(rows: int, w: int, length: int) -> Tuple[float, float]:
+    """(bytes, operations) of one TopSim expansion (TS1) of ``rows``
+    frontiers of ``w`` slots of ``length``-node paths: the child paths and
+    masses written, the parents' masses, the draws and the parents' nodes
+    read (one int32 a slot: the node at the depth, not the whole path); no
+    operation counted (a few integer ones a slot)."""
+    return float(rows * w * (4 * length + 4 + 4 + 4 + 4)), 0.0
+
+
 def stream_terms(stream) -> int:
     """The terms of an item stream: its items (seg-1), or its real items'
     sub-rows with a nonzero raw coefficient (seg-k)."""

@@ -166,6 +166,9 @@ def load() -> ctypes.CDLL:
     lib.gt_transpose_2d.restype = ctypes.c_int
     lib.gt_topk_rows.argtypes = [p, p, p, i64, i64, i32, i32, i64, p]
     lib.gt_topk_rows.restype = ctypes.c_int
+    lib.gt_expand_frontier.argtypes = [p, p, p, p, i32, p, i64, p, p, p, p, i64, i64, i64, i32,
+                                       i32, p]
+    lib.gt_expand_frontier.restype = ctypes.c_int
     lib.gt_error_string.argtypes = [ctypes.c_int]
     lib.gt_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -16,8 +16,11 @@ deg(path[2i])`` to ``sim[src][path[2i]]`` under UniWalk's first-meet test
 
 The queue is a fixed-capacity slot tensor per source tile: paths [T, W,
 L+1] with a budget per slot [T, W].  Children get slots by an exclusive
-prefix sum of their counts, and each slot finds its parent by one batched
-``searchsorted``.  Children past W find no slot and their mass is dropped;
+prefix sum of their counts, and each slot finds its parent by a search of
+those sums: on a CUDA tensor one launch of the hand kernel TS1
+(``kernels/csrc/expand.cu``) a depth, counted in :data:`EXPAND_LAUNCHES`;
+on the CPU the same in PyTorch ops (:func:`_expand_frontier_plain`), bit
+for bit.  Children past W find no slot and their mass is dropped;
 W defaults to 2*sample + 8, a bound on the children (sum(children) <=
 sum(mass) + #sampled parents), so the default never drops mass.  The
 dropped mass is reported (``stats``), where graphtpu computes and discards
@@ -27,7 +30,8 @@ Tiles run side by side in groups (:data:`GROUP_SLOTS`), each tile on its
 own streams, so that its answer is the one it has alone.  A group runs in
 three stages: ``expand`` (the 2*step expansions, keeping the frontiers of
 the even depths), ``items`` (the first-meet masks and values over those
-frontiers) and ``reduce`` (:func:`segment_topk`, a tile at a time); given
+frontiers) and ``reduce`` (:func:`segment_topk` over the group's rows,
+each row reduced alone); given
 ``stage_times``, each is timed by
 :class:`~graphtpu_torch.utils.metrics.StageClock` under that name, and the
 same kernels run as without it.  :func:`topsim_tile_frontiers` makes a
@@ -39,6 +43,7 @@ difference around a call, as ``uniwalk.UNIWALK_COUNTS`` is.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -63,6 +68,10 @@ ENUMERATE_MAX_SLOTS = 1 << 17
 # and read once a call.
 TOPSIM_COUNTS = {"sources": 0, "slots": 0, "live": 0}
 
+# TS1 launches (``_expand_frontier`` on a CUDA tensor), read as a difference
+# around a call, as ``topk.TOPK_LAUNCHES`` is
+EXPAND_LAUNCHES = {"expand": 0}
+
 # Tiles spread side by side until a launch covers about this many frontier
 # slots.  On an H100 80GB HBM3, a solve of GAP's Urand at scale 15 at SAMPLE
 # 10,000 (640,256 slots a tile of 32 sources) took 7.6-10.2 s with one tile
@@ -70,6 +79,17 @@ TOPSIM_COUNTS = {"sources": 0, "slots": 0, "live": 0}
 # busy); with 8, 16 or 32 tiles a launch 2.64, 2.51 or 2.41 s, set by the
 # card, at a peak of 2.0, 3.9 or 7.8 GB.
 GROUP_SLOTS = 10 << 20
+
+
+def _draws(t: int, w: int, key: Union[int, Sequence[int]], dev) -> torch.Tensor:
+    """[t * w] float32 uniforms: a sequence of keys gives each of as many
+    equal blocks its own stream, drawn as the block alone would draw it."""
+    keys = [key] if isinstance(key, int) else list(key)
+    u = torch.empty(t * w, device=dev)
+    block = u.numel() // len(keys)
+    for i, k in enumerate(keys):
+        u[i * block:(i + 1) * block].uniform_(generator=generator(k, dev))
+    return u
 
 
 def _expand_frontier(
@@ -80,7 +100,7 @@ def _expand_frontier(
     key: Union[int, Sequence[int]],
     enumerate_all: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One budget-splitting step; returns (paths', mass', dropped [T]).
+    """One budget-splitting step; returns new (paths', mass', dropped [T]).
 
     The sampled children draw from stream ``key``; a sequence of keys gives
     each of as many equal blocks of rows its own stream, drawn as the block
@@ -90,7 +110,97 @@ def _expand_frontier(
     the frontier overflows W.  (graphtpu's third value is the parents' mass
     less the children's, which also counts dead ends and rounding.)
     ``enumerate_all``: every active parent splits over every edge whatever
-    its mass (``TopSim_Enumerate.java:101-129`` drops the budget guard)."""
+    its mass (``TopSim_Enumerate.java:101-129`` drops the budget guard).
+
+    A CPU tensor runs :func:`_expand_frontier_plain`.  A CUDA tensor
+    launches TS1 (``kernels/csrc/expand.cu``) on the current stream, or
+    raises; there is no other path.  Both give the same paths and masses
+    bit for bit; ``dropped`` sums in another order."""
+    if paths.device.type == "cpu":
+        return _expand_frontier_plain(g, paths, mass, depth, key, enumerate_all)
+    if paths.device.type != "cuda":
+        raise RuntimeError(f"no expansion kernel for device {paths.device}")
+    check_expand_args(g, paths, mass, depth)
+    # no child is sampled where every parent splits
+    u = None if enumerate_all else _draws(paths.shape[0], paths.shape[1], key, paths.device)
+    return ts1_expand(g, paths, mass, depth, u, enumerate_all)
+
+
+def check_expand_args(g: Graph, paths: torch.Tensor, mass: torch.Tensor, depth: int) -> None:
+    """Raise on what TS1 does not take: paths other than a contiguous
+    [T, W, L] int32 tensor, mass other than a contiguous [T, W] float32
+    one, a depth whose child node leaves the path, a graph whose ``col``
+    and ``deg`` are not contiguous int32 or whose ``row_ptr`` is not
+    contiguous int32 or int64, or tensors on more than one device.  Checks
+    only: runs before any launch, on any device."""
+    if paths.dim() != 3 or paths.dtype != torch.int32:
+        raise TypeError(f"TS1 takes [T, W, L] int32 paths, got {paths.dtype} "
+                        f"{tuple(paths.shape)}")
+    if mass.dtype != torch.float32 or tuple(mass.shape) != tuple(paths.shape[:2]):
+        raise TypeError(f"TS1 takes [T, W] float32 mass beside paths {tuple(paths.shape)}, "
+                        f"got {mass.dtype} {tuple(mass.shape)}")
+    _, w, length = paths.shape
+    if not 0 <= depth < length - 1:
+        raise ValueError(f"depth {depth}: the child node leaves paths of {length} nodes")
+    if w < 1 or w * length >= 1 << 31:
+        raise ValueError(f"TS1 takes 1 to 2^31 / L slots a row, got W = {w}, L = {length}")
+    for name, x, dtypes in (("row_ptr", g.row_ptr, (torch.int32, torch.int64)),
+                            ("col", g.col, (torch.int32,)), ("deg", g.deg, (torch.int32,))):
+        if x.dtype not in dtypes:
+            raise TypeError(f"TS1 takes the graph's {name} as {dtypes}, got {x.dtype}")
+    for name, x in (("paths", paths), ("mass", mass), ("row_ptr", g.row_ptr),
+                    ("col", g.col), ("deg", g.deg)):
+        if not x.is_contiguous():
+            raise ValueError(f"TS1 takes contiguous tensors; {name} is not")
+        if x.device != paths.device:
+            raise ValueError(f"TS1 takes its tensors on one device: {name} is on "
+                             f"{x.device}, paths on {paths.device}")
+
+
+def ts1_expand(g: Graph, paths, mass, depth: int, u: Optional[torch.Tensor],
+               enumerate_all: bool = False):
+    """One launch of TS1 on the current stream, the sampled children drawn
+    at ``u`` ([T * W] float32 uniforms, a child's at its slot); the outputs
+    are the one allocation."""
+    from graphtpu_torch.kernels import _build
+
+    check_expand_args(g, paths, mass, depth)
+    t, w, length = paths.shape
+    dev = paths.device
+    if u is None and not enumerate_all:
+        raise ValueError("TS1 draws its sampled children from u")
+    if u is not None and (u.dtype != torch.float32 or u.numel() != t * w
+                          or not u.is_contiguous() or u.device != dev):
+        raise ValueError(f"TS1 takes u as {t * w} contiguous float32 on {dev}")
+    new_paths = torch.empty_like(paths)
+    child_mass = torch.empty_like(mass)
+    dropped = torch.empty(t, dtype=torch.float32, device=dev)
+    if t == 0:
+        return new_paths, child_mass, dropped
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        cu_stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = lib.gt_expand_frontier(
+            paths.data_ptr(), mass.data_ptr(), None if u is None else u.data_ptr(),
+            g.row_ptr.data_ptr(), g.row_ptr.element_size(), g.col.data_ptr(), g.n_edges,
+            g.deg.data_ptr(), new_paths.data_ptr(), child_mass.data_ptr(), dropped.data_ptr(),
+            t, w, length, depth, int(enumerate_all), cu_stream)
+    if rc != 0:
+        raise RuntimeError(f"expansion kernel launch failed: {_build.error_string(rc)}")
+    EXPAND_LAUNCHES["expand"] += 1
+    return new_paths, child_mass, dropped
+
+
+def _expand_frontier_plain(
+    g: Graph,
+    paths: torch.Tensor,  # [T, W, L]
+    mass: torch.Tensor,   # [T, W]
+    depth: int,
+    key: Union[int, Sequence[int]],
+    enumerate_all: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`_expand_frontier`, in PyTorch ops on any
+    device."""
     t, w, length = paths.shape
     dev = paths.device
     cur = paths[:, :, depth]
@@ -119,11 +229,7 @@ def _expand_frontier(
     base = g.row_ptr[p_cur.clamp(min=0)].long()
     split_node = g.col[(base + rank).clamp(0, max(g.n_edges - 1, 0))]
     # sampled children: independent uniform neighbour draws
-    keys = [key] if isinstance(key, int) else list(key)
-    u = torch.empty(t * w, device=dev)
-    block = u.numel() // len(keys)
-    for i, k in enumerate(keys):
-        u[i * block:(i + 1) * block].uniform_(generator=generator(k, dev))
+    u = _draws(t, w, key, dev)
     samp_node = neighbor_at(g, p_cur.reshape(-1), u).reshape(t, w)
     node = torch.where(p_split, split_node, samp_node)
     node = torch.where(valid, node, -1)
@@ -250,7 +356,8 @@ def topsim_simrank(
     def expand(src, keys):
         frontiers, dropped = _spread(g, src, keys, cfg, cap)
         lost.append(dropped)
-        live.add_(torch.stack([m for _, m in frontiers[1:]]).count_nonzero())
+        for _, m in frontiers[1:]:
+            live.add_(m.count_nonzero())
         return frontiers[2::2]
 
     out = run_source_tiles([("expand", expand), ("items", lambda f: _frontier_items(g, f, cfg))],

@@ -140,8 +140,10 @@ def run_source_tiles(stages, n_nodes: int, sources: np.ndarray, tile: int, topk:
     time, side by side: ``stages`` are their named steps, the first called
     as ``fn(src, keys)`` on the group's [group*tile] sources and each tile's
     stream ``key_for(key, lo)``, each later one on the output of the one
-    before, the last giving (targets, values) a source; each tile's rows are
-    then reduced alone, so a tile's answer is the same in any group.  The
+    before, the last giving (targets, values) a source; the group's rows are
+    then reduced in one call, in which each row is reduced alone (a stable
+    sort, float64 prefix sums and the top-k along the row), so a tile's
+    answer is the same in any group.  The
     sources are padded with source 0 to whole groups, as graphtpu pads the
     last tile.  ``stage_times``: the ms of each stage and, in the top-k form,
     of ``reduce`` (:class:`StageClock`).
@@ -166,18 +168,15 @@ def run_source_tiles(stages, n_nodes: int, sources: np.ndarray, tile: int, topk:
         for name, fn in rest:
             out = clock.stage(name, fn, out)
         targets, vals = out
+        m = min(span, n - lo)
         if dense:
-            m = min(span, n - lo)
             sim = _dense_tile(targets, vals, n_nodes)
             sim[torch.arange(span, device=dev), src.long()] = 0.0
             out_dense[lo:lo + m] = sim[:m].cpu().numpy()
             continue
-        for s in range(0, min(span, n - lo), tile):
-            m = min(tile, n - lo - s)
-            vk, ik = clock.stage("reduce", segment_topk, targets[s:s + tile], vals[s:s + tile],
-                                 topk, n_nodes)
-            out_vals[lo + s:lo + s + m] = vk[:m]
-            out_idx[lo + s:lo + s + m] = ik[:m]
+        vk, ik = clock.stage("reduce", segment_topk, targets, vals, topk, n_nodes)
+        out_vals[lo:lo + m] = vk[:m]
+        out_idx[lo:lo + m] = ik[:m]
     clock.close()
     if dense:
         return out_dense

@@ -22,10 +22,13 @@ to the typical row's scale.  A number is held to its limit by
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+import gc
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from benchmark.reference import simrank as reference
 
 
 class Reference:
@@ -63,6 +66,20 @@ def judge_topk(ref: Reference, vals: np.ndarray, idx: np.ndarray,
         "rank_err": float(torch.where(keep, below, 0).max()),
         "bad_rows": float(bad_rows + int((~ok).sum())),
     }
+
+
+def judge_simrank(edges: np.ndarray, n_nodes: int, c: float, iterations: int, topk: int,
+                  device: torch.device, answers: Sequence[tuple]
+                  ) -> Tuple[List[Dict[str, float]], torch.Tensor]:
+    """([:func:`judge_topk`'s numbers of each answer (vals, idx, bad)], the
+    reference's scores): the float64 SimRank of the edges after
+    ``iterations``, solved once, with the allocator's cache emptied first."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    exact = reference.simrank(edges, n_nodes, c, iterations, device)
+    ref = Reference(exact, topk)
+    return [judge_topk(ref, vals, idx, bad) for vals, idx, bad in answers], exact
 
 
 def worst(numbers: Iterable[Dict[str, float]]) -> Dict[str, float]:

@@ -3,20 +3,27 @@
 Everything that belongs to one configuration, traffic mix, metric or cell
 is a file found by its name in ``BENCHMARK.json``:
 
-* ``benchmark/configs/<config>.json``: the graph's generator and sizes and
-  the SimRank semantics (``c``, ``topk``, the precision ``mode``);
+* ``benchmark/configs/<config>.json``: the graph's generator and sizes
+  (``graph``) and what the program computes on it: for SimRank a
+  ``simrank`` block (``c``, ``topk``, the precision ``mode``), otherwise
+  the configuration's own keys, which its runner reads;
 * ``benchmark/traffic/<mix>.json``: the mix's parameters, among them the
   ``runner`` (``benchmark/runners/<runner>.py``) that runs one unit of
-  work, the iterations, and the spans of the traced run;
+  work, the SimRank mixes' ``iterations``, and the spans of the traced run;
 * ``benchmark/metrics/<metric>.py``: ``read(rec)`` of one metric, which
   returns None where the run has nothing to read;
 * ``benchmark/limits/<cell>.json``: the limit of each number compared.
 
 A runner module has ``setup(ctx) -> state``, ``unit(state, rec) ->
-answer or None``, ``answers(state, kept) -> [(vals, idx, bad), ...]`` and
+answer or None``, ``judge(state, kept) -> [{name: x}, ...]`` and
 ``release(state)``, and may have ``numbers(state, units) -> {name: x}``,
-further numbers compared.  A limits file's ``limits`` hold in every run,
-its ``traced_limits`` in the traced run too.
+further numbers compared.  ``judge`` gives one dict of numbers for each
+kept answer, each against a reference that the runner owns (a plain one
+under ``benchmark/reference/``; for top-k SimRank rows,
+``check.judge_simrank``); the harness calls it after the window, before
+``numbers`` and ``release``, and a judge that returns no dict is never
+correct.  A limits file's ``limits`` hold in every run, its
+``traced_limits`` in the traced run too.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ class Context:
     seed: int
     device: torch.device
     trace: bool
-    mode: str
+    mode: Optional[str]
     edges: np.ndarray
     n_nodes: int
     tmpdir: str
@@ -191,7 +198,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace_on: bool,
     marks.append(("context", time.perf_counter()))
     with tempfile.TemporaryDirectory(prefix="bench-") as tmpdir:
         ctx = Context(config=config, traffic=traffic, seed=seed, device=device, trace=trace_on,
-                      mode=mode or config["simrank"]["mode"],
+                      mode=mode or config.get("simrank", {}).get("mode"),
                       edges=edges_of(graph, seed), n_nodes=n_nodes, tmpdir=tmpdir)
         marks.append(("graph", time.perf_counter()))
         state = runner.setup(ctx)
@@ -254,20 +261,12 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace_on: bool,
                          "idle_gaps": trace.idle_gaps(events, intervals, names)}
             del prof, events
 
-        # judge after the window, with the program's state freed
-        answers = runner.answers(state, kept)
+        # judge after the window, then free the program's state
+        judged = list(runner.judge(state, kept))
         extra = runner.numbers(state, units) if hasattr(runner, "numbers") else {}
         runner.release(state)
         del state
         gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
-        ref = check.Reference(
-            reference.simrank(ctx.edges, n_nodes, float(config["simrank"]["c"]),
-                              int(traffic["iterations"]), device),
-            int(config["simrank"]["topk"]))
-        judged = [check.judge_topk(ref, vals, idx, bad) for vals, idx, bad in answers]
-        del ref
         if cuda:
             torch.cuda.empty_cache()
 

@@ -6,7 +6,8 @@ run's temporary directory.  One unit is one CLI job over the mix's
 ``{c}``, ``{topk}``, ``{n_nodes}`` and ``{device}`` are filled in; each job
 overwrites the same two output files.  The jobs whose index the seed draws
 (``KEEP`` of the first ``KEEP_FROM``) have their files moved aside, and
-those and the window's last job's files are read back and judged.  In the
+those and the window's last job's files are read back and judged against
+the float64 SimRank of the configuration after the mix's iterations.  In the
 traced run the CLI's call of ``exact_simrank_spmm`` is handed a
 ``stage_times``, which counts its product stages: a job that ran fewer
 than the mix's iterations reads ``iterations_short`` above 0.
@@ -21,9 +22,8 @@ import os
 
 import numpy as np
 
-from benchmark.check import read_topk_files
+from benchmark import check, stages
 from benchmark.precision import MODES
-from benchmark import stages
 
 KEEP, KEEP_FROM = 2, 3  # jobs whose files are kept: KEEP of the first KEEP_FROM
 
@@ -46,7 +46,8 @@ def setup(ctx):
     return {"argv": [a.format(**fill) for a in ctx.traffic["argv"]], "out": out,
             "keep": {int(i) for i in keep}, "tmpdir": ctx.tmpdir, "v": ctx.n_nodes,
             "k": int(sr["topk"]), "last": None, "iterations": int(ctx.traffic["iterations"]),
-            "stage_times": ctx.trace}
+            "stage_times": ctx.trace, "edges": ctx.edges, "c": float(sr["c"]),
+            "device": ctx.device}
 
 
 @contextlib.contextmanager
@@ -88,9 +89,12 @@ def unit(state, rec):
     return None
 
 
-def answers(state, kept):
+def judge(state, kept):
     paths = list(kept) + ([state["last"]] if state["last"] else [])
-    return [read_topk_files(p, p + ".sim.txt", state["v"], state["k"]) for p in paths]
+    answers = [check.read_topk_files(p, p + ".sim.txt", state["v"], state["k"]) for p in paths]
+    judged, _ = check.judge_simrank(state["edges"], state["v"], state["c"], state["iterations"],
+                                    state["k"], state["device"], answers)
+    return judged
 
 
 def numbers(state, units):

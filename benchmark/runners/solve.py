@@ -6,7 +6,9 @@ on the host.  Each call builds its own plan, as a user's call does.  In the
 traced run the call fills ``stage_times``, which also counts the times
 each stage was added: a solve that ran fewer products than the mix's
 iterations reads ``iterations_short`` above 0.
-Every answer of the window is kept and judged.
+Every answer of the window is kept and judged against the float64 SimRank
+of the configuration after the mix's iterations, solved with the graph
+freed.
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ import importlib
 
 import torch
 
+from benchmark import check, stages
 from benchmark.precision import MODES
-from benchmark import stages
 
 
 def setup(ctx):
@@ -30,6 +32,7 @@ def setup(ctx):
         "cfg": SimRankConfig(c=float(sr["c"]), iterations=int(ctx.traffic["iterations"])),
         "k": int(sr["topk"]), "mode": (spmv_mode, getattr(torch, dtype)),
         "device": ctx.device, "stage_times": ctx.trace,
+        "edges": ctx.edges, "v": ctx.n_nodes, "c": float(sr["c"]),
     }
 
 
@@ -45,8 +48,12 @@ def unit(state, rec):
     return vals, idx
 
 
-def answers(state, kept):
-    return [(vals, idx, 0) for vals, idx in kept]
+def judge(state, kept):
+    state.pop("g")
+    judged, _ = check.judge_simrank(state["edges"], state["v"], state["c"],
+                                    state["cfg"].iterations, state["k"], state["device"],
+                                    [(vals, idx, 0) for vals, idx in kept])
+    return judged
 
 
 def numbers(state, units):

@@ -7,9 +7,10 @@ host.  The unit's record holds what the call added to the program's
 ``TOPSIM_COUNTS`` (``sources``, ``slots``, ``live``) and the mass its
 frontiers dropped (``stats``); in the traced run the call also fills a
 counted ``stage_times``, which holds those counts too.  Every answer of the
-window is kept and judged against exact SimRank after the mix's
-iterations, which must equal the configuration's ``step``.  A program
-without ``TOPSIM_COUNTS`` is refused before any solve.
+window is kept, and ``judge`` holds each to exact SimRank after STEP
+iterations, solved once a run, as the UniWalk runner's does; the mix's
+iterations must equal the configuration's ``step``.  A program without
+``TOPSIM_COUNTS`` is refused before any solve.
 
 After the window, further numbers compared, each the worst over the
 window's solves:
@@ -24,7 +25,7 @@ window's solves:
   break the spreading rule (``reference.spread_bad``);
 * ``dropped_mass``: the mass a solve's frontiers could not hold;
 * ``precision_short``: 1 - the mean precision@k of a solve against the
-  exact top-k, as the UniWalk runner reads it;
+  exact top-k (the judge's solve), as the UniWalk runner reads it;
 * traced only, ``sources_short``: V less the fewest sources a solve
   counted.
 """
@@ -36,7 +37,6 @@ import torch
 
 import graphtpu_torch.simrank.topsim as ts
 from benchmark import stages
-from benchmark.reference import simrank as exact_reference
 from benchmark.reference import topsim as reference
 from benchmark.runners import uniwalk as walk_runner
 
@@ -85,8 +85,7 @@ def unit(state, rec):
     return vals, idx
 
 
-def answers(state, kept):
-    return [(vals, idx, 0) for vals, idx in kept]
+judge = walk_runner.judge
 
 
 def _tile_check(state, index: int, vals, idx) -> dict:
@@ -116,10 +115,8 @@ def numbers(state, units):
         for name, x in _tile_check(state, index, vals, idx).items():
             out[name] = max(out.get(name, x), x)
     if solves:
-        exact = exact_reference.simrank(state["edges"], v, cfg.c, cfg.step, state["device"])
-        out["precision_short"] = max(walk_runner._precision_short(exact, idx, cfg.topk)
+        out["precision_short"] = max(walk_runner._precision_short(state["exact"], idx, cfg.topk)
                                      for _, _, idx in solves)
-        del exact
     counted = [u for u in units if u["index"] >= 0 and "counts" in u]
     if counted:
         out["dropped_mass"] = max(u["dropped_mass"] for u in counted)

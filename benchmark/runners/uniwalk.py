@@ -6,8 +6,9 @@ over all sources, on a key drawn from (seed, unit index), the top-k on the
 host.  The unit's record holds what the call added to the program's
 ``UNIWALK_COUNTS`` (``walkers``, ``hops``); in the traced run the call
 also fills a counted ``stage_times``, which holds those counts too.  Every
-answer of the window is kept and judged against exact SimRank after the
-mix's iterations, which must equal the configuration's ``step``.
+answer of the window is kept, and ``judge`` holds each to exact SimRank
+after STEP iterations (``check.judge_simrank``), solved once a run; the
+mix's iterations must equal the configuration's ``step``.
 
 After the window, further numbers compared, each the worst over the
 window's solves:
@@ -20,8 +21,8 @@ window's solves:
   ``check.judge_topk``'s ``score_err`` and ``rank_err``, each row scaled as
   there; an id out of range or repeated counts in ``bad_rows``;
 * ``precision_short``: 1 - the mean precision@k of a solve against the
-  exact top-k (``benchmark/reference/simrank.py``), over rows whose exact
-  top-1 is above 0, k' = min(k, the row's positive scores);
+  exact top-k (the judge's solve), over rows whose exact top-1 is above 0,
+  k' = min(k, the row's positive scores);
 * ``walkers_short``: V·SAMPLE less the fewest walkers a solve counted;
 * ``hops_short``: 2·STEP·SAMPLE hops from each source with a neighbour
   (on an undirected graph such a walk never stops short) less the fewest
@@ -34,8 +35,7 @@ import numpy as np
 import torch
 
 import graphtpu_torch.simrank.uniwalk as uw
-from benchmark import stages
-from benchmark.reference import simrank as exact_reference
+from benchmark import check, stages
 from benchmark.reference import uniwalk as reference
 
 
@@ -78,8 +78,15 @@ def unit(state, rec):
     return vals, idx
 
 
-def answers(state, kept):
-    return [(vals, idx, 0) for vals, idx in kept]
+def judge(state, kept):
+    """Each kept solve's ``check.judge_topk`` numbers against exact SimRank
+    after STEP iterations, solved once and left in ``state["exact"]`` for
+    :func:`numbers`."""
+    cfg = state["cfg"]
+    judged, state["exact"] = check.judge_simrank(state["edges"], state["n_nodes"], cfg.c,
+                                                 cfg.step, cfg.topk, state["device"],
+                                                 [(vals, idx, 0) for vals, idx in kept])
+    return judged
 
 
 def _tile_numbers(dense: torch.Tensor, vals, idx) -> dict:
@@ -141,10 +148,8 @@ def numbers(state, units):
         for name, x in _tile_check(state, index, vals, idx).items():
             out[name] = max(out.get(name, x), x)
     if solves:
-        exact = exact_reference.simrank(state["edges"], v, cfg.c, cfg.step, state["device"])
-        out["precision_short"] = max(_precision_short(exact, idx, cfg.topk)
+        out["precision_short"] = max(_precision_short(state["exact"], idx, cfg.topk)
                                      for _, _, idx in solves)
-        del exact
     counted = [u["counts"] for u in units if u["index"] >= 0 and "counts" in u]
     if counted:
         live = int((state["deg"] > 0).sum())

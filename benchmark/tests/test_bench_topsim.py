@@ -15,6 +15,8 @@ import torch
 import graphtpu_torch.simrank.topsim as ts
 from benchmark import harness
 from benchmark.readings_topsim import CASES
+from benchmark.reference import simrank as exact_reference
+from benchmark.tests.conftest import walk_numbers_before_own_judge
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -113,6 +115,37 @@ def test_runner_refuses_other_precisions_steps_and_programs(tiny_topsim, monkeyp
     with pytest.raises(SystemExit, match="TOPSIM_COUNTS"):
         run(tiny_topsim)
     assert time.perf_counter() - t0 < 5
+
+
+def test_exact_simrank_solved_once(tiny_topsim, monkeypatch):
+    """The runner's judge solves the exact reference, and ``numbers`` reads
+    that solve: the harness builds none of its own."""
+    calls = []
+    orig = exact_reference.simrank
+
+    def counted(*a, **kw):
+        calls.append(a[2:4])
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(exact_reference, "simrank", counted)
+    out = run(tiny_topsim, seconds=0.3)
+    assert out["correct"], out["checks"]
+    assert calls == [(0.6, 3)]
+
+
+@pytest.mark.parametrize("seed", [2**31 + 7, 3])
+def test_checks_equal_the_parents(tiny_topsim, watched, seed):
+    """Every number of one run, each held to a limit of 1e9 so that the
+    checks show it, equals what the path before the runner's own judge
+    reads from the same run's answers (two exact solves there, one here)."""
+    path = tiny_topsim / "benchmark" / "limits" / f"{CELL}.json"
+    names = {"score_err", "score_abs", "rank_err", *LIMITS}
+    path.write_text(json.dumps({"limits": {n: 1e9 for n in names}}))
+    out = run(tiny_topsim, seed=seed)
+    want = walk_numbers_before_own_judge(tiny_topsim, "urand-topsim", "topsim-solve", seed,
+                                         watched["kept"], watched["extra"])
+    assert len(watched["kept"]) >= 1 and set(want) == names
+    assert {n: c["value"] for n, c in out["checks"].items()} == want
 
 
 def test_fill_share_reads_the_counted_solves():

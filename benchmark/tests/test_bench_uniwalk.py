@@ -14,6 +14,8 @@ import torch
 import graphtpu_torch.simrank.uniwalk as uw
 from benchmark import harness
 from benchmark.readings_uniwalk import CASES
+from benchmark.reference import simrank as exact_reference
+from benchmark.tests.conftest import walk_numbers_before_own_judge
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -127,6 +129,37 @@ def test_runner_refuses_other_precisions_and_steps(tiny_uniwalk):
     path.write_text(json.dumps(dict(mix, iterations=4)))
     with pytest.raises(SystemExit, match="step 5"):
         run(tiny_uniwalk)
+
+
+def test_exact_simrank_solved_once(tiny_uniwalk, monkeypatch):
+    """The runner's judge solves the exact reference, and ``numbers`` reads
+    that solve: the harness builds none of its own."""
+    calls = []
+    orig = exact_reference.simrank
+
+    def counted(*a, **kw):
+        calls.append(a[2:4])
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(exact_reference, "simrank", counted)
+    out = run(tiny_uniwalk, seconds=0.3)
+    assert out["correct"], out["checks"]
+    assert calls == [(0.6, 5)]
+
+
+@pytest.mark.parametrize("seed", [2**31 + 7, 3])
+def test_checks_equal_the_parents(tiny_uniwalk, watched, seed):
+    """Every number of one run, each held to a limit of 1e9 so that the
+    checks show it, equals what the path before the runner's own judge
+    reads from the same run's answers (two exact solves there, one here)."""
+    path = tiny_uniwalk / "benchmark" / "limits" / f"{CELL}.json"
+    names = {"score_err", "score_abs", "rank_err", *LIMITS}
+    path.write_text(json.dumps({"limits": {n: 1e9 for n in names}}))
+    out = run(tiny_uniwalk, seed=seed)
+    want = walk_numbers_before_own_judge(tiny_uniwalk, "urand-uniwalk", "uniwalk-solve", seed,
+                                         watched["kept"], watched["extra"])
+    assert len(watched["kept"]) >= 1 and set(want) == names
+    assert {n: c["value"] for n, c in out["checks"].items()} == want
 
 
 def test_idle_share_reads_the_unprofiled_solves():

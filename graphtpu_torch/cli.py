@@ -9,9 +9,9 @@ quiet move to the CPU) on all but ``generate``; ``simrank`` adds
 streams' key, default 0).  ``node2vec``, ``uniwalk``, ``topsim``,
 ``deepsim``, ``sdne``, ``le`` and ``simrank`` print their wall time split
 into stages; ``simrank --engine spmm`` also prints its hand kernels'
-launches, and ``simrank --profile DIR`` writes a ``torch.profiler`` trace
-of the job, its stages and the card's kernels on one timeline, to
-``DIR/trace.json``.
+launches, and ``simrank --profile DIR`` and ``node2vec --profile DIR``
+write a ``torch.profiler`` trace of the job, its stages and the card's
+kernels on one timeline, to ``DIR/trace.json``.
 """
 
 from __future__ import annotations
@@ -48,6 +48,10 @@ def build_parser() -> argparse.ArgumentParser:
     n2v.add_argument("--grid", default=None)
     n2v.add_argument("--grid-diag", action="store_true")
     n2v.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    n2v.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="write a torch.profiler trace of the job to DIR/trace.json",
+    )
 
     sr = sub.add_parser("simrank", help="exact SimRank -> top-k .sim.txt")
     sr.add_argument("--input", required=True)
@@ -176,34 +180,44 @@ def _stages(times: dict) -> str:
 
 
 def node2vec_main(args) -> int:
+    """Prints each embedding's stages (``StageClock`` spans, the card
+    synchronised at each one's end): ``read`` (on the first line only:
+    the graph is read once), then the pipeline's ``walks``, ``sgns`` and
+    ``write``."""
     from graphtpu_torch.core.config import SGNSConfig, WalkConfig
     from graphtpu_torch.core.device import resolve_device
     from graphtpu_torch.core.graph import read_edgelist_graph
     from graphtpu_torch.pipelines import node2vec_pipeline
+    from graphtpu_torch.utils.metrics import StageClock, trace_profile
 
     device = resolve_device(args.device)
-    g = read_edgelist_graph(
-        args.input, delimiter=args.delimiter, weighted=args.weighted,
-        directed=args.directed,
-    )
-    if args.directed:
-        g = g.out
-    if args.grid:
-        vals = [float(x) for x in args.grid.split(",")]
-        pqs = [(x, x) for x in vals] if args.grid_diag else [(a, b) for a in vals for b in vals]
-    else:
-        pqs = [(args.p, args.q)]
-    for p, q in pqs:
-        out = args.output if len(pqs) == 1 else f"{args.output}.p{p:g}_q{q:g}.emb"
-        times = {}
-        node2vec_pipeline(
-            g,
-            walk_cfg=WalkConfig(num_walks=args.num_walks, walk_length=args.walk_length, p=p, q=q),
-            sgns_cfg=SGNSConfig(dim=args.dimensions, window=args.window_size,
-                                epochs=args.iter, subsample=args.subsample, seed=args.seed),
-            seed=args.seed, output=out, device=device, stage_times=times,
-        )
-        print(f"wrote {out} ({_stages(times)})")
+    times = {}
+    with trace_profile(args.profile):
+        with StageClock(times, device).span("read"):
+            g = read_edgelist_graph(
+                args.input, delimiter=args.delimiter, weighted=args.weighted,
+                directed=args.directed,
+            )
+            if args.directed:
+                g = g.out
+        if args.grid:
+            vals = [float(x) for x in args.grid.split(",")]
+            pqs = ([(x, x) for x in vals] if args.grid_diag
+                   else [(a, b) for a in vals for b in vals])
+        else:
+            pqs = [(args.p, args.q)]
+        for p, q in pqs:
+            out = args.output if len(pqs) == 1 else f"{args.output}.p{p:g}_q{q:g}.emb"
+            node2vec_pipeline(
+                g,
+                walk_cfg=WalkConfig(num_walks=args.num_walks, walk_length=args.walk_length,
+                                    p=p, q=q),
+                sgns_cfg=SGNSConfig(dim=args.dimensions, window=args.window_size,
+                                    epochs=args.iter, subsample=args.subsample, seed=args.seed),
+                seed=args.seed, output=out, device=device, stage_times=times,
+            )
+            print(f"wrote {out} ({_stages({k: ms / 1e3 for k, ms in times.items()})})")
+            times = {}
     return 0
 
 

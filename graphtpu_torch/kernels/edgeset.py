@@ -176,19 +176,25 @@ def edge_set_contains(es: EdgeSet, u: torch.Tensor, v: torch.Tensor) -> torch.Te
 
 
 # Per-graph caches, keyed by the graph's host ``col`` array: every copy of a
-# graph on any device shares it (``Graph.to`` keeps ``host``), and holding
-# the array keeps its id from being reused by another graph while cached.
+# graph on any device shares it (``Graph.to`` keeps ``host``).  An entry
+# holds the array weakly: a graph that is gone takes its id's entry with it
+# (its tables are dropped before the next build), so a process that reads
+# one graph after another, as a run of CLI jobs does, holds one graph's.
 _CACHE: dict = {}
 
 
 def _cached(key, col: np.ndarray, build):
+    import weakref
+
     hit = _CACHE.get(key)
-    if hit is not None and hit[0] is col:
+    if hit is not None and hit[0]() is col:
         return hit[1]
-    es = build()
+    for k in [k for k, (ref, _) in _CACHE.items() if ref() is None]:
+        del _CACHE[k]
     if len(_CACHE) > 16:
         _CACHE.clear()
-    _CACHE[key] = (col, es)
+    es = build()
+    _CACHE[key] = (weakref.ref(col), es)
     return es
 
 

@@ -160,10 +160,15 @@ def segment_rows_sum(
     a CUDA tensor), so a resumed SGNS run reproduces an uninterrupted one.
     Skipped rows sort last, past the segments' total, and are never read
     (``unsafe``: the lengths may sum to less than N, with no device sync).
+    The lengths are integer adds (``scatter_add_``, whose order cannot
+    change a count), not ``bincount``, which reads the ids' range back to
+    the host: no step of SGNS waits for the card, and a CUDA graph can
+    hold it.
     """
     safe = torch.where(idx >= 0, idx, n_segments).long()
     order = torch.argsort(safe, stable=True)
-    lengths = torch.bincount(safe, minlength=n_segments + 1)[:n_segments]
+    lengths = torch.zeros(n_segments + 1, dtype=torch.long, device=safe.device).scatter_add_(
+        0, safe, torch.ones_like(safe))[:n_segments]
     sums = torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0, unsafe=True)
     return sums, lengths.float()
 

@@ -22,10 +22,16 @@ bits on every run.  Every random draw comes from a stream of
 :mod:`graphtpu_torch.core.prng` keyed by (epoch, chunk start), so a run
 resumed from a checkpoint reproduces the uninterrupted one.  Embedding =
 the input table (syn0).
+
+Every :func:`train_sgns` call adds to :data:`SGNS_COUNTS` (read as
+differences): its steps, the center slots and negatives they drew (known
+on the host) and the valid (center, context) pairs they trained on
+(counted on the device, one sum a step, read once at the end).
 """
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional, Tuple, Union
 
@@ -39,6 +45,8 @@ from graphtpu_torch.core.prng import generator, key_for
 from graphtpu_torch.kernels.topk import segment_rows_sum
 
 Params = Tuple[torch.Tensor, torch.Tensor]
+
+SGNS_COUNTS = {"steps": 0, "centers": 0, "pairs": 0, "negatives": 0}
 
 
 def corpus_counts(walks: torch.Tensor, n_nodes: int) -> torch.Tensor:
@@ -91,11 +99,13 @@ def subsample_and_compact(
     valid = walks >= 0
     tok = walks.clamp(min=0)
     keep = (torch.rand(walks.shape, generator=gen, device=walks.device) < keep_p[tok]) & valid
-    # stable compaction: kept tokens first, original order preserved
+    # stable compaction: each kept token to its rank among its row's kept
+    # tokens, every dropped one to a spare last column (int64 ranks, no
+    # sort: a [W, L] sort's keys, values and scratch were the job's peak)
     w = walks.shape[1]
-    pos = torch.arange(w, device=walks.device)[None, :]
-    order = torch.argsort(torch.where(keep, pos, pos + w), dim=1)
-    compacted = torch.gather(torch.where(keep, walks, -1), 1, order)
+    dest = torch.cumsum(keep, dim=1).sub_(1).masked_fill_(~keep, w)
+    out = torch.full((walks.shape[0], w + 1), -1, dtype=walks.dtype, device=walks.device)
+    compacted = out.scatter_(1, dest, walks)[:, :w]
     return compacted, compacted >= 0
 
 
@@ -207,6 +217,28 @@ def sgns_step(
             syn1 - lr * (g1 / c1.clamp(min=1)[:, None]))
 
 
+def draw_batch(cwalks: torch.Tensor, slots: torch.Tensor, window: int, neg_j: torch.Tensor,
+               neg_q: torch.Tensor, nshape, gen: torch.Generator):
+    """(centers, contexts, mask, negatives) of one step on the center
+    ``slots`` of the compacted walks: the batch's dynamic windows, then its
+    negatives, drawn from ``gen`` in that order."""
+    centers, contexts, mask = _gather_batch(cwalks, slots, window, gen)
+    return centers, contexts, mask, alias_draw_batch(neg_j, neg_q, gen, nshape)
+
+
+def _take_step(params: Params, batch, lr, n_nodes: int, shards=None,
+               stage_times: Optional[dict] = None) -> Params:
+    centers, contexts, mask, negs = batch
+    if shards is None:
+        return sgns_step(params, centers, contexts, mask, negs, lr, n_nodes)
+    from graphtpu_torch.dist.sgns_dp import sharded_sgns_step
+
+    b = centers.shape[0] // shards.n_blocks
+    part = slice(shards.block * b, (shards.block + 1) * b)
+    return sharded_sgns_step(params, centers[part], contexts[part], mask[part], negs[part], lr,
+                             shards, stage_times)
+
+
 def batch_step(
     params: Params,
     cwalks: torch.Tensor,
@@ -222,22 +254,104 @@ def batch_step(
     stage_times: Optional[dict] = None,
 ) -> Params:
     """One training step on the center ``slots`` of the compacted walks:
-    the batch's dynamic windows, then its negatives, drawn from ``gen`` in
-    that order, then :func:`sgns_step`.  ``shards``
+    :func:`draw_batch`, then :func:`sgns_step`.  ``shards``
     (:class:`graphtpu_torch.dist.sgns_dp.RowShards`): every rank draws the
     whole batch and steps on its data block with its row shards of the
     tables (``stage_times`` as :func:`~graphtpu_torch.dist.sgns_dp.sharded_sgns_step`
     takes it)."""
-    centers, contexts, mask = _gather_batch(cwalks, slots, window, gen)
-    negs = alias_draw_batch(neg_j, neg_q, gen, nshape)
-    if shards is None:
-        return sgns_step(params, centers, contexts, mask, negs, lr, n_nodes)
-    from graphtpu_torch.dist.sgns_dp import sharded_sgns_step
+    batch = draw_batch(cwalks, slots, window, neg_j, neg_q, nshape, gen)
+    return _take_step(params, batch, lr, n_nodes, shards, stage_times)
 
-    b = centers.shape[0] // shards.n_blocks
-    part = slice(shards.block * b, (shards.block + 1) * b)
-    return sharded_sgns_step(params, centers[part], contexts[part], mask[part], negs[part], lr,
-                             shards, stage_times)
+
+_CAPTURE_STREAMS: dict = {}
+
+
+class SgnsSteps:
+    """The steps of one :func:`train_sgns` run: :meth:`step` takes
+    :func:`batch_step`'s step (:func:`draw_batch`, then :func:`sgns_step`)
+    on the epoch's compacted walks (:meth:`epoch`) from the chunk's stream
+    (:meth:`chunk`), keeps the batch it drew in ``batch`` (centers,
+    contexts, mask, negatives) and adds its valid (center, context) pairs
+    to ``pairs`` on the device.
+
+    On one CUDA device (no ``shards``) the first step is captured as one
+    CUDA graph and every step replays it: the tables given to the first
+    step are copied into static buffers, which every step updates and
+    returns, and the slots, the rate and the stream (a generator
+    registered with the graph) are static too.  The same kernels in the
+    same order on the same random numbers, so the same bits as the eager
+    steps, in one launch a step in place of ~150: the card, not the
+    host's dispatch of those launches, paces the steps.  Elsewhere each
+    step runs eagerly."""
+
+    def __init__(self, window: int, neg_j: torch.Tensor, neg_q: torch.Tensor, nshape,
+                 n_nodes: int, shards=None, stage_times: Optional[dict] = None):
+        self.window, self.neg = window, (neg_j, neg_q, nshape)
+        self.n_nodes, self.shards, self.stage_times = n_nodes, shards, stage_times
+        self.dev = neg_j.device
+        self.pairs = torch.zeros((), dtype=torch.int64, device=self.dev)
+        self.graphed = self.dev.type == "cuda" and shards is None
+        self.gen = torch.Generator(device=self.dev)
+        self.key = 0
+        self.cwalks = self.graph = self.batch = None
+
+    def epoch(self, cwalks: torch.Tensor) -> None:
+        if self.graph is None:
+            self.cwalks = cwalks
+        else:
+            self.cwalks.copy_(cwalks)
+
+    def chunk(self, key: int) -> None:
+        self.key = key
+        self.gen.manual_seed(key)
+
+    def _draw(self, slots):
+        self.batch = draw_batch(self.cwalks, slots, self.window, *self.neg, self.gen)
+        centers, _, mask, _ = self.batch
+        self.pairs.add_((mask & (centers >= 0)[:, None]).sum())
+        return self.batch
+
+    def _body(self):
+        new = _take_step(self.params, self._draw(self.slots), self.lr, self.n_nodes)
+        for p, x in zip(self.params, new):
+            p.copy_(x)
+
+    def _capture(self, params: Params, slots: torch.Tensor) -> None:
+        self.params = tuple(p.clone() for p in params)
+        self.slots = slots.clone()
+        self.lr = torch.zeros((), device=self.dev)
+        # one side stream a device for every capture: cuBLAS keeps a workspace
+        # for each stream it has run on, for the life of the process
+        side = _CAPTURE_STREAMS.get(str(self.dev))
+        if side is None:
+            side = _CAPTURE_STREAMS[str(self.dev)] = torch.cuda.Stream(self.dev)
+        side.wait_stream(torch.cuda.current_stream(self.dev))
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(self.gen)
+        with torch.cuda.stream(side):
+            for _ in range(2):  # the lazy set-up of every kernel, off the graph
+                self._body()
+            # capture_begin, not torch.cuda.graph: no collection and no emptied
+            # cache, whose allocations every later step would pay for again
+            self.graph.capture_begin()
+            self._body()
+            self.graph.capture_end()
+        torch.cuda.current_stream(self.dev).wait_stream(side)
+        for p, x in zip(self.params, params):  # what the warm-up steps moved
+            p.copy_(x)
+        self.pairs.zero_()
+        self.chunk(self.key)
+
+    def step(self, params: Params, slots: torch.Tensor, lr: float) -> Params:
+        if not self.graphed:
+            return _take_step(params, self._draw(slots), lr, self.n_nodes, self.shards,
+                              self.stage_times)
+        if self.graph is None:
+            self._capture(params, slots)
+        self.slots.copy_(slots)
+        self.lr.fill_(lr)
+        self.graph.replay()
+        return self.params
 
 
 def _gather_batch(
@@ -324,6 +438,8 @@ def train_sgns(
     any mesh shape, or on one device): the model group of data row 0
     gathers them and rank 0 writes; on resume each rank reads its rows.
     The returned tables are gathered onto every rank's host.
+    The steps run through :class:`SgnsSteps`: on one CUDA device, as one
+    captured CUDA graph replayed a step.
     ``stage_times``: with a mesh, the steps' stage ms and wire bytes
     (:func:`~graphtpu_torch.dist.sgns_dp.sharded_sgns_step`), plus "steps"
     and "table_bytes" (this rank's two tables, or shards).
@@ -378,24 +494,29 @@ def train_sgns(
         resume_start = meta.get("next_start", 0)
 
     done_chunks = 0
+    steps = SgnsSteps(cfg.window, neg_j, neg_q, nshape, n_nodes, shards, stage_times)
     with full_fp32():
         for e in range(resume_epoch, cfg.epochs):
             ekey = key_for(k_run, e)
+            # the permutation first, its sort's scratch beside the walks alone
+            # (each draw has its own stream, so the order changes no bit)
+            perm = torch.randperm(slots_per_epoch, generator=generator(key_for(ekey, 0, 1), dev),
+                                  device=dev, dtype=torch.int32)
             cwalks, _ = subsample_and_compact(
                 walks, counts, cfg.subsample, generator(key_for(ekey, 0, 0), dev))
-            perm = torch.randperm(slots_per_epoch, generator=generator(key_for(ekey, 0, 1), dev),
-                                  device=dev)
+            steps.epoch(cwalks)
             start0 = resume_start if e == resume_epoch else 0
             for start in range(start0, steps_per_epoch, chunk):
                 # streams key off (epoch, chunk start): a resumed run draws
                 # what the uninterrupted one drew
-                gen = generator(key_for(ekey, 1, start), dev)
+                steps.chunk(key_for(ekey, 1, start))
                 for i in range(start, min(start + chunk, steps_per_epoch)):
                     gstep = e * steps_per_epoch + i
                     lr = cfg.alpha - (cfg.alpha - cfg.min_alpha) * gstep / total_steps
-                    params = batch_step(params, cwalks, perm[i * batch:(i + 1) * batch],
-                                        cfg.window, neg_j, neg_q, nshape, gen, lr, n_nodes,
-                                        shards=shards, stage_times=stage_times)
+                    params = steps.step(params, perm[i * batch:(i + 1) * batch], lr)
+                    SGNS_COUNTS["steps"] += 1
+                    SGNS_COUNTS["centers"] += batch
+                    SGNS_COUNTS["negatives"] += math.prod(nshape)
                     if stage_times is not None:
                         stage_times["steps"] = stage_times.get("steps", 0) + 1
                 done_chunks += 1
@@ -410,4 +531,6 @@ def train_sgns(
                                    step=done_chunks, meta=meta)
     if stage_times is not None:
         stage_times["table_bytes"] = sum(p.numel() * p.element_size() for p in params)
-    return whole_tables(params)
+    tables = whole_tables(params)
+    SGNS_COUNTS["pairs"] += int(steps.pairs)
+    return tables

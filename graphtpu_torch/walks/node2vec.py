@@ -19,6 +19,12 @@ bias rule (``node2vec.py:61-81``):
   read per round.  Walkers never accepted keep their last proposal.
 * ``exact`` (small graphs, parity tests): the full biased categorical over
   padded neighbour rows, sampled by Gumbel-max.
+
+Every call adds to :data:`NODE2VEC_COUNTS` (read as differences): the
+walks, their hops (every walker each step, dead ones too), the proposals
+drawn (one a walker on the first-order hop and on an exact hop; a panel
+of ``chunk`` a walker each rejection round) and the rounds that read back
+to the host to decide whether to go on.  All are known on the host.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ from graphtpu_torch.kernels.sampling import (
 from graphtpu_torch.walks.walker import sorted_hop
 
 RESIDUAL = 1e-3
+
+NODE2VEC_COUNTS = {"walks": 0, "hops": 0, "proposals": 0, "host_reads": 0}
 
 
 def default_max_trials(p: float, q: float, residual: float = RESIDUAL) -> int:
@@ -101,8 +109,11 @@ def _second_order_step_rejection(
     nxt = torch.full_like(cur, -1)
     done = torch.zeros_like(cur, dtype=torch.bool)
     for i in range(n_chunks):
-        if i > 0 and (~done).float().mean().item() <= RESIDUAL:
-            break
+        if i > 0:
+            NODE2VEC_COUNTS["host_reads"] += 1
+            if (~done).float().mean().item() <= RESIDUAL:
+                break
+        NODE2VEC_COUNTS["proposals"] += cur.shape[0] * chunk
         gen = generator(key_for(key, i), cur.device)
         props = propose(g, cumw, cur, rows, chunk, gen, weighted)
         is_tri = edge_set_contains(eset, prev[:, None], props)
@@ -135,6 +146,7 @@ def _second_order_step_exact(
     u = torch.rand(row.shape, generator=generator(key, cur.device), device=cur.device)
     gum = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
     choice = torch.argmax(logits + gum, dim=1)
+    NODE2VEC_COUNTS["proposals"] += cur.shape[0]
     nxt = torch.gather(row, 1, choice[:, None])[:, 0]
     alive = (cur >= 0) & (g.deg[safe] > 0)
     return torch.where(alive, nxt, -1)
@@ -174,8 +186,11 @@ def node2vec_walks(
     cumw = row_cumulative_weights(g) if weighted else None
     nbrs, nwts = padded_neighbors(g) if mode == "exact" else (None, None)
 
+    NODE2VEC_COUNTS["walks"] += starts.shape[0]
     if num_steps == 0:
         return starts[:, None]
+    NODE2VEC_COUNTS["hops"] += starts.shape[0] * num_steps
+    NODE2VEC_COUNTS["proposals"] += starts.shape[0]
     gen0 = generator(key_for(key, 0), dev)
     if weighted:
         c1 = weighted_neighbor(g, cumw, starts, gen0)

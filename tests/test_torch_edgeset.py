@@ -95,3 +95,22 @@ def test_edge_set_caches_per_graph():
     assert tes.device_edge_set(tg).words.device.type == "cpu"
     np.testing.assert_array_equal(tes.device_edge_set(other).words.numpy(),
                                   tes.build_edge_set(other).words.numpy())
+
+
+def test_edge_set_cache_drops_graphs_that_are_gone():
+    """Graphs read one after another, as a run of CLI jobs reads them: the
+    cache holds the sets of the graphs still alive, not of every graph."""
+    import gc
+
+    tes._CACHE.clear()
+    kept = build_graph(np.array([[0, 1], [1, 2]]), n_nodes=3)
+    es = tes.device_edge_set(kept)
+    for seed in range(5):
+        _, g = _graphs(97, 400, seed=seed)
+        tes.device_edge_set(g)
+        del g
+        gc.collect()
+    live = [ref() for ref, _ in tes._CACHE.values()]
+    assert sum(x is not None for x in live) <= 2  # the kept graph's host and device sets
+    assert len(tes._CACHE) <= 4  # and the last graph's, dropped at the next build
+    assert tes.device_edge_set(kept) is es

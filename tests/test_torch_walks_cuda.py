@@ -106,3 +106,30 @@ def test_sgns_runs_bit_equal_on_card(cuda):
     b = train_sgns(walks, g.n_nodes, cfg, chunk_steps=7, device=cuda)
     assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
     assert np.isfinite(a[0]).all()
+
+
+def test_captured_steps_equal_the_eager_steps(cuda, monkeypatch):
+    """train_sgns on the card replays one captured CUDA graph a step: the
+    same bits, and the same counts, as the same steps taken eagerly, over
+    epochs (the compacted walks copied in) and chunks (the stream
+    reseeded)."""
+    from graphtpu_torch.models import sgns
+
+    g = _graph().to(cuda)
+    walks = simulate_walks(g, 4, 20, 1, p=0.25, q=0.25, device=cuda)
+    cfg = SGNSConfig(dim=32, window=4, epochs=2, batch_size=256, subsample=1e-2)
+    before = dict(sgns.SGNS_COUNTS)
+    graphed = train_sgns(walks, g.n_nodes, cfg, chunk_steps=7, device=cuda)
+    counted = {k: sgns.SGNS_COUNTS[k] - before[k] for k in before}
+
+    class Eager(sgns.SgnsSteps):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.graphed = False
+
+    monkeypatch.setattr(sgns, "SgnsSteps", Eager)
+    before = dict(sgns.SGNS_COUNTS)
+    eager = train_sgns(walks, g.n_nodes, cfg, chunk_steps=7, device=cuda)
+    assert {k: sgns.SGNS_COUNTS[k] - before[k] for k in before} == counted
+    assert counted["steps"] == 2 * (walks.numel() // 256) and counted["pairs"] > 0
+    assert np.array_equal(graphed[0], eager[0]) and np.array_equal(graphed[1], eager[1])

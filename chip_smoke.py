@@ -58,6 +58,12 @@ Phases (any failure raises and the run exits non-zero):
      32,768 nodes): paths and masses bit-equal to the plain version's at
      every depth; kernel, whole call (draws and launch) and plain version
      timed beside the bound.  Phase 12 counts its launches.
+     4e: SGNS's gradients SG1 (``models/sgns.py``) at the node2vec cell's
+     shape (``bench/sgns_probe.py``: R-MAT 14 walks, B = 8192, 2w = 20, N
+     = 5, D = 128) against its plain version, two launches bit-equal; SG1a,
+     the keys' sort, SG1b, SG1, the segment path it replaces, the plain
+     version and the whole step timed beside the bound.  Phase 10 counts
+     its launches.
   5. main path: ``python -m graphtpu_torch simrank --engine spmm`` for
      modes kahan, fast and fast16 on the blog-shaped graph; launch counts,
      files read back, scores against the dense fp32 engine, the host ms of
@@ -96,7 +102,8 @@ Phases (any failure raises and the run exits non-zero):
  10. SGNS on the blog walks at full width: ms per step (B = 8192, W = 10,
      N = 5, D = 128) and peak memory; two runs bit-equal; a run resumed
      from a mid-run checkpoint bit-equal to the uninterrupted one; the
-     two-clique quality check.
+     two-clique quality check.  It counts SG1's launches from the host,
+     each of its three kernels, and the replayed steps that run them.
  11. ``python -m graphtpu_torch node2vec --p 1 --q 2`` at the reference
      defaults in a subprocess (no --device): the .emb read back (V' rows
      of 128 finite values) and its wall time split into walks, SGNS and the
@@ -961,6 +968,27 @@ def phase_expand(dev, report):
             f"the kernel at {100 * c['of_bound']:.1f}% of the bound")
     report["expand"] = cases
     return cases
+
+
+def phase_sg1(dev, report):
+    """SG1 (``models/sgns.py``): its gradients against the plain version at
+    the node2vec cell's shape, two launches bit-equal, and the times of
+    its stages, the path it replaces and the step (``bench/sgns_probe.py``).
+    Returns the result."""
+    from graphtpu_torch.bench.sgns_probe import sg1_times
+
+    r = sg1_times(dev)
+    ms = r["ms"]
+    say(f"SG1 at the node2vec cell's shape {r['shape']} ({r['live_slots']} live slots, a row "
+        f"of up to {r['max_row_items']} items): SG1a {ms['coeffs']:.3f} ms, the keys' sort "
+        f"{ms['sort']:.3f}, SG1b (sort and launch) {ms['rows']:.3f}, SG1 {ms['sg1']:.3f} "
+        f"against the segment path's {ms['segment']:.3f} and the plain version's "
+        f"{ms['plain']:.3f}; the whole step {ms['step']:.3f} ms; bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}), SG1 at {100 * r['of_bound']:.1f}% of it; largest error "
+        f"{r['max_abs_err']:.2e} ({r['max_rel_err']:.2e} of a table's largest element); "
+        f"memory rise {r['rise_bytes']}")
+    report["sg1"] = r
+    return r
 
 
 @contextlib.contextmanager
@@ -3080,6 +3108,10 @@ def main(argv=None) -> int:
     expand_cases = phase_expand(dev, report)
     torch.cuda.empty_cache()
 
+    say("== phase 4e: SGNS's gradients SG1 against their plain version")
+    sg1_case = phase_sg1(dev, report)
+    torch.cuda.empty_cache()
+
     from graphtpu_torch.io.edgelist import write_edgelist
     from graphtpu_torch.kernels import topk, transpose
 
@@ -3129,7 +3161,17 @@ def main(argv=None) -> int:
     blog_g, corpus = phase_walks(dev, report)
 
     say("== phase 10: SGNS on the blog walks")
+    from graphtpu_torch.models import sgns as sgns_model
+
+    sg1_launched = dict(sgns_model.SG1_LAUNCHES)
+    fused = sgns_model.SGNS_COUNTS["fused_steps"]
     phase_sgns(dev, blog_g, corpus, report)
+    launches["sg1"] = {k: sgns_model.SG1_LAUNCHES[k] - x for k, x in sg1_launched.items()}
+    sg1_replays = sgns_model.SGNS_COUNTS["fused_steps"] - fused
+    say(f"SG1 in phase 10: launches from the host {launches['sg1']}; {sg1_replays} steps of "
+        f"train_sgns replayed a captured step that holds SG1's three kernels")
+    for k, n in launches["sg1"].items():
+        check(n > 0, f"SG1's kernel {k} was never launched on its path")
     del blog_g, corpus
     torch.cuda.empty_cache()
 
@@ -3277,6 +3319,19 @@ def main(argv=None) -> int:
               e1, bounds.expand_work(*e1["shape"]), None)
     x.update(shape=e1["shape"], depths=[{k: c[k] for k in (
         "depth", "live_parents", "ms", "call_ms", "plain_ms", "bound_ms")} for c in expand_cases])
+    summary.append(x)
+    # SG1 timed at the node2vec cell's shape (phase 4e); its launches are
+    # phase 10's, each kernel's from the host, beside the replayed steps
+    sh = sg1_case["shape"]
+    x = entry("sgns grads (SG1)", "graphtpu_torch/kernels/csrc/sgns.cu",
+              "none (graphtpu/models/sgns.py forms the gradients with XLA ops)", "sg1",
+              [sg1_case["max_abs_err"]], dict(ms=sg1_case["ms"]["sg1"],
+                                              plain_ms=sg1_case["ms"]["plain"]),
+              bounds.sgns_step_work(sh["v"], sh["d"], sh["b"], sh["w2"], sh["n"],
+                                    sg1_case["live_slots"]), None)
+    x.update(shape=sh, replayed_steps=sg1_replays, max_rel_err=sg1_case["max_rel_err"],
+             stages_ms={k: sg1_case["ms"][k] for k in ("coeffs", "sort", "rows", "step")},
+             segment_ms=sg1_case["ms"]["segment"], rise_bytes=sg1_case["rise_bytes"])
     summary.append(x)
     for key, label, replaces in RATE_KERNELS:
         mine = [c for c in rate_cases if c["kernel"] == key]

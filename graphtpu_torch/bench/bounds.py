@@ -64,6 +64,19 @@ def expand_work(rows: int, w: int, length: int) -> Tuple[float, float]:
     return float(rows * w * (4 * length + 4 + 4 + 4 + 4)), 0.0
 
 
+def sgns_step_work(v: int, d: int, b: int, w2: int, n: int, live: int) -> Tuple[float, float]:
+    """(bytes, operations) of one SGNS step's gradients (SG1) over [V, D]
+    float32 tables, a batch of ``b`` centers with ``w2`` context slots and
+    ``n`` shared negatives, ``live`` of its slots with a coefficient.
+    Bytes as ``benchmark/roofline_node2vec.py`` counts a step's: both
+    tables read and two tables written once (the rows it looks up are
+    re-reads, from L2 at the cell's V), the batch's int32 ids and bool mask
+    read once.  Operations: a live slot's dot product, its term of dv and
+    its term of a syn1 row (6 D), a center's dv added into its row (D)."""
+    nbytes = 4 * v * d * 4 + b * (4 + w2 * (4 + 1)) + b * n * 4
+    return float(nbytes), float(6 * d * live + d * b)
+
+
 def stream_terms(stream) -> int:
     """The terms of an item stream: its items (seg-1), or its real items'
     sub-rows with a nonzero raw coefficient (seg-k)."""

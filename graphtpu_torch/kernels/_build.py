@@ -169,6 +169,10 @@ def load() -> ctypes.CDLL:
     lib.gt_expand_frontier.argtypes = [p, p, p, p, i32, p, i64, p, p, p, p, i64, i64, i64, i32,
                                        i32, p]
     lib.gt_expand_frontier.restype = ctypes.c_int
+    lib.gt_sg1_coeffs.argtypes = [p] * 9 + [i64] * 5 + [p]
+    lib.gt_sg1_coeffs.restype = ctypes.c_int
+    lib.gt_sg1_rows.argtypes = [p] * 10 + [i64] * 6 + [p]
+    lib.gt_sg1_rows.restype = ctypes.c_int
     lib.gt_error_string.argtypes = [ctypes.c_int]
     lib.gt_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -15,22 +15,27 @@ SGD with gensim-0.13.3 semantics:
     compacted, re-rolled per epoch;
   * linear LR decay alpha -> min_alpha over the whole run.
 
-A step gathers [B] centers x [2*window] contexts x negatives, forms the
-closed-form gradients and sums them into table rows with
-:func:`graphtpu_torch.kernels.topk.segment_rows_sum`, which gives the same
-bits on every run.  Every random draw comes from a stream of
-:mod:`graphtpu_torch.core.prng` keyed by (epoch, chunk start), so a run
-resumed from a checkpoint reproduces the uninterrupted one.  Embedding =
-the input table (syn0).
+A step gathers [B] centers x [2*window] contexts x negatives and forms
+the closed-form gradients summed into table rows, in a fixed order that
+gives the same bits on every run.  On a CUDA device with shared negatives
+the kernel pair SG1 (``kernels/csrc/sgns.cu``, :func:`sg1_grads`) forms
+them from per-pair scalar coefficients, with no [B, 2*window, D] rows;
+elsewhere (the CPU, gensim's per-pair negatives) the gradient rows are
+summed by :func:`graphtpu_torch.kernels.topk.segment_rows_sum`.  Every
+random draw comes from a stream of :mod:`graphtpu_torch.core.prng` keyed
+by (epoch, chunk start), so a run resumed from a checkpoint reproduces the
+uninterrupted one.  Embedding = the input table (syn0).
 
 Every :func:`train_sgns` call adds to :data:`SGNS_COUNTS` (read as
 differences): its steps, the center slots and negatives they drew (known
-on the host) and the valid (center, context) pairs they trained on
-(counted on the device, one sum a step, read once at the end).
+on the host), the valid (center, context) pairs they trained on (counted
+on the device, one sum a step, read once at the end) and the steps whose
+gradients SG1 formed (``fused_steps``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 from typing import Optional, Tuple, Union
@@ -46,7 +51,12 @@ from graphtpu_torch.kernels.topk import segment_rows_sum
 
 Params = Tuple[torch.Tensor, torch.Tensor]
 
-SGNS_COUNTS = {"steps": 0, "centers": 0, "pairs": 0, "negatives": 0}
+SGNS_COUNTS = {"steps": 0, "centers": 0, "pairs": 0, "negatives": 0, "fused_steps": 0}
+# SG1's kernels' launches from the host: a call outside a CUDA graph's
+# capture runs them, a call inside one records them into the graph, whose
+# replays run them again without the host
+SG1_LAUNCHES = {"coeffs": 0, "chunks": 0, "finish": 0}
+SG1_CHUNK = 32  # sorted items a chunk of SG1b (kChunk of kernels/csrc/sgns.cu)
 
 
 def corpus_counts(walks: torch.Tensor, n_nodes: int) -> torch.Tensor:
@@ -186,9 +196,23 @@ def sgns_manual_grads(
     negatives: torch.Tensor,
     n_nodes: int,
 ):
-    """Closed-form gradients of :func:`sgns_loss`, summed into table rows by
-    :func:`segment_rows_sum`, with each row's occurrence count for the
-    collision normalisation.  Returns ((g0, g1), (c0, c1))."""
+    """Closed-form gradients of :func:`sgns_loss` summed into table rows,
+    with each row's occurrence count for the collision normalisation:
+    a center counts where it is >= 0, a context where ``ctx_mask`` holds,
+    a negative always.  Returns ((g0, g1), (c0, c1)).
+
+    On a CUDA device with shared negatives (2-D) SG1 forms them
+    (:func:`sg1_grads`); elsewhere the gradient rows are summed by
+    :func:`segment_rows_sum`."""
+    if centers.device.type == "cuda" and negatives.dim() == 2:
+        return sg1_grads(params, centers, contexts, ctx_mask, negatives, n_nodes)
+    return _segment_grads(params, centers, contexts, ctx_mask, negatives, n_nodes)
+
+
+def _segment_grads(params: Params, centers, contexts, ctx_mask, negatives, n_nodes: int):
+    """:func:`sgns_manual_grads` by gradient rows: :func:`sgns_closed_form`,
+    then :func:`segment_rows_sum` of the centers' and of the contexts' and
+    negatives' rows."""
     dv, du, dun = sgns_closed_form(*_lookups(params, centers, contexts, negatives), centers,
                                    contexts, ctx_mask, negatives)
     d = dv.shape[1]
@@ -196,6 +220,167 @@ def sgns_manual_grads(
     idx1 = torch.cat([torch.where(ctx_mask, contexts, -1).reshape(-1), negatives.reshape(-1)])
     g1, c1 = segment_rows_sum(idx1, torch.cat([du.reshape(-1, d), dun.reshape(-1, d)]), n_nodes)
     return (g0, g1), (c0, c1)
+
+
+# SG1 (kernels/csrc/sgns.cu) and its plain version.  An item is a context
+# slot, a negative or a center, in that order, batch-major; its sort key is
+# the table row it adds to: syn1's row r as r, syn0's row r as n_nodes + 1 +
+# r, and n_nodes for a masked context or a center < 0 (summed nowhere).
+
+
+def check_sg1_args(params: Params, centers, contexts, ctx_mask, negatives, n_nodes: int) -> None:
+    """Raise on what SG1 does not take: tables other than contiguous [., D]
+    float32 ones with D <= 512, a batch whose shapes disagree ([B]
+    centers, [B, 2w] contexts and mask, [B, N] negatives), more than 2^31
+    items or rows, or tensors on more than one device.  Checks only: runs
+    before any launch, on any device."""
+    syn0, syn1 = params
+    for name, t in (("syn0", syn0), ("syn1", syn1)):
+        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+            raise TypeError(f"SG1 takes contiguous [V, D] float32 tables; {name} is {t.dtype} "
+                            f"{tuple(t.shape)}")
+    d = syn0.shape[1]
+    if syn1.shape[1] != d or not 1 <= d <= 512:
+        raise ValueError(f"SG1 takes tables of one width of 1 to 512, got {syn0.shape[1]} and "
+                         f"{syn1.shape[1]}")
+    if centers.dim() != 1 or contexts.dim() != 2 or negatives.dim() != 2:
+        raise ValueError("SG1 takes [B] centers, [B, 2w] contexts and [B, N] shared negatives")
+    b, w2 = contexts.shape
+    if centers.shape[0] != b or tuple(ctx_mask.shape) != (b, w2) or negatives.shape[0] != b:
+        raise ValueError(f"SG1's batch disagrees: centers {tuple(centers.shape)}, contexts "
+                         f"{tuple(contexts.shape)}, mask {tuple(ctx_mask.shape)}, negatives "
+                         f"{tuple(negatives.shape)}")
+    if b < 1 or w2 < 1 or max(b * (w2 + negatives.shape[1] + 1), 2 * n_nodes + 1) >= 1 << 31:
+        raise ValueError(f"SG1 takes 1 to 2^31 items and rows, got B = {b}, 2w = {w2}, "
+                         f"V = {n_nodes}")
+    for name, t in (("syn1", syn1), ("centers", centers), ("contexts", contexts),
+                    ("ctx_mask", ctx_mask), ("negatives", negatives)):
+        if t.device != syn0.device:
+            raise ValueError(f"SG1 takes its tensors on one device: {name} is on {t.device}, "
+                             f"syn0 on {syn0.device}")
+
+
+def _ids(x: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
+    return x if x.dtype == dtype and x.is_contiguous() else x.to(dtype).contiguous()
+
+
+def sg1_coeffs(params: Params, centers, contexts, ctx_mask, negatives, n_nodes: int):
+    """SG1a, one launch on the current stream: (g [B, 2w + N] float32, dv
+    [B, D] float32, keys [B (2w + N + 1)] int32), as
+    :func:`_sg1_coeffs_plain` gives them."""
+    from graphtpu_torch.kernels import _build
+
+    check_sg1_args(params, centers, contexts, ctx_mask, negatives, n_nodes)
+    syn0, syn1 = params
+    centers, contexts, negatives = _ids(centers), _ids(contexts), _ids(negatives)
+    ctx_mask = _ids(ctx_mask, torch.bool)
+    (b, w2), nn, d = contexts.shape, negatives.shape[1], syn0.shape[1]
+    g = torch.empty((b, w2 + nn), dtype=torch.float32, device=syn0.device)
+    dv = torch.empty((b, d), dtype=torch.float32, device=syn0.device)
+    keys = torch.empty(b * (w2 + nn + 1), dtype=torch.int32, device=syn0.device)
+    lib = _build.load()
+    with torch.cuda.device(syn0.device):
+        rc = lib.gt_sg1_coeffs(
+            syn0.data_ptr(), syn1.data_ptr(), centers.data_ptr(), contexts.data_ptr(),
+            ctx_mask.data_ptr(), negatives.data_ptr(), g.data_ptr(), dv.data_ptr(),
+            keys.data_ptr(), b, w2, nn, d, n_nodes,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"SG1a launch failed: {_build.error_string(rc)}")
+    SG1_LAUNCHES["coeffs"] += 1
+    return g, dv, keys
+
+
+def sg1_rows(syn0: torch.Tensor, centers, g, dv, keys, w2: int, n_nodes: int):
+    """SG1b on the current stream, after :func:`sg1_coeffs` over ``w2``
+    context slots: the keys' stable sort (``torch.sort`` on int32), then
+    a memset and two launches (``chunks``, ``finish``): ((g0, g1), (c0,
+    c1)), as :func:`_sg1_rows_plain` gives them.  g1 and g0 are rows
+    0..V-1 and V+1..2V of one [2V + 1, D] tensor, the counts likewise."""
+    from graphtpu_torch.kernels import _build
+
+    if keys.dtype != torch.int32 or g.dtype != torch.float32 or dv.dtype != torch.float32:
+        raise TypeError("SG1b takes int32 keys and float32 coefficients and dv")
+    centers, g, dv, keys = _ids(centers), g.contiguous(), dv.contiguous(), keys.contiguous()
+    (b, s), d, v, n = g.shape, dv.shape[1], n_nodes, keys.numel()
+    skeys, order = torch.sort(keys, stable=True)
+    dev = syn0.device
+    out = torch.empty((2 * v + 1, d), dtype=torch.float32, device=dev)
+    counts = torch.empty(2 * v + 1, dtype=torch.float32, device=dev)
+    partial = torch.empty((-(-n // SG1_CHUNK), 2, d), dtype=torch.float32, device=dev)
+    bounds = torch.empty((2, 2 * v + 1), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.gt_sg1_rows(
+            skeys.data_ptr(), order.data_ptr(), g.data_ptr(), dv.data_ptr(), syn0.data_ptr(),
+            centers.data_ptr(), out.data_ptr(), partial.data_ptr(), bounds.data_ptr(),
+            counts.data_ptr(), n, b, w2, s - w2, d, v,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"SG1b launch failed: {_build.error_string(rc)}")
+    SG1_LAUNCHES["chunks"] += 1
+    SG1_LAUNCHES["finish"] += 1
+    return (out[v + 1:], out[:v]), (counts[v + 1:], counts[:v])
+
+
+def sg1_grads(params: Params, centers, contexts, ctx_mask, negatives, n_nodes: int):
+    """:func:`sgns_manual_grads` by SG1 on the current stream, or raises:
+    :func:`sg1_coeffs`, then :func:`sg1_rows`.  No host sync, so a CUDA
+    graph can hold it."""
+    g, dv, keys = sg1_coeffs(params, centers, contexts, ctx_mask, negatives, n_nodes)
+    return sg1_rows(params[0], centers, g, dv, keys, contexts.shape[1], n_nodes)
+
+
+def _sg1_coeffs_plain(params: Params, centers, contexts, ctx_mask, negatives, n_nodes: int):
+    """SG1a's (g, dv, keys) in PyTorch ops: a context slot's coefficient
+    sigma(v.u) - 1 where it is valid and its center >= 0, a negative's
+    sigma(v.u) times its count of such slots that it does not hit (nor the
+    center), 0 elsewhere; dv = the coefficients times the syn1 rows."""
+    syn0, syn1 = params
+    w2 = contexts.shape[1]
+    m = ctx_mask & (centers >= 0)[:, None]
+    v = syn0[centers.clamp(min=0)]                                    # [B, D]
+    rows = syn1[torch.cat([contexts.clamp(min=0), negatives], 1)]     # [B, 2w + N, D]
+    x = torch.einsum("bd,bsd->bs", v, rows)
+    g = torch.cat([torch.where(m, torch.sigmoid(x[:, :w2]) - 1.0, 0.0),
+                   torch.sigmoid(x[:, w2:]) * _shared_coeff(m, centers, contexts, negatives)], 1)
+    dv = torch.einsum("bs,bsd->bd", g, rows)
+    keys = torch.cat([torch.where(ctx_mask, contexts, n_nodes).reshape(-1),
+                      negatives.reshape(-1),
+                      torch.where(centers >= 0, centers + n_nodes + 1, n_nodes)]).int()
+    return g, dv, keys
+
+
+def _sg1_rows_plain(syn0: torch.Tensor, centers, g, dv, keys, w2: int, n_nodes: int,
+                    chunk: int = SG1_CHUNK):
+    """SG1b's ((g0, g1), (c0, c1)) in PyTorch ops, summed as the kernel
+    sums: the items' rows (a context's or negative's coefficient times its
+    center's syn0 row, a center's dv row) in the keys' stable order, each
+    run of one key within a chunk of ``chunk`` sorted items summed in
+    order, then each key's runs in chunk order."""
+    v, d = n_nodes, dv.shape[1]
+    vc = syn0[centers.clamp(min=0)]
+    items = torch.cat([(g[:, :w2, None] * vc[:, None, :]).reshape(-1, d),
+                       (g[:, w2:, None] * vc[:, None, :]).reshape(-1, d), dv])
+    skeys, order = torch.sort(keys.long(), stable=True)
+    rows = items[order]
+    # a run: one key within one chunk (pieces of a key come out in chunk order)
+    run = torch.arange(len(skeys), device=skeys.device) // chunk * (2 * v + 2) + skeys
+    run_id, run_len = torch.unique_consecutive(run, return_counts=True)
+    sums = torch.segment_reduce(rows, "sum", lengths=run_len, axis=0)
+    key_id, key_runs = torch.unique_consecutive(run_id % (2 * v + 2), return_counts=True)
+    out = torch.zeros((2 * v + 2, d), dtype=torch.float32, device=syn0.device)
+    out[key_id] = torch.segment_reduce(sums, "sum", lengths=key_runs, axis=0)
+    counts = torch.bincount(skeys, minlength=2 * v + 2).float()
+    return (out[v + 1:2 * v + 1], out[:v]), (counts[v + 1:2 * v + 1], counts[:v])
+
+
+def _sgns_grads_plain(params: Params, centers, contexts, ctx_mask, negatives, n_nodes: int,
+                      chunk: int = SG1_CHUNK):
+    """SG1's two stages in PyTorch ops (:func:`_sg1_coeffs_plain`, then
+    :func:`_sg1_rows_plain`): what the tests hold the kernel to."""
+    g, dv, keys = _sg1_coeffs_plain(params, centers, contexts, ctx_mask, negatives, n_nodes)
+    return _sg1_rows_plain(params[0], centers, g, dv, keys, contexts.shape[1], n_nodes, chunk)
 
 
 def sgns_step(
@@ -271,8 +456,10 @@ class SgnsSteps:
     :func:`batch_step`'s step (:func:`draw_batch`, then :func:`sgns_step`)
     on the epoch's compacted walks (:meth:`epoch`) from the chunk's stream
     (:meth:`chunk`), keeps the batch it drew in ``batch`` (centers,
-    contexts, mask, negatives) and adds its valid (center, context) pairs
-    to ``pairs`` on the device.
+    contexts, mask, negatives), adds its valid (center, context) pairs
+    to ``pairs`` on the device and sets ``fused`` where SG1 formed its
+    gradients (set when a step is taken in Python: a replay keeps the
+    captured step's).
 
     On one CUDA device (no ``shards``) the first step is captured as one
     CUDA graph and every step replays it: the tables given to the first
@@ -293,6 +480,7 @@ class SgnsSteps:
         self.graphed = self.dev.type == "cuda" and shards is None
         self.gen = torch.Generator(device=self.dev)
         self.key = 0
+        self.fused = False
         self.cwalks = self.graph = self.batch = None
 
     def epoch(self, cwalks: torch.Tensor) -> None:
@@ -305,15 +493,19 @@ class SgnsSteps:
         self.key = key
         self.gen.manual_seed(key)
 
-    def _draw(self, slots):
+    def _take(self, params: Params, slots, lr, shards=None, stage_times=None) -> Params:
+        """:func:`draw_batch`, then the step; ``fused`` says whether SG1
+        formed its gradients."""
         self.batch = draw_batch(self.cwalks, slots, self.window, *self.neg, self.gen)
         centers, _, mask, _ = self.batch
         self.pairs.add_((mask & (centers >= 0)[:, None]).sum())
-        return self.batch
+        launched = SG1_LAUNCHES["coeffs"]
+        new = _take_step(params, self.batch, lr, self.n_nodes, shards, stage_times)
+        self.fused = SG1_LAUNCHES["coeffs"] > launched
+        return new
 
     def _body(self):
-        new = _take_step(self.params, self._draw(self.slots), self.lr, self.n_nodes)
-        for p, x in zip(self.params, new):
+        for p, x in zip(self.params, self._take(self.params, self.slots, self.lr)):
             p.copy_(x)
 
     def _capture(self, params: Params, slots: torch.Tensor) -> None:
@@ -344,8 +536,7 @@ class SgnsSteps:
 
     def step(self, params: Params, slots: torch.Tensor, lr: float) -> Params:
         if not self.graphed:
-            return _take_step(params, self._draw(slots), lr, self.n_nodes, self.shards,
-                              self.stage_times)
+            return self._take(params, slots, lr, self.shards, self.stage_times)
         if self.graph is None:
             self._capture(params, slots)
         self.slots.copy_(slots)
@@ -517,6 +708,7 @@ def train_sgns(
                     SGNS_COUNTS["steps"] += 1
                     SGNS_COUNTS["centers"] += batch
                     SGNS_COUNTS["negatives"] += math.prod(nshape)
+                    SGNS_COUNTS["fused_steps"] += steps.fused
                     if stage_times is not None:
                         stage_times["steps"] = stage_times.get("steps", 0) + 1
                 done_chunks += 1

@@ -19,8 +19,11 @@ The dense form's ``matmul_precision`` on the card: "high" bit-equal to
 "highest" in every rank, "default" (TF32) different but within
 2·k·2^-11 after k iterations (derived in tests/test_torch_models_cuda.py).
 SGNS's model axis on the card: 5 steps on a (1, 4) mesh equal one card's
-``sgns_step`` bit for bit (one device's order of sums), on a (2, 2) mesh
-within 1e-5 (the data axis sums each row in two blocks).
+steps by gradient rows (``sgns_step``'s update of ``_segment_grads``, the
+order of sums the mesh keeps) bit for bit, and one card's ``sgns_step``
+(which sums by SG1, in another order) within 1e-5; on a (2, 2) mesh
+within 1e-5 of the steps by gradient rows (the data axis sums each row in
+two blocks).
 """
 
 import numpy as np
@@ -38,6 +41,7 @@ BF16_ULPS = 4
 TF32_ITERATIONS = 5
 TF32_BOUND = 2 * TF32_ITERATIONS * 2.0 ** -11
 TOL_SGNS = {2: 1e-5, 4: 0.0}   # model_parallel -> SGNS shards vs one card
+TOL_SGNS_SG1 = 1e-5            # the (1, 4) mesh vs one card's sgns_step (SG1)
 SGNS_V, SGNS_STEPS = 5000, 5
 
 
@@ -136,14 +140,15 @@ def _sgns_batches(device):
 
 def _precision_and_model_axis(device):
     """Each rank: its dense block at three precisions; SGNS steps on a
-    (2, 2) and a (1, 4) mesh against one card's ``sgns_step`` on the same
-    device.  Returns every rank's row of numbers."""
+    (2, 2) and a (1, 4) mesh against one card's steps by gradient rows on
+    the same device, and the (1, 4) mesh against one card's
+    ``sgns_step``.  Returns every rank's row of numbers."""
     from graphtpu_torch import build_graph
     from graphtpu_torch.core.config import SGNSConfig, SimRankConfig
     from graphtpu_torch.core.device import full_fp32
     from graphtpu_torch.dist.sgns_dp import make_sgns_train_step, row_shards
     from graphtpu_torch.dist.simrank_sharded import sharded_exact_simrank
-    from graphtpu_torch.models.sgns import sgns_step
+    from graphtpu_torch.models.sgns import _segment_grads, sgns_step
 
     mesh = tm.make_1d_mesh(device=device)
     dev = mesh.device
@@ -156,10 +161,14 @@ def _precision_and_model_axis(device):
     rng = np.random.default_rng(12)
     tables = [rng.normal(scale=0.1, size=(SGNS_V, 32)).astype(np.float32) for _ in range(2)]
     batches = _sgns_batches(dev)
-    one = tuple(torch.from_numpy(t).to(dev) for t in tables)
+    one = fused = tuple(torch.from_numpy(t).to(dev) for t in tables)
     with full_fp32():
         for i, b in enumerate(batches):
-            one = sgns_step(one, *b, 0.025 - 0.002 * i, SGNS_V)
+            (g0, g1), (c0, c1) = _segment_grads(one, *b, SGNS_V)
+            lr = 0.025 - 0.002 * i
+            one = (one[0] - lr * (g0 / c0.clamp(min=1)[:, None]),
+                   one[1] - lr * (g1 / c1.clamp(min=1)[:, None]))
+            fused = sgns_step(fused, *b, lr, SGNS_V)
     for mp in TOL_SGNS:
         m = tm.make_mesh(model_parallel=mp, device=device)
         sh = row_shards(m, SGNS_V)
@@ -171,6 +180,10 @@ def _precision_and_model_axis(device):
         hi = min(sh.lo + sh.rows, SGNS_V)
         row.append(max((p[: hi - sh.lo] - o[sh.lo: hi]).abs().max().item()
                        for p, o in zip(params, one)))
+        if mp == 4:
+            last = max((p[: hi - sh.lo] - o[sh.lo: hi]).abs().max().item()
+                       for p, o in zip(params, fused))
+    row.append(last)
     return tm.all_gather(torch.tensor(row, dtype=torch.float64, device=dev),
                          mesh.groups["data"]).cpu().numpy()
 
@@ -181,3 +194,4 @@ def test_precision_and_model_axis_on_card(cuda):
     assert (per_rank[:, 1] <= TF32_BOUND).all() and per_rank[:, 1].max() > 0, per_rank[:, 1]
     for k, (mp, tol) in enumerate(TOL_SGNS.items()):
         assert (per_rank[:, 2 + k] <= tol).all(), (mp, per_rank[:, 2 + k])
+    assert (per_rank[:, -1] <= TOL_SGNS_SG1).all(), per_rank[:, -1]

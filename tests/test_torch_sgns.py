@@ -278,3 +278,165 @@ def test_train_sgns_raises_without_card(small_walks, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsgns.train_sgns(small_walks, 64, SGNSConfig(dim=8, epochs=1))
+
+
+# SG1 (kernels/csrc/sgns.cu) runs on a card only; here its plain version
+# (_sgns_grads_plain) is held to graphtpu, and its row sums to SG1b's
+# order of additions.
+
+SG1_V, SG1_B, SG1_W2, SG1_N = 40, 64, 6, 4
+
+
+def _sg1_case(case, seed=21, d=8):
+    """A shared-negatives batch of SG1_B centers over SG1_V rows for one
+    of the cases SG1 must take."""
+    rng = np.random.default_rng(seed)
+    v, b, w2, n = SG1_V, SG1_B, SG1_W2, SG1_N
+    params = [rng.normal(scale=0.5, size=(v, d)).astype(np.float32) for _ in range(2)]
+    centers = rng.integers(0, v, b).astype(np.int32)
+    contexts = rng.integers(0, v, (b, w2)).astype(np.int32)
+    mask = rng.random((b, w2)) < 0.8
+    negs = rng.integers(0, v, (b, n)).astype(np.int32)
+    if case == "masked":
+        mask &= rng.random((b, w2)) < 0.5
+        mask[:8] = False  # centers with no valid slot
+        contexts[~mask] = -1
+    elif case == "dead_centers":
+        centers[::5] = -1  # their valid slots count, and move nothing
+    elif case == "accidental_hits":
+        negs[:, 0] = contexts[:, 0]
+        negs[:, 1] = centers
+        negs[::3, 2] = contexts[::3, 1]
+    elif case == "repeated_row":
+        contexts[:4] = 5
+        negs[:4] = 5
+        centers[:4] = 5
+    elif case == "hub":  # one row with more items than SG1b's chunk
+        contexts[rng.random((b, w2)) < 0.4] = 3
+        negs[:, 1] = 3
+        centers[::4] = 3
+        mask[contexts == 3] = True
+    return params, centers, contexts, mask, negs
+
+
+def _sg1_batch_tensors(case="hub"):
+    (p0, p1), *rest = _sg1_case(case)
+    return (torch.from_numpy(p0), torch.from_numpy(p1)), [torch.from_numpy(x) for x in rest]
+
+
+SG1_CASES = ["masked", "dead_centers", "accidental_hits", "repeated_row", "hub"]
+
+
+@pytest.mark.parametrize("case", SG1_CASES)
+def test_sg1_plain_matches_graphtpu(case):
+    arrs = _sg1_case(case)
+    (jp, *jr), (tp, *tr) = _both(arrs)
+    (jg0, jg1), (jc0, jc1) = jsgns.sgns_manual_grads(jp, *jr, SG1_V)
+    (g0, g1), (c0, c1) = tsgns._sgns_grads_plain(tp, *tr, SG1_V)
+    np.testing.assert_allclose(g0.numpy(), np.asarray(jg0), atol=TOL_GRAD)
+    np.testing.assert_allclose(g1.numpy(), np.asarray(jg1), atol=TOL_GRAD)
+    np.testing.assert_array_equal(c0.numpy(), np.asarray(jc0))
+    np.testing.assert_array_equal(c1.numpy(), np.asarray(jc1))
+    if case == "hub":
+        assert c1[3] > 2 * tsgns.SG1_CHUNK
+
+
+def _chunk_order_sums(keys, items, rows, chunk):
+    """Each row's items in the keys' stable order, added one float32 at a
+    time within each chunk of ``chunk`` sorted items, then the chunks'
+    sums in chunk order: the order SG1b sums in."""
+    order = np.argsort(keys, kind="stable")
+    pos_of = np.argsort(order, kind="stable")  # an item's sorted position
+    out = np.zeros((rows, items.shape[1]), np.float32)
+    for r in np.unique(keys):
+        mine = np.flatnonzero(keys == r)  # item order = sorted order within a key
+        total = np.zeros(items.shape[1], np.float32)
+        for q in np.unique(pos_of[mine] // chunk):
+            part = np.zeros(items.shape[1], np.float32)
+            for i in mine[pos_of[mine] // chunk == q]:
+                part = part + items[i]
+            total = total + part
+        out[r] = total
+    return out
+
+
+@pytest.mark.parametrize("chunk", [4, 32])
+@pytest.mark.parametrize("case", SG1_CASES)
+def test_sg1_rows_plain_sums_in_chunk_order(case, chunk):
+    """The plain version of SG1b adds each row's items in SG1b's order (the
+    card tests hold SG1b to it bit for bit) and counts them."""
+    tables, (centers, contexts, mask, negs) = _sg1_batch_tensors(case)
+    g, dv, keys = tsgns._sg1_coeffs_plain(tables, centers, contexts, mask, negs, SG1_V)
+    (g0, g1), (c0, c1) = tsgns._sg1_rows_plain(tables[0], centers, g, dv, keys, SG1_W2, SG1_V,
+                                               chunk)
+    d, v = dv.shape[1], SG1_V
+    vc = tables[0][centers.clamp(min=0)]
+    items = torch.cat([(g[:, :SG1_W2, None] * vc[:, None]).reshape(-1, d),
+                       (g[:, SG1_W2:, None] * vc[:, None]).reshape(-1, d), dv]).numpy()
+    keys = keys.numpy()
+    out = _chunk_order_sums(keys, items, 2 * v + 1, chunk)
+    counts = np.bincount(keys, minlength=2 * v + 1).astype(np.float32)
+    np.testing.assert_array_equal(out[:v], g1.numpy())
+    np.testing.assert_array_equal(out[v + 1:], g0.numpy())
+    np.testing.assert_array_equal(counts[:v], c1.numpy())
+    np.testing.assert_array_equal(counts[v + 1:], c0.numpy())
+
+
+def test_sg1_keys_and_coefficients():
+    """SG1a's keys: a context's id where its mask holds (else the skip key
+    V), every negative's id, V + 1 + c for a center c >= 0 (else V); a
+    masked slot's and a dead center's coefficients are 0."""
+    _, centers, contexts, mask, negs = _sg1_case("dead_centers")
+    t, batch = _sg1_batch_tensors("dead_centers")
+    g, dv, keys = tsgns._sg1_coeffs_plain(t, *batch, SG1_V)
+    b, w2, v = SG1_B, SG1_W2, SG1_V
+    keys = keys.numpy()
+    np.testing.assert_array_equal(keys[:b * w2], np.where(mask, contexts, v).reshape(-1))
+    np.testing.assert_array_equal(keys[b * w2:-b], negs.reshape(-1))
+    np.testing.assert_array_equal(keys[-b:], np.where(centers >= 0, centers + v + 1, v))
+    g = g.numpy()
+    assert (g[:, :w2][~mask] == 0).all() and (g[centers < 0] == 0).all()
+    assert (dv.numpy()[centers < 0] == 0).all()
+    assert (g[:, :w2][mask & (centers >= 0)[:, None]] < 0).all() and (g[:, w2:] >= 0).all()
+
+
+@pytest.mark.parametrize("bad", ["f64_table", "widths", "wide", "batch", "per_pair", "device"])
+def test_sg1_checks_raise(bad):
+    params, (centers, contexts, mask, negs) = _sg1_batch_tensors()
+    if bad == "f64_table":
+        params = (params[0].double(), params[1])
+    elif bad == "widths":
+        params = (params[0], params[1][:, :4].contiguous())
+    elif bad == "wide":
+        params = tuple(torch.zeros((SG1_V, 520)) for _ in range(2))
+    elif bad == "batch":
+        centers = centers[:-1]
+    elif bad == "per_pair":
+        negs = negs[:, None, :].expand(-1, SG1_W2, -1)
+    elif bad == "device":
+        negs = negs.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        tsgns.check_sg1_args(params, centers, contexts, mask, negs, SG1_V)
+
+
+def test_cpu_steps_keep_the_segment_path():
+    """On the CPU sgns_manual_grads launches nothing and gives the bits of
+    sgns_closed_form summed by segment_rows_sum; train_sgns counts no
+    fused step."""
+    params, (centers, contexts, mask, negs) = _sg1_batch_tensors()
+    launched = dict(tsgns.SG1_LAUNCHES)
+    (g0, g1), (c0, c1) = tsgns.sgns_manual_grads(params, centers, contexts, mask, negs, SG1_V)
+    assert tsgns.SG1_LAUNCHES == launched
+    dv, du, dun = tsgns.sgns_closed_form(*tsgns._lookups(params, centers, contexts, negs),
+                                         centers, contexts, mask, negs)
+    want0, want_c0 = segment_rows_sum(centers, dv, SG1_V)
+    idx1 = torch.cat([torch.where(mask, contexts, -1).reshape(-1), negs.reshape(-1)])
+    want1, want_c1 = segment_rows_sum(idx1, torch.cat([du.reshape(-1, 8), dun.reshape(-1, 8)]),
+                                      SG1_V)
+    for got, want in ((g0, want0), (g1, want1), (c0, want_c0), (c1, want_c1)):
+        assert torch.equal(got, want)
+    walks = torch.from_numpy(np.random.default_rng(4).integers(0, 30, (40, 12)).astype(np.int32))
+    before = dict(tsgns.SGNS_COUNTS)
+    tsgns.train_sgns(walks, 30, SGNSConfig(dim=8, epochs=1, batch_size=64), device=CPU)
+    assert tsgns.SGNS_COUNTS["steps"] > before["steps"]
+    assert tsgns.SGNS_COUNTS["fused_steps"] == before["fused_steps"]
